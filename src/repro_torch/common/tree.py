@@ -1,0 +1,48 @@
+"""Nested-dict parameter trees in ``jax.tree`` leaf order.
+
+The port keeps parameters, gradients and optimizer moments as nested
+dicts of tensors. Leaf order matters: the leaf index and the packer
+offsets key every channel stream, so it must equal ``jax.tree.flatten``,
+which visits dict keys in sorted order (``final`` before ``trunk``,
+``b`` before ``w``). Anything that is not a dict is a leaf.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List, Tuple
+
+
+def tree_flatten_with_path(tree, prefix: Tuple[str, ...] = ()
+                           ) -> List[Tuple[Tuple[str, ...], Any]]:
+    """(path, leaf) pairs in ``jax.tree.flatten`` order."""
+    if not isinstance(tree, dict):
+        return [(prefix, tree)]
+    out = []
+    for k in sorted(tree):
+        out.extend(tree_flatten_with_path(tree[k], prefix + (k,)))
+    return out
+
+
+def tree_leaves(tree) -> List[Any]:
+    return [leaf for _, leaf in tree_flatten_with_path(tree)]
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped like ``like`` holding ``leaves`` in flatten order."""
+    it = iter(leaves)
+
+    def build(node):
+        if not isinstance(node, dict):
+            return next(it)
+        return {k: build(node[k]) for k in sorted(node)}
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has slots")
+    return out
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """Apply ``fn`` leafwise over trees of one structure."""
+    if not isinstance(tree, dict):
+        return fn(tree, *rest)
+    return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+            for k in sorted(tree)}

@@ -1,0 +1,59 @@
+"""Carry a JAX-package ``SimState`` across into the port.
+
+The caller turns the reference state into numpy first
+(``jax.tree.map(np.asarray, state)``); this module reads only those
+numpy leaves, in the reference's field order, and never imports JAX::
+
+    SimState(omega, heads, p, ps_opt, head_opt, fgn, f0, step, ...)
+    ps_opt   = SlabAdamState(step, mu, nu)     (moments flat, (L,))
+    head_opt = AdamState(step, mu, nu)         (step (C, N), moments trees)
+    fgn      = FGNState(step, mu, nu)          (step (C,), moments (C, N))
+
+Fields beyond ``step`` (the fault-injection copies) must be None: the
+port's simulator does not carry faults yet.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.fedgradnorm import FGNState
+from repro_torch.core.sim import SimState
+from repro_torch.optim.adam import AdamState, SlabAdamState
+
+
+def _tensor(x, device, dtype=None):
+    t = torch.from_numpy(np.array(x, copy=True))
+    return t.to(device=device, dtype=dtype) if dtype else t.to(device)
+
+
+def _tree(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree(v, device) for k, v in tree.items()}
+    return _tensor(tree, device)
+
+
+def sim_state_from_numpy(state, device="cpu") -> SimState:
+    """A port ``SimState`` holding the same ω, heads, optimizer and
+    FedGradNorm state, loss weights, f0 and step as the reference's."""
+    fields = tuple(state)
+    if len(fields) < 8 or any(f is not None for f in fields[8:]):
+        raise ValueError("expected a fault-free reference SimState "
+                         "(omega, heads, p, ps_opt, head_opt, fgn, f0, step)")
+    omega, heads, p, ps_opt, head_opt, fgn, f0, step = fields[:8]
+    i32 = torch.int32
+    return SimState(
+        omega=_tree(omega, device),
+        heads=_tree(heads, device),
+        p=_tensor(p, device, torch.float32),
+        ps_opt=SlabAdamState(step=_tensor(ps_opt[0], device, i32),
+                             mu=_tensor(ps_opt[1], device, torch.float32),
+                             nu=_tensor(ps_opt[2], device, torch.float32)),
+        head_opt=AdamState(step=_tensor(head_opt[0], device, i32),
+                           mu=_tree(head_opt[1], device),
+                           nu=_tree(head_opt[2], device)),
+        fgn=FGNState(step=_tensor(fgn[0], device, i32),
+                     mu=_tensor(fgn[1], device, torch.float32),
+                     nu=_tensor(fgn[2], device, torch.float32)),
+        f0=_tensor(f0, device, torch.float32),
+        step=_tensor(step, device, i32))

@@ -1,0 +1,202 @@
+"""Paper-scale simulator of HOTA-FedGradNorm (Algorithm 1 + Algorithm 2).
+
+Port of ``repro.core.sim`` for the main path: the slab-native round at
+the default ``FLConfig`` (client-folded channel, ``"toplevel"`` or
+``"tail"`` section layout), without faults, streaming or sectioning.
+The reference's ``vmap`` over (cluster, client) is a batch dimension
+written out: every client-indexed tensor carries leading (C, N) axes.
+
+Per global iteration k (Alg. 1):
+ 1. PS broadcasts ω_k.
+ 2. Each client: τ_h head steps (Adam), then τ_ω local shared steps (SGD),
+    averaging its shared-net gradient ḡ and loss F̄.
+ 3. IS l runs FGN_Server (Alg. 2) on channel-masked last-layer gradient
+    norms (the ``masked_gradnorm`` kernel, one launch for all clusters).
+ 4. The clusters superpose over the fading MAC and the PS estimates ĝ
+    (eqs. 3, 8-10): the ``ota_client_fold`` kernel, one launch per leaf.
+ 5. PS updates ω with the slab-view Adam.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.common.config import FLConfig, TrainConfig
+from repro_torch.common.device import resolve_device
+from repro_torch.common.flatpack import packer_for
+from repro_torch.common.tree import (
+    tree_leaves, tree_map, tree_unflatten,
+)
+from repro_torch.core import ota
+from repro_torch.core.channel import ChannelParams, channel_params
+from repro_torch.core.fedgradnorm import FGNState, fgn_init, fgn_update_gated
+from repro_torch.kernels.masked_gradnorm.ops import masked_gradnorm
+from repro_torch.models.model import Model
+from repro_torch.models.params import init_params
+from repro_torch.optim.adam import (
+    AdamState, adam_init, adam_update, slab_adam_init, slab_adam_update,
+)
+
+
+class SimState(NamedTuple):
+    omega: Any                  # {"final": ..., "trunk": ...} shared net
+    heads: Any                  # leaves (C, N, ...)
+    p: torch.Tensor             # (C, N) loss weights
+    ps_opt: Any                 # SlabAdamState of the PS update
+    head_opt: AdamState         # step (C, N), moments (C, N, ...)
+    fgn: FGNState               # step (C,), moments (C, N)
+    f0: torch.Tensor            # (C, N) initial losses (for F̃)
+    step: torch.Tensor          # () int32
+
+
+def masked_cls_loss(logits: torch.Tensor, labels: torch.Tensor,
+                    n_valid: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy with classes ≥ n_valid masked out (heads are padded
+    to the largest class count). logits (..., B, c), labels (..., B),
+    n_valid broadcastable to the leading axes; returns the (...,) mean
+    over B."""
+    c = logits.shape[-1]
+    valid = (torch.arange(c, device=logits.device)
+             < n_valid.unsqueeze(-1).unsqueeze(-1))
+    logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, labels.to(torch.int64).unsqueeze(-1))
+    return -ll.squeeze(-1).mean(dim=-1)
+
+
+def _requires_grad(tree):
+    return tree_map(lambda t: t.detach().requires_grad_(True), tree)
+
+
+class HotaSim:
+    def __init__(self, model: Model, fl: FLConfig, tcfg: TrainConfig,
+                 n_classes_per_client, max_classes: int = None,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        # static gates this engine does not carry refuse loudly rather
+        # than silently running a different round
+        unsupported = [name for name, on in (
+            ("faults", fl.faults), ("ota_streaming", fl.ota_streaming),
+            ("ota_sectioned", fl.ota_sectioned),
+            ("max_section_rows", fl.max_section_rows),
+            ("use_pallas_ota=False", not fl.use_pallas_ota)) if on]
+        if unsupported:
+            raise ValueError(f"HotaSim does not carry {unsupported} yet: "
+                             f"only the client-folded slab round is ported")
+        self.model = model
+        self.fl = fl
+        self.tcfg = tcfg
+        self.n_classes = torch.tensor(list(n_classes_per_client),
+                                      dtype=torch.int32, device=self.device)
+        self.max_classes = int(max_classes or max(n_classes_per_client))
+        self.chan = channel_params(fl, device=self.device)
+
+    # ------------------------------------------------------------------
+    def init(self, seed: int) -> SimState:
+        """Fresh state with weights drawn from ``torch.Generator(seed)``."""
+        fl, dev = self.fl, self.device
+        gen = torch.Generator().manual_seed(int(seed))
+        c, n = fl.n_clusters, fl.n_clients
+        omega = {"final": init_params(self.model.final_specs(), gen,
+                                      device=dev),
+                 "trunk": init_params(self.model.trunk_specs(), gen,
+                                      device=dev)}
+        heads = init_params(self.model.head_specs(self.max_classes), gen,
+                            batch_shape=(c, n), device=dev)
+        ones = torch.ones((c, n), dtype=torch.float32, device=dev)
+        return SimState(
+            omega=omega, heads=heads, p=ones, ps_opt=slab_adam_init(omega),
+            head_opt=adam_init(heads, batch_shape=(c, n)),
+            fgn=fgn_init(n, c, device=dev), f0=ones.clone(),
+            step=torch.zeros((), dtype=torch.int32, device=dev))
+
+    # ------------------------------------------------------------------
+    def _client_update(self, omega, heads, head_opt, x, y):
+        """τ_h head steps then τ_ω local shared steps (Alg. 1 lines 10-15)
+        for every (cluster, client) at once. Returns (heads, head_opt,
+        ḡ tree with (C, N, ...) leaves, F̄ (C, N))."""
+        model, lr, fl = self.model, self.tcfg.lr, self.fl
+        n_valid = self.n_classes
+        batch = x.shape[:2]
+        with torch.no_grad():           # ω is fixed during the head steps
+            feats = model.features(omega, x)
+        with torch.enable_grad():
+            for _ in range(fl.tau_h):
+                hd = _requires_grad(heads)
+                loss = masked_cls_loss(model.head_apply(hd, feats), y,
+                                       n_valid)
+                g = torch.autograd.grad(loss.sum(), tree_leaves(hd))
+                heads, head_opt = adam_update(
+                    tree_unflatten(hd, g), head_opt,
+                    tree_map(torch.Tensor.detach, hd), lr)
+            # per-client copies of ω: each client's loss reaches only its
+            # own copy, so one backward gives every client's gradient
+            om = tree_map(lambda t: t.expand(batch + t.shape).clone(), omega)
+            gacc, lsum = None, None
+            for _ in range(fl.tau_w):
+                om_r = _requires_grad(om)
+                loss = masked_cls_loss(
+                    model.head_apply(heads, model.features(om_r, x)), y,
+                    n_valid)
+                g = tree_unflatten(om_r, torch.autograd.grad(
+                    loss.sum(), tree_leaves(om_r)))
+                om = tree_map(lambda w, gg: w.detach() - lr * gg, om_r, g)
+                gacc = g if gacc is None else tree_map(torch.add, gacc, g)
+                lsum = (loss.detach() if lsum is None
+                        else lsum + loss.detach())
+        g_avg = tree_map(lambda a: a / fl.tau_w, gacc)
+        return heads, head_opt, g_avg, lsum / fl.tau_w
+
+    # ------------------------------------------------------------------
+    def _masked_final_norms(self, g_final, final_masks) -> torch.Tensor:
+        """(C, N) masked last-shared-layer gradient norms n_i (eq. 6): the
+        clients are the task rows, the cluster's eq.-7 mask the shared
+        column mask; one ``masked_gradnorm`` launch covers all clusters."""
+        c, n = self.fl.n_clusters, self.fl.n_clients
+        gm = torch.cat([l.reshape(c, n, -1).to(torch.float32)
+                        for l in tree_leaves(g_final)], dim=-1)   # (C, N, P̃)
+        mm = torch.cat([m.reshape(c, -1).to(torch.float32)
+                        for m in tree_leaves(final_masks)], dim=-1)  # (C, P̃)
+        return masked_gradnorm(gm, mm)
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def step(self, state: SimState, xb, yb, key,
+             chan: ChannelParams = None):
+        """One Alg.-1 round. xb: (C, N, B, d) float32; yb: (C, N, B) int;
+        key: the round's threefry key, (2,) uint32 values (a JAX key as
+        numpy, or ``repro_torch.rng.PRNGKey``/``fold_in`` output).
+        ``chan`` overrides the channel knobs (default: this sim's)."""
+        fl, tcfg, dev = self.fl, self.tcfg, self.device
+        chan = self.chan if chan is None else chan
+        x = torch.as_tensor(xb, dtype=torch.float32).to(dev)
+        y = torch.as_tensor(yb).to(device=dev, dtype=torch.int64)
+        heads, head_opt, g, F = self._client_update(
+            state.omega, state.heads, state.head_opt, x, y)
+
+        chan_key = ota.sim_channel_key(key)   # reserved fold (DESIGN.md §4)
+        packer = packer_for(state.omega, tail="final",
+                            sections=fl.ota_sections,
+                            min_section_rows=fl.min_section_rows)
+
+        # --- Alg. 2: FGN_Server per cluster -------------------------------
+        # f0 latches each slot's first observed loss (the F̃ baseline); a
+        # negative f0 marks a never-seen slot
+        f0 = torch.where((state.step == 0) | (state.f0 < 0.0), F, state.f0)
+        ratios = F / torch.clamp(f0, min=1e-12)
+        final_masks = ota.final_layer_masks_packed(chan_key, chan, packer)
+        norms = self._masked_final_norms(g["final"], final_masks)   # (C, N)
+        p_new, fgn_state, fval = fgn_update_gated(
+            state.p, norms, ratios, state.fgn, fl, chan.fgn_on)
+
+        # --- eqs. (3), (8)-(10): client-folded OTA, then the PS update -----
+        ghat = ota.ota_aggregate_client_folded(
+            chan_key, g, p_new, chan, fl.n_clients, packer)
+        omega, ps_opt = slab_adam_update(ghat, state.ps_opt, state.omega,
+                                         tcfg.lr)
+        metrics = {"loss": F, "p": p_new, "fgrad": fval,
+                   "grad_norms": norms}
+        return SimState(omega=omega, heads=heads, p=p_new, ps_opt=ps_opt,
+                        head_opt=head_opt, fgn=fgn_state, f0=f0,
+                        step=state.step + 1), metrics

@@ -1,0 +1,57 @@
+"""Wrapper of the masked grad-norm kernel (K2).
+
+``masked_gradnorm(g, mask)`` is the port of ``repro.kernels.masked_gradnorm
+.ops.masked_gradnorm`` with the simulator's vmap over clusters written out:
+g (C, T, P) and one mask row per cluster (C, P) give (C, T) norms in one
+launch. The reference's 2-D form, g (T, P) with mask (P,), is accepted too.
+For CPU tensors it runs the plain version; for CUDA tensors it launches
+``csrc/masked_gradnorm.cu`` or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.masked_gradnorm.ref import masked_gradnorm_ref
+
+counter = _build.LaunchCounter("masked_gradnorm")
+
+BLOCK = 512
+
+
+def launch(g: torch.Tensor, mask: torch.Tensor,
+           out: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel on CUDA operands: g (C, T, P) and mask (C, P)
+    contiguous float32, out (C, T) float32."""
+    n_clusters, n_tasks, p = g.shape
+    for name, t, shape in (("g", g, (n_clusters, n_tasks, p)),
+                           ("mask", mask, (n_clusters, p)),
+                           ("out", out, (n_clusters, n_tasks))):
+        if (t.dtype != torch.float32 or t.device != g.device
+                or not t.is_contiguous() or tuple(t.shape) != shape):
+            raise ValueError(f"{name} must be a contiguous float32 CUDA "
+                             f"tensor of shape {shape}")
+    if out.numel() == 0:
+        return out
+    err = _build.library().masked_gradnorm_f32(
+        g.data_ptr(), mask.data_ptr(), out.data_ptr(), p, n_clusters,
+        n_tasks, BLOCK, _build.current_stream_handle(g.device))
+    _build.check(err, "masked_gradnorm")
+    counter.count += 1
+    return out
+
+
+def masked_gradnorm(g: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Masked L2 norms √Σ_p (g·m)² in float32, one per task row."""
+    if g.dim() == 2:
+        return masked_gradnorm(g.unsqueeze(0), mask.unsqueeze(0))[0]
+    if g.dim() != 3 or mask.dim() != 2 or mask.shape[0] != g.shape[0] \
+            or mask.shape[1] != g.shape[2]:
+        raise ValueError(f"g {tuple(g.shape)} and mask {tuple(mask.shape)}: "
+                         f"expected (C, T, P) and (C, P)")
+    if g.device.type == "cpu":
+        return masked_gradnorm_ref(g, mask)
+    if g.device.type != "cuda":
+        raise ValueError(f"unsupported device {g.device}")
+    out = torch.empty(g.shape[:2], dtype=torch.float32, device=g.device)
+    return launch(g, mask, out)

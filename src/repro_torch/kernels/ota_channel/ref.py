@@ -1,0 +1,105 @@
+"""Plain PyTorch versions of the OTA channel laws (paper eqs. 3, 7-10).
+
+Port of ``repro.kernels.ota_channel.ref``. Bits arrive as int32 tensors
+holding the uint32 bit pattern of the threefry streams
+(``repro_torch.rng.bits``); they are widened to int64 before any shift or
+conversion so the arithmetic is unsigned, and converted to float32 with
+round-to-nearest like ``bits.astype(f32)``.
+
+    y(j)  = Σ_l M_l(j) · Σ_n p[l,n] g[l,n](j) + z(j)     (eqs. 3, 8)
+    ĝ(j)  = y(j) / (|M(j)| · N_eff), 0 where |M(j)| = 0   (eq. 10, guarded)
+
+These are the CPU path of the kernel wrappers and the yardstick the CUDA
+kernels are held against on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+TWO_PI = 6.283185307179586
+_TWO_PI_F32 = torch.tensor(TWO_PI, dtype=torch.float32)
+
+
+def _u32(bits: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns -> their uint32 values in int64."""
+    return bits.to(torch.int64) & 0xFFFFFFFF
+
+
+def _f32(x, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+
+
+def bits_to_gaussian(bits: torch.Tensor, sigma2) -> torch.Tensor:
+    """Box-Muller on the two u16 halves of each u32 word -> one N(0, σ²)."""
+    b = _u32(bits)
+    hi = (b >> 16).to(torch.float32)
+    lo = (b & 0xFFFF).to(torch.float32)
+    # (k + 1) / 65536 keeps u1 in (0, 1], away from log(0)
+    u1 = (hi + 1.0) * (1.0 / 65536.0)
+    u2 = lo * (1.0 / 65536.0)
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    h = r * torch.cos(_TWO_PI_F32.to(u2.device) * u2)
+    return h * torch.sqrt(_f32(sigma2, h))
+
+
+def pass_probability(sigma2, h_th) -> torch.Tensor:
+    """P(|H|² ≥ H_th) for H ~ N(0, σ²): erfc(√(H_th / 2σ²)) (eq. 7)."""
+    sig2 = torch.clamp(torch.as_tensor(sigma2, dtype=torch.float32),
+                       min=1e-30)
+    h = _f32(h_th, sig2)
+    return torch.special.erfc(torch.sqrt(h / (2.0 * sig2)))
+
+
+def bits_to_mask(bits: torch.Tensor, sigma2, h_th, ota_on=1.0,
+                 p_pass=None) -> torch.Tensor:
+    """eq. (7) by inverse-CDF thresholding: 1{|H|² ≥ H_th} is exactly
+    Bernoulli(p_pass), sampled as ``u < p_pass`` on the raw uniform word.
+    ``ota_on < 0.5`` forces all-pass. ``p_pass`` may be given when the
+    caller has already computed ``pass_probability(sigma2, h_th)``."""
+    u = _u32(bits).to(torch.float32) * (2.0 ** -32)
+    if p_pass is None:
+        p_pass = pass_probability(sigma2, h_th)
+    return torch.logical_or(u < p_pass.to(u.device),
+                            _f32(ota_on, u) < 0.5)
+
+
+def ota_aggregate_slab_ref(wg, bits, nbits, sigma2, h_th, noise_std, ota_on,
+                           n_clients: int, live=None, n_eff=None,
+                           p_pass=None) -> torch.Tensor:
+    """eqs. (8)-(10) on (C, ...) weighted gradients: masked sum over the
+    cluster axis, AWGN, and the guarded |M|·N estimate. ``live`` (C,)
+    ANDs cluster participation into the masks after the ``ota_on`` gate;
+    ``n_eff`` replaces the static N in the denominator."""
+    c = wg.shape[0]
+    bshape = (c,) + (1,) * (wg.dim() - 1)
+    sig = torch.as_tensor(sigma2, dtype=torch.float32).reshape(bshape)
+    if p_pass is not None:
+        p_pass = p_pass.reshape(bshape)
+    masks = bits_to_mask(bits, sig, h_th, ota_on, p_pass=p_pass)
+    if live is not None:
+        lv = torch.as_tensor(live, dtype=torch.float32).reshape(bshape)
+        masks = torch.logical_and(masks, lv.to(masks.device) > 0.5)
+    wg32 = wg.to(torch.float32)
+    y = torch.sum(torch.where(masks, wg32, torch.zeros_like(wg32)), dim=0)
+    z = bits_to_gaussian(nbits, 1.0) * _f32(noise_std, y) * _f32(ota_on, y)
+    y = y + z
+    cnt = torch.sum(masks.to(torch.float32), dim=0)
+    if n_eff is None:
+        denom = _f32(float(n_clients), y)
+    else:
+        denom = torch.clamp(_f32(n_eff, y), min=1.0)
+    return torch.where(cnt > 0, y / (torch.clamp(cnt, min=1.0) * denom),
+                       torch.zeros_like(y))
+
+
+def ota_aggregate_client_ref(g, p, bits, nbits, sigma2, h_th, noise_std,
+                             ota_on, n_clients: int, live=None, n_eff=None,
+                             p_pass=None) -> torch.Tensor:
+    """Client-folded estimator (eqs. 3 + 8-10) from RAW (C, N, ...) client
+    gradients and (C, N) loss weights: Σ_l M_l ∘ (Σ_n p[l,n]·g[l,n]) + z,
+    then the guarded estimate. Same laws as ``ota_aggregate_slab_ref``."""
+    wg = torch.einsum("cn,cn...->c...", p.to(torch.float32),
+                      g.to(torch.float32))
+    return ota_aggregate_slab_ref(wg, bits, nbits, sigma2, h_th, noise_std,
+                                  ota_on, n_clients, live=live, n_eff=n_eff,
+                                  p_pass=p_pass)

@@ -1,0 +1,55 @@
+"""Parameter specs and their initialization.
+
+Port of ``repro.models.params`` for the shapes the port builds: a spec
+tree (nested dicts of ``ParamSpec``) gives the parameter shapes and how
+each leaf is initialized. Draws come from an explicit ``torch.Generator``
+and are scaled by 1/√fan_in like the reference; they are not the
+reference's numbers (``jax.random.normal`` goes through erfinv), so tests
+pass weights across instead of redrawing them.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.common.tree import tree_leaves, tree_unflatten
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    init: str = "normal"           # normal | zeros | ones
+    scale: Optional[float] = None  # stddev override; default 1/√fan_in
+
+
+def _fan_in(shape: Tuple[int, ...]) -> int:
+    if len(shape) == 1:
+        return shape[0]
+    # last dim is fan-out by convention; everything else fan-in
+    return math.prod(shape[:-1])
+
+
+def init_params(specs, generator: torch.Generator, batch_shape=(),
+                device="cpu"):
+    """Materialize a spec tree as float32 tensors of shape
+    ``batch_shape + spec.shape``. Draws run on the generator's device (the
+    host for a CPU generator) and then move to ``device``, so a seed gives
+    the same weights on every device."""
+    out = []
+    for spec in tree_leaves(specs):
+        shape = tuple(batch_shape) + tuple(spec.shape)
+        if spec.init == "zeros":
+            arr = torch.zeros(shape, dtype=torch.float32)
+        elif spec.init == "ones":
+            arr = torch.ones(shape, dtype=torch.float32)
+        else:
+            std = (spec.scale if spec.scale is not None
+                   else 1.0 / math.sqrt(max(_fan_in(spec.shape), 1)))
+            arr = torch.randn(shape, generator=generator,
+                              dtype=torch.float32) * std
+        out.append(arr.to(device))
+    return tree_unflatten(specs, out)
+

@@ -1,0 +1,149 @@
+"""threefry2x32 in torch, bit-identical to ``jax.random``.
+
+The channel of this system is defined by its random streams (the §4 fold
+registry in ``repro_torch.core.ota``), so the port reproduces JAX's key
+schedule exactly rather than using ``torch.Generator``:
+
+* ``PRNGKey(seed)``  — ``jax.random.PRNGKey`` with 64-bit mode off: the
+  seed's low 32 bits, ``(0, seed & 0xFFFFFFFF)``;
+* ``fold_in(key, data)`` — ``threefry2x32(key, (0, data))``, both words;
+* ``bits(key, n)`` — ``jax.random.bits(key, (n,), uint32)`` under either
+  value of ``jax_threefry_partitionable``.
+
+Representation. torch covers uint32 only partly, so a uint32 word lives in
+an int64 tensor holding a value in [0, 2**32) and every add is masked back
+to 32 bits. Keys are such int64 tensors of shape (..., 2); they are a few
+words each and stay on the host, where ``fold_in`` hashes them in numpy
+uint32 (a tiny torch op costs more to dispatch than to run). ``bits`` draws
+on any device and returns an int32 tensor that holds the uint32 bit
+pattern: the form the kernels take and reinterpret.
+
+Every function broadcasts over leading key dimensions, so a whole table of
+chunk keys draws its streams in one batched call.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+MASK32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+# mirrors jax's ``jax_threefry_partitionable`` flag (default True since
+# jax 0.5); the port and the reference it is compared with must agree
+_PARTITIONABLE = [True]
+
+
+def threefry_partitionable() -> bool:
+    """Which ``bits`` layout is in force (``jax_threefry_partitionable``)."""
+    return _PARTITIONABLE[0]
+
+
+def set_threefry_partitionable(value: bool) -> bool:
+    """Select the ``bits`` layout; returns the previous setting so a
+    caller can restore it. ``fold_in`` and ``PRNGKey`` do not depend on
+    it."""
+    prev = _PARTITIONABLE[0]
+    _PARTITIONABLE[0] = bool(value)
+    return prev
+
+
+def as_key(key) -> torch.Tensor:
+    """A key as an int64 host tensor of uint32 values, shape (..., 2).
+    Accepts the port's keys and JAX keys passed across as numpy."""
+    if isinstance(key, torch.Tensor):
+        return key.to(device="cpu", dtype=torch.int64) & MASK32
+    return torch.from_numpy(np.asarray(key).astype(np.int64)) & MASK32
+
+
+def _rotl(x, r: int):
+    """In-place 32-bit rotate left of uint32 values (held in an int64
+    tensor, or in a numpy uint32 array, where the mask is a no-op)."""
+    hi = x >> (32 - r)
+    x <<= r
+    x &= MASK32
+    x |= hi
+    return x
+
+
+def _broadcast(x0, x1):
+    """Writable copies of two operands broadcast to one shape."""
+    if isinstance(x0, torch.Tensor):
+        x0, x1 = torch.broadcast_tensors(x0, x1)
+        return x0.contiguous(), x1.contiguous()
+    x0, x1 = np.broadcast_arrays(x0, x1)
+    return x0.copy(), x1.copy()
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """The Threefry-2x32 hash (20 rounds), as ``jax._src.prng`` unrolls it.
+
+    The four operands broadcast together and are either uint32-valued
+    int64 tensors (the bulk stream draw, on any device) or numpy uint32
+    arrays (small host key tables, where each operation costs a fraction
+    of a torch dispatch); returns the two output words."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0, x1 = _broadcast((x0 + ks[0]) & MASK32, (x1 + ks[1]) & MASK32)
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 += x1
+            x0 &= MASK32
+            _rotl(x1, r)
+            x1 ^= x0
+        x0 += ks[(i + 1) % 3]
+        x0 &= MASK32
+        x1 += ks[(i + 2) % 3]
+        x1 += i + 1
+        x1 &= MASK32
+    return x0, x1
+
+
+def PRNGKey(seed: int) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` with 64-bit mode off: (0, low word)."""
+    return torch.tensor([0, int(seed) & MASK32], dtype=torch.int64)
+
+
+def fold_in(key, data) -> torch.Tensor:
+    """``jax.random.fold_in``: the key hashed with the counter (0, data).
+    ``data`` may be an int or an integer array that broadcasts against the
+    key's leading dimensions. Computed on the host in numpy uint32."""
+    k = as_key(key).numpy().astype(np.uint32)
+    d = (np.asarray(data).astype(np.int64) & MASK32).astype(np.uint32)
+    y0, y1 = threefry2x32(k[..., 0], k[..., 1], np.zeros_like(d), d)
+    return torch.from_numpy(np.stack([y0, y1], axis=-1).astype(np.int64))
+
+
+def to_bit_pattern(words: torch.Tensor) -> torch.Tensor:
+    """uint32-valued int64 -> int32 holding the same bit pattern."""
+    words = words - ((words >> 31) << 32)
+    return words.to(torch.int32)
+
+
+def bits(key, n: int, device=None) -> torch.Tensor:
+    """``jax.random.bits(key, (n,), jnp.uint32)`` for every key in a
+    (..., 2) table, computed on ``device`` (default: the host).
+
+    Returns (..., n) int32 bit patterns. With the partitionable layout
+    word i hashes the counter (0, i) and XORs the two outputs. With the
+    original layout the counter iota [0, n) (zero-padded to even length)
+    is split in halves: word i < h is output 0 of the pair (i, i + h),
+    word i >= h output 1 of the pair (i - h, i), with h = ceil(n / 2)."""
+    if n >= MASK32:
+        raise ValueError(f"bits: n={n} needs the blocked draw of 2**32 words")
+    key = as_key(key)
+    if device is not None:
+        key = key.to(device)
+    k0, k1 = key[..., 0, None], key[..., 1, None]
+    idx = torch.arange(n, dtype=torch.int64, device=key.device)
+    if threefry_partitionable():
+        y0, y1 = threefry2x32(k0, k1, torch.zeros_like(idx), idx)
+        y0 ^= y1
+        return to_bit_pattern(y0)
+    h = (n + 1) // 2
+    first = idx < h
+    a = torch.where(first, idx, idx - h)
+    b = a + h
+    b = torch.where(b < n, b, torch.zeros_like(b))
+    y0, y1 = threefry2x32(k0, k1, a, b)
+    return to_bit_pattern(torch.where(first, y0, y1))
