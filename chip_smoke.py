@@ -28,10 +28,32 @@ imports only ``repro_torch`` (never ``jax`` or the JAX package) and runs:
    bounds, their plain versions, K2's ``torch.linalg.vector_norm``
    yardstick and their back-to-back launch time (CUDA events); the
    threefry stream draw and the client update; and the device-time
-   breakdown of ``TRACED_ROUNDS`` traced rounds.
+   breakdown of ``TRACED_ROUNDS`` traced rounds;
+7. K5 ``ota_mask_weight`` against its plain version on the card at trunk
+   fc2.w (2,097,152 entries) and the ragged final/b leaf, in the default,
+   ``ota_on=0`` and ``w=0.37`` cases and as a strided (C, n) column slice
+   (exact equality: one compare and one multiply);
+8. the four aggregation engines (client-folded, streaming, sectioned,
+   sectioned + streaming) on one full-width round's gradients: sectioned
+   must equal client-folded bit for bit, sectioned + streaming must equal
+   streaming bit for bit, streaming must match client-folded to rtol 1e-5,
+   atol 1e-6 (cluster order of the float sum); the peak device memory of
+   one aggregation call on each;
+9. the sweep path: a full-width ``ScenarioBank`` of Fig. 4's four
+   scenarios for ``BANK_ROUNDS`` rounds on each engine, counters set to 0
+   just before and read just after each engine's run (per scenario round:
+   K5 C x 10 leaves = 100 on the two streaming engines, 0 elsewhere; K1 10
+   on client-folded and sectioned, 0 on the streaming engines; K2 1),
+   finite metrics, and the engines' banks against the client-folded bank
+   (loss/p rtol 1e-4, ω relative L2 1e-3); then per engine the median
+   bank round over ``TIMED_BANK_ROUNDS`` rounds (host clock), one traced
+   bank round, and K5's device time per scenario round at the round's
+   shapes beside its bound and its plain version.
 
 Any failure exits non-zero. The line before last is the card's name and
-power limit, the one before it the kernels' JSON; the last line is
+power limit, the one before it the kernels' JSON (K1, K2 and K5; each
+kernel's ``launches`` sums its counts over the main-path runs of phases 5
+and 9); the last line is
 ``{"ok": true, "device": {...}}``. An earlier ``[record]`` line holds every
 number measured, as JSON.
 """
@@ -51,6 +73,12 @@ N_POINTS = 12_000         # RadComDynamic cut from 125,000 (data set-up time)
 ROUNDS = 3                # main-path rounds with the counters on
 TIMED_ROUNDS = 10         # rounds for the median round time
 TRACED_ROUNDS = 3         # profiled rounds for the device-time breakdown
+BANK_ROUNDS = 3           # bank rounds per engine with the counters on
+TIMED_BANK_ROUNDS = 5     # bank rounds per engine for the median round
+ENGINES = {"client_folded": {}, "streaming": {"ota_streaming": True},
+           "sectioned": {"ota_sectioned": True},
+           "sectioned_streaming": {"ota_sectioned": True,
+                                   "ota_streaming": True}}
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 F32_FLOPS_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
 RTOL, ATOL = 1e-5, 1e-6
@@ -146,17 +174,167 @@ def to_cpu(x):
     return x.cpu()
 
 
+def check_k5(dev, runs, names, gbits, chan, gen) -> float:
+    """Phase 7: K5 against its plain version on the card, exact."""
+    import torch
+    from repro_torch.kernels.ota_channel.ops import ota_mask_weight_apply
+    from repro_torch.kernels.ota_channel.ref import ota_mask_weight_ref
+    biggest = max(runs, key=lambda r: r.size)
+    ragged = next(r for r in runs if names[r.leaf] == "final/b")
+    sig0 = chan.sigma2[0]
+    cases = {"default": (sig0, 1.0, 1.0), "ota_off": (sig0, 0.0, 1.0),
+             "w0.37": (sig0, 1.0, 0.37), "sigma0.05": (0.05, 1.0, 0.37)}
+    c = gbits[0].shape[0]
+    err = 0.0
+    for run in (biggest, ragged):
+        stream = gbits[run.section][:, run.offset:run.offset + run.size]
+        x = torch.randn(run.size, generator=gen, device=dev) * 1e-3
+        x2 = torch.randn((c, run.size), generator=gen, device=dev)
+        for cname, (sig, ota_on, w) in cases.items():
+            args = (sig, chan.h_threshold, ota_on, w)
+            for xx, bb, form in ((x, stream[c - 1], "row"),
+                                 (x2, stream, "strided (C, n)")):
+                got = ota_mask_weight_apply(xx, bb, *args)
+                torch.cuda.synchronize()
+                want = ota_mask_weight_ref(xx, bb, *args)
+                for g_t, w_t, what in zip(got, want, ("out", "mask")):
+                    if not torch.isfinite(g_t).all():
+                        fail(f"K5 {names[run.leaf]} {cname}: non-finite")
+                    if not torch.equal(g_t, w_t):
+                        n_bad = int((g_t != w_t).sum())
+                        fail(f"K5 {names[run.leaf]} {cname} {form} {what}: "
+                             f"{n_bad} entries differ from the plain version")
+                    err = max(err, float((g_t - w_t).abs().max()))
+            log(f"[K5] {names[run.leaf]} n={run.size} {cname}: equal to the "
+                f"plain version (row and strided (C, n) forms)")
+    return err
+
+
+def engine_sims(sim, fl, dev):
+    """One HotaSim per aggregation engine, sharing ``sim``'s model."""
+    import dataclasses
+    from repro_torch.core.sim import HotaSim
+    return {name: HotaSim(sim.model, dataclasses.replace(fl, **kw), sim.tcfg,
+                          sim.n_classes.tolist(), device=dev)
+            for name, kw in ENGINES.items()}
+
+
+def check_engines(sims, state, batch, key, dev, record) -> None:
+    """Phase 8: the four engines on one round's gradients and weights."""
+    import torch
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.core import ota
+    x = torch.as_tensor(batch[0]).to(dev)
+    y = torch.as_tensor(batch[1]).to(device=dev, dtype=torch.int64)
+    sim0 = sims["client_folded"]
+    _, _, g, _ = sim0._client_update(state.omega, state.heads,
+                                     state.head_opt, x, y)
+    p = torch.rand(state.p.shape, device=dev) + 0.5
+    chan_key = ota.sim_channel_key(key)
+    packer = sim0.packer(state.omega)
+    out, peak = {}, {}
+    for name, esim in sims.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        ghat = esim.aggregate(chan_key, g, p, esim.chan, packer)
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated(dev) - base
+        out[name] = torch.cat([l.reshape(-1) for l in tree_leaves(ghat)])
+    if not all(bool(torch.isfinite(v).all()) for v in out.values()):
+        fail("non-finite aggregation output")
+    for a, b in (("sectioned", "client_folded"),
+                 ("sectioned_streaming", "streaming")):
+        if not torch.equal(out[a], out[b]):
+            fail(f"{a} differs from {b}: "
+                 f"{int((out[a] != out[b]).sum())} entries")
+    err = check_close("streaming vs client-folded", out["streaming"],
+                      out["client_folded"])
+    record["engines"] = {
+        "sectioned_equals_client_folded": True,
+        "sectioned_streaming_equals_streaming": True,
+        "streaming_vs_client_folded_max_abs": err,
+        "aggregation_peak_bytes": peak}
+    log(f"[engines] sectioned == client-folded and sectioned+streaming == "
+        f"streaming bit for bit; streaming vs client-folded max abs err "
+        f"{err:.3e}; peak bytes of one aggregation call {peak}")
+
+
+def bank_runs(sims, specs, batches, keys, counters):
+    """Phase 9's counted runs: each engine's bank for len(keys) rounds from
+    the same initial state, counters set to 0 just before each run and
+    read just after. Returns {engine: (bank, states, history, launches)}."""
+    import torch
+    from repro_torch.core.sweep import ScenarioBank
+    out = {}
+    for name, esim in sims.items():
+        bank = ScenarioBank(esim, specs)
+        states = bank.init(0)
+        torch.cuda.synchronize()
+        for ctr in counters:
+            ctr.reset()
+        states, hist = bank.run(states, batches, keys)
+        torch.cuda.synchronize()
+        out[name] = (bank, states, hist,
+                     {ctr.name: ctr.count for ctr in counters})
+    return out
+
+
+def k5_round_timing(dev, runs, gbits, chan, gen):
+    """K5 at one scenario round's shapes of the streaming engines (one
+    launch per (cluster, leaf)): device time, plain version, bound."""
+    import torch
+    from repro_torch.kernels.ota_channel import ops as kc
+    from repro_torch.kernels.ota_channel.ref import (
+        ota_mask_weight_ref, pass_probability,
+    )
+    c = gbits[0].shape[0]
+    calls = []
+    for run in runs:
+        x = torch.randn((1, run.size), generator=gen, device=dev)
+        out = torch.empty_like(x)
+        mask = torch.empty_like(x)
+        for l in range(c):
+            b = gbits[run.section][l:l + 1, run.offset:run.offset + run.size]
+            params = kc.mask_weight_params(chan.sigma2[l], chan.h_threshold,
+                                           chan.ota_on, 1.0, device=dev)
+            pp = pass_probability(params[0], params[1]).reshape(1)
+            calls.append((x, b, params, pp, out, mask))
+
+    def raw():
+        for a in calls:
+            kc.launch_mask_weight(*a)
+
+    def plain():
+        for x, b, params, pp, _, _ in calls:
+            ota_mask_weight_ref(x, b, params[0], params[1], params[2],
+                                params[3], p_pass=pp)
+    n_total = sum(r.size for r in runs) * c
+    nbytes = 16 * n_total + 20 * len(calls)
+    nops = 3 * n_total
+    return {"launches_per_round": len(calls),
+            "ms": device_ms(raw, 10, "ota_mask_weight"),
+            "launch_ms": cuda_ms(raw, 10),
+            "plain_ms": device_ms(plain, 2),
+            "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                  nops / F32_FLOPS_PER_S),
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= nops / F32_FLOPS_PER_S else "operations")}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a card")
     try:
         from repro_torch.common.config import FLConfig
-        from repro_torch.common.flatpack import packer_for
         from repro_torch.common.tree import tree_leaves
         from repro_torch.core import ota
         from repro_torch.core.paper_setup import paper_mlp_setup
         from repro_torch.core.sim import HotaSim
+        from repro_torch.experiments.fig4_diverse_sigma import (
+            experiments as fig4_experiments,
+        )
         from repro_torch.kernels import _build
         from repro_torch.kernels.masked_gradnorm import ops as k2
         from repro_torch.kernels.masked_gradnorm.ref import masked_gradnorm_ref
@@ -204,12 +382,11 @@ def main() -> None:
     sim, batcher = paper_mlp_setup(fl, batch=24, n_points=N_POINTS, seed=0,
                                    device=dev)
     state = sim.init(0)
-    packer = packer_for(state.omega, tail="final", sections=fl.ota_sections)
+    packer = sim.packer(state.omega)
     runs = packer.leaf_runs()
     key0 = rng.PRNGKey(2024)
     chan_key = ota.sim_channel_key(key0)
-    gbits = ota.section_gain_streams(chan_key, packer, c, dev)
-    nbits = ota.section_noise_streams(chan_key, packer, dev)
+    gbits, nbits = ota.section_streams(chan_key, packer, c, dev)
     torch.cuda.synchronize()
     gen = torch.Generator(device=dev).manual_seed(1)
     p_w = torch.rand((c, n_cl), generator=gen, device=dev) + 0.5
@@ -261,21 +438,25 @@ def main() -> None:
     record["k2_max_abs_err"] = k2_err
     log(f"[K2] (C={c}, N={n_cl}, P={p_tail}): max abs err {k2_err:.3e}")
 
+    # --- 7. K5 against its plain version ------------------------------------
+    k5_err = check_k5(dev, runs, names, gbits, chan, gen)
+    record["k5_max_abs_err"] = k5_err
+
     # --- 5. the main path ---------------------------------------------------
     batches = [batcher.next_stacked() for _ in range(ROUNDS + 1)]
     keys = [rng.fold_in(key0, r) for r in range(ROUNDS + 1)]
-    k1.counter.reset()
-    k2.counter.reset()
+    counters = (k1.client_fold_counter, k2.counter, k1.mask_weight_counter)
+    for ctr in counters:
+        ctr.reset()
     losses = []
     st = state
     for r in range(ROUNDS):
         st, m = sim.step(st, *batches[r], keys[r])
         losses.append(m["loss"])
     torch.cuda.synchronize()
-    launches = {"ota_client_fold": k1.counter.count,
-                "masked_gradnorm": k2.counter.count}
+    launches = {ctr.name: ctr.count for ctr in counters}
     want = {"ota_client_fold": len(runs) * ROUNDS,
-            "masked_gradnorm": ROUNDS}
+            "masked_gradnorm": ROUNDS, "ota_mask_weight": 0}
     if launches != want:
         fail(f"main-path launches {launches}, expected {want}")
     loss = torch.stack(losses)
@@ -328,10 +509,10 @@ def main() -> None:
     record["round_ms"] = round_ms
     record["round_ms_median"] = statistics.median(round_ms)
 
-    def draw():
-        ota.section_gain_streams(chan_key, packer, c, dev)
-        ota.section_noise_streams(chan_key, packer, dev)
-        ota.final_layer_masks_packed(chan_key, chan, packer)
+    def draw():    # what a client-folded round draws: once, masks read it
+        streams = ota.section_streams(chan_key, packer, c, dev)
+        ota.final_layer_masks_packed(chan_key, chan, packer,
+                                     gain=streams.gain)
     record["stream_draw_ms"] = statistics.median(host_ms(draw)
                                                  for _ in range(3))
     record["stream_draw_device_ms"] = device_ms(draw, 2)
@@ -453,12 +634,105 @@ def main() -> None:
     for t, k, n in rows[:15]:
         log(f"  {t:9.4f} ms  x{n:<4} {k[:100]}")
 
+    # --- 8. the four engines on one round's gradients ----------------------
+    sims = engine_sims(sim, fl, dev)
+    check_engines(sims, st_t, batcher.next_stacked(),
+                  rng.fold_in(key0, 2000), dev, record)
+
+    # --- 9. the sweep path: Fig. 4's bank on every engine -------------------
+    specs = list(fig4_experiments().values())
+    n_sc = len(specs)
+    bank_batches = [batcher.next_stacked() for _ in range(BANK_ROUNDS)]
+    bank_keys = [rng.PRNGKey(r) for r in range(BANK_ROUNDS)]
+    banks = bank_runs(sims, specs, bank_batches, bank_keys, counters)
+    per = n_sc * BANK_ROUNDS          # scenario rounds per engine
+    streaming_engines = ("streaming", "sectioned_streaming")
+    total = dict(launches)
+    ref_hist = banks["client_folded"][2]
+    ref_w = torch.cat([l.reshape(-1) for l in
+                       tree_leaves(banks["client_folded"][1].omega)])
+    bank_rec = {}
+    for name, (bank, states_b, hist, got) in banks.items():
+        streams = name in streaming_engines
+        want = {"ota_client_fold": 0 if streams else len(runs) * per,
+                "masked_gradnorm": per,
+                "ota_mask_weight": c * len(runs) * per if streams else 0}
+        if got != want:
+            fail(f"bank on {name}: launches {got}, expected {want}")
+        for k_name, v in got.items():
+            total[k_name] += v
+        if not all(bool(torch.isfinite(v).all()) for v in hist.values()):
+            fail(f"bank on {name}: non-finite metrics")
+        cmp = {m: check_close(f"bank {name} {m}", hist[m], ref_hist[m],
+                              rtol=1e-4, atol=1e-6) for m in ("loss", "p")}
+        w_b = torch.cat([l.reshape(-1)
+                         for l in tree_leaves(states_b.omega)])
+        cmp["omega_rel_l2"] = rel_l2(w_b, ref_w)
+        if cmp["omega_rel_l2"] > 1e-3:
+            fail(f"bank on {name} vs client-folded: {cmp}")
+        cmp["bits_equal"] = (torch.equal(w_b, ref_w) and all(
+            torch.equal(hist[m], ref_hist[m]) for m in hist))
+        bank_rec[name] = {"launches": got, "vs_client_folded": cmp,
+                          "loss_mean_per_round": hist["loss"].mean(
+                              dim=(1, 2, 3)).tolist()}
+        log(f"[bank] {name}: {BANK_ROUNDS} rounds x {n_sc} scenarios, "
+            f"launches {got}; vs client-folded {cmp}")
+
+    # per engine: the median bank round (host clock, tracing off) and one
+    # traced bank round
+    for name, (bank, states_b, _, _) in banks.items():
+        holder = [states_b]
+        times = []
+        for r in range(TIMED_BANK_ROUNDS + 1):
+            b_r = batcher.next_stacked()
+            k_r = rng.PRNGKey(100 + r)
+
+            def one():
+                holder[0], _ = bank.step(holder[0], *b_r, k_r)
+            if r == TIMED_BANK_ROUNDS:
+                acts = _profile_acts()
+                with torch.profiler.profile(activities=acts) as prof:
+                    traced = host_ms(one)
+            else:
+                times.append(host_ms(one))
+        ev = [(e.self_device_time_total / 1e3, e.key, e.count)
+              for e in device_events(prof)]
+        busy = sum(t for t, _, _ in ev)
+        rec = bank_rec[name]
+        rec.update(
+            round_ms=times, round_ms_median=statistics.median(times),
+            traced_round_ms=traced, device_busy_ms=busy,
+            k5_in_round_ms_per_scenario=sum(
+                t for t, k, _ in ev if "ota_mask_weight" in k) / n_sc,
+            k1_in_round_ms_per_scenario=sum(
+                t for t, k, _ in ev if "ota_client_fold" in k) / n_sc,
+            device_launches_traced=sum(n for _, _, n in ev),
+            top=[{"kernel": k[:80], "ms": t, "count": n}
+                 for t, k, n in sorted(ev, reverse=True)[:6]])
+        log(f"[bank time] {name}: median {rec['round_ms_median']:.2f} ms per "
+            f"bank round of {n_sc} scenarios (all "
+            f"{['%.2f' % t for t in times]}); traced {traced:.2f} ms, device "
+            f"busy {busy:.2f} ms, {rec['device_launches_traced']} device "
+            f"launches; K5 {rec['k5_in_round_ms_per_scenario']:.4f} ms and "
+            f"K1 {rec['k1_in_round_ms_per_scenario']:.4f} ms per scenario "
+            f"round in the trace")
+    record["bank"] = bank_rec
+
+    k5 = k5_round_timing(dev, runs, gbits, chan, gen)
+    record["k5_round"] = k5
+    log(f"[time] K5 per scenario round ({k5['launches_per_round']} "
+        f"launches): {k5['ms']:.4f} ms device (launch {k5['launch_ms']:.4f}, "
+        f"plain {k5['plain_ms']:.4f}, bound {k5['bound_ms']:.4f} "
+        f"({k5['bound_by']}))")
+    if min(k5["ms"], k5["plain_ms"]) <= 0.0:
+        fail("the profiler recorded no device time for K5")
+
     kernels = [
         {"name": "ota_client_fold", "route": "cuda",
          "source": "src/repro_torch/kernels/ota_channel/csrc/"
                    "ota_client_fold.cu",
          "replaces": "src/repro/kernels/ota_channel/kernel.py:370",
-         "launches": launches["ota_client_fold"], "max_abs_err": k1_err,
+         "launches": total["ota_client_fold"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": ("bytes" if k1_bytes / HBM_BYTES_PER_S
                       >= k1_ops / F32_FLOPS_PER_S else "operations"),
@@ -467,12 +741,21 @@ def main() -> None:
          "source": "src/repro_torch/kernels/masked_gradnorm/csrc/"
                    "masked_gradnorm.cu",
          "replaces": "src/repro/kernels/masked_gradnorm/kernel.py:41",
-         "launches": launches["masked_gradnorm"], "max_abs_err": k2_err,
+         "launches": total["masked_gradnorm"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": ("bytes" if k2_bytes / HBM_BYTES_PER_S
                       >= k2_ops / F32_FLOPS_PER_S else "operations"),
          "library_ms": k2_lib},
+        {"name": "ota_mask_weight", "route": "cuda",
+         "source": "src/repro_torch/kernels/ota_channel/csrc/"
+                   "ota_mask_weight.cu",
+         "replaces": "src/repro/kernels/ota_channel/kernel.py:142",
+         "launches": total["ota_mask_weight"], "max_abs_err": k5_err,
+         "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+         "library_ms": None},
     ]
+    record["launches_main_path"] = total
     record.update(card=card, kind=kind)
     log("[record] " + json.dumps(record))
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,5 @@
-"""Nested-dict parameter trees in ``jax.tree`` leaf order.
+"""Nested-dict parameter trees in ``jax.tree`` leaf order, and a map over
+whole states.
 
 The port keeps parameters, gradients and optimizer moments as nested
 dicts of tensors. Leaf order matters: the leaf index and the packer
@@ -46,3 +47,15 @@ def tree_map(fn: Callable, tree, *rest):
         return fn(tree, *rest)
     return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
             for k in sorted(tree)}
+
+
+def state_map(fn: Callable, state, *rest):
+    """Apply ``fn`` leafwise over states of one structure: dicts, named
+    tuples (``SimState`` and its optimizer states) and tensors."""
+    if isinstance(state, dict):
+        return {k: state_map(fn, state[k], *(r[k] for r in rest))
+                for k in state}
+    if isinstance(state, tuple):
+        out = [state_map(fn, *fields) for fields in zip(state, *rest)]
+        return type(state)(*out) if hasattr(state, "_fields") else tuple(out)
+    return fn(state, *rest)

@@ -1,4 +1,5 @@
-"""Carry a JAX-package ``SimState`` across into the port.
+"""Carry a JAX-package ``SimState``, or a ``ScenarioBank``'s banked
+state, across into the port.
 
 The caller turns the reference state into numpy first
 (``jax.tree.map(np.asarray, state)``); this module reads only those
@@ -10,13 +11,15 @@ numpy leaves, in the reference's field order, and never imports JAX::
     fgn      = FGNState(step, mu, nu)          (step (C,), moments (C, N))
 
 Fields beyond ``step`` (the fault-injection copies) must be None: the
-port's simulator does not carry faults yet.
+port's simulator does not carry faults yet. A bank's state is the same
+structure with a leading (S,) axis on every leaf.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.common.tree import state_map
 from repro_torch.core.fedgradnorm import FGNState
 from repro_torch.core.sim import SimState
 from repro_torch.optim.adam import AdamState, SlabAdamState
@@ -57,3 +60,16 @@ def sim_state_from_numpy(state, device="cpu") -> SimState:
                      nu=_tensor(fgn[2], device, torch.float32)),
         f0=_tensor(f0, device, torch.float32),
         step=_tensor(step, device, i32))
+
+
+def bank_state_from_numpy(states, device="cpu") -> SimState:
+    """A port ``ScenarioBank`` state from a reference bank's (S,)-leading
+    state turned into numpy; raises unless every leaf carries the same
+    leading scenario axis."""
+    out = sim_state_from_numpy(states, device=device)
+    sizes = set()
+    state_map(lambda t: sizes.add(tuple(t.shape[:1])), out)
+    if len(sizes) != 1 or () in sizes:
+        raise ValueError(f"expected one leading scenario axis on every "
+                         f"leaf, found leading shapes {sorted(sizes)}")
+    return out

@@ -4,7 +4,9 @@ Port of ``repro.core.channel.ChannelParams``: the knobs a scenario sweep
 varies (σ_l², H_th, AWGN std, the ``ota_on`` and ``fgn_on`` gates) are
 tensors, never Python values, and every branch on them goes through
 ``torch.where``, so one code path serves every scenario and nothing waits
-for the host.
+for the host. A scenario bank stacks S of them along a leading (S,) axis
+(``stack_channel_params``) and hands scenario s its row
+(``scenario_channel``).
 
 * ``sigma2``      — (C,) per-cluster channel variance σ_l² (Sec. III-A)
 * ``h_threshold`` — () H_th of eq. (7)
@@ -14,7 +16,7 @@ for the host.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -42,3 +44,16 @@ def channel_params(fl: FLConfig, device="cpu") -> ChannelParams:
         ota_on=f32(1.0 if fl.ota else 0.0),
         fgn_on=f32(1.0 if fl.weighting == "fedgradnorm" else 0.0),
     )
+
+
+def stack_channel_params(chans: Sequence[ChannelParams]) -> ChannelParams:
+    """Stack S scenarios into one bank with a leading (S,) axis on every
+    field."""
+    if not chans:
+        raise ValueError("empty scenario list")
+    return ChannelParams(*[torch.stack(fields) for fields in zip(*chans)])
+
+
+def scenario_channel(bank: ChannelParams, s: int) -> ChannelParams:
+    """Scenario ``s``'s knobs: row ``s`` of every field of a stacked bank."""
+    return ChannelParams(*[field[s] for field in bank])

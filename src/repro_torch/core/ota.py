@@ -1,22 +1,33 @@
-"""Over-the-air aggregation over the fading MAC (paper Sec. III-B), the part
-the simulator's main path runs.
+"""Over-the-air aggregation over the fading MAC (paper Sec. III-B).
 
 Port of ``repro.core.ota``: the reserved fold registry and key schedule
-(DESIGN.md §4), the chunk-quantized section streams, the client-folded
-estimator ``ota_aggregate_client_folded`` and the eq.-5 masks
-``final_layer_masks_packed``. The channel is defined by its random
-streams, so every draw here is bit-identical to the reference's under
-the same ``jax_threefry_partitionable`` mode (``repro_torch.rng``).
+(DESIGN.md §4), the chunk-quantized section streams, the eq.-5 masks
+``final_layer_masks_packed`` and the simulator's three aggregation
+engines:
+
+* ``ota_aggregate_client_folded``: every cluster's streams drawn at once,
+  one K1 launch per leaf;
+* ``ota_aggregate_streaming``: one cluster at a time (the reference's
+  cluster ``lax.scan`` is a Python loop here), one K5 launch per
+  (cluster, leaf), with no (C, section) stream or mask alive;
+* ``ota_aggregate_sectioned``: one section at a time, either folding all
+  clusters (bit-identical to the client-folded engine) or streaming them
+  inside the section (bit-identical to the streaming engine).
+
+The channel is defined by its random streams, so every draw here is
+bit-identical to the reference's under the same
+``jax_threefry_partitionable`` mode (``repro_torch.rng``).
 
 Keys are (2,) int64 host tensors of uint32 values; key derivation
 (``fold_in``) stays on the host, and the stream words are drawn on the
 device the caller names. A section's gain stream for cluster c is
 chunk-quantized: chunk j holds ``bits(fold_in(fold_in(fold_in(key,
-fold), c), j), CHUNK)`` and a partial last chunk is truncated.
+fold), c), j), CHUNK)`` and a partial last chunk is truncated, so any
+range of it can be drawn on its own (``stream_range_bits``).
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Any, List, NamedTuple, Optional
 
 import torch
 
@@ -24,8 +35,12 @@ from repro_torch import rng
 from repro_torch.common.flatpack import TreePacker, check_tree_matches_packer
 from repro_torch.common.tree import tree_leaves, tree_unflatten
 from repro_torch.core.channel import ChannelParams
-from repro_torch.kernels.ota_channel.ops import ota_client_fold_apply
-from repro_torch.kernels.ota_channel.ref import bits_to_mask
+from repro_torch.kernels.ota_channel.ops import (
+    ota_client_fold_apply, ota_stream_fold_apply,
+)
+from repro_torch.kernels.ota_channel.ref import (
+    bits_to_gaussian, bits_to_mask,
+)
 from repro_torch.kernels.slab import LANE
 
 # --------------------------------------------------------------------------
@@ -148,51 +163,320 @@ def section_noise_streams(key, packer: TreePacker,
             for sec in packer.sections]
 
 
+class SectionStreams(NamedTuple):
+    """A round's stream words for every section, drawn at once: what the
+    client-folded engine and the eq.-5 masks read. The scenario bank
+    draws them once per round and hands them to every scenario."""
+    gain: List[torch.Tensor]    # per section: (C, length) int32
+    noise: List[torch.Tensor]   # per section: (length,) int32
+
+
+def section_streams(key, packer: TreePacker, n_clusters: int,
+                    device=None) -> SectionStreams:
+    """The round's gain and AWGN streams of every section under ``key``
+    (the simulator round's channel key)."""
+    return SectionStreams(
+        section_gain_streams(key, packer, n_clusters, device),
+        section_noise_streams(key, packer, device))
+
+
+def _check_streams(streams: SectionStreams, packer: TreePacker,
+                   n_clusters: int) -> None:
+    """Raise unless ``streams`` holds one gain and one noise stream of the
+    right shape for each of ``packer``'s sections."""
+    if (len(streams.gain) != len(packer.sections)
+            or len(streams.noise) != len(packer.sections)):
+        raise ValueError(f"streams hold {len(streams.gain)} gain and "
+                         f"{len(streams.noise)} noise sections, the layout "
+                         f"has {len(packer.sections)}")
+    for sec in packer.sections:
+        if (tuple(streams.gain[sec.index].shape) != (n_clusters, sec.length)
+                or tuple(streams.noise[sec.index].shape) != (sec.length,)):
+            raise ValueError(
+                f"section {sec.index}: streams shaped "
+                f"{tuple(streams.gain[sec.index].shape)} / "
+                f"{tuple(streams.noise[sec.index].shape)}, expected "
+                f"({n_clusters}, {sec.length}) / ({sec.length},)")
+
+
+def _check_bits_mode(bits_mode: str) -> None:
+    if bits_mode not in ("fused", "supplied"):
+        raise ValueError(f"bits_mode must be 'fused' or 'supplied', got "
+                         f"{bits_mode!r}")
+
+
 # --------------------------------------------------------------------------
 # the channel on the simulator's main path
 # --------------------------------------------------------------------------
 
 def ota_aggregate_client_folded(key, grads, p: torch.Tensor,
                                 chan: ChannelParams, n_clients: int,
-                                packer: TreePacker,
+                                packer: TreePacker, bits_mode: str = "fused",
                                 live: Optional[torch.Tensor] = None,
-                                n_eff: Optional[torch.Tensor] = None):
+                                n_eff: Optional[torch.Tensor] = None,
+                                streams: Optional[SectionStreams] = None):
     """PS estimate ĝ of eqs. 3 + 8-10 from the raw (C, N, ...) gradient
     tree and the (C, N) loss weights, one leaf at a time: each leaf is
     read in place and meets its slice of its section's streams, so
     neither the client-weighted tree nor a (C, P) slab is built. Returns
-    a tree of ĝ leaves shaped like the model's parameters."""
+    a tree of ĝ leaves shaped like the model's parameters.
+
+    ``bits_mode="fused"`` draws the round's streams from ``key``;
+    ``"supplied"`` reads them from ``streams`` (``section_streams`` of the
+    same key), so a caller that runs several scenarios on one key draws
+    them once. Both give identical values."""
+    _check_bits_mode(bits_mode)
     check_tree_matches_packer(packer, grads,
                               "gradient tree (client-folded OTA)",
                               batch_ndim=2)
     n_clusters = int(chan.sigma2.shape[0])
-    device = p.device
-    gbits = section_gain_streams(key, packer, n_clusters, device)
-    nbits = section_noise_streams(key, packer, device)
+    if bits_mode == "fused":
+        if streams is not None:
+            raise ValueError("bits_mode='fused' draws the streams itself; "
+                             "pass bits_mode='supplied' with streams")
+        streams = section_streams(key, packer, n_clusters, p.device)
+    elif streams is None:
+        raise ValueError("bits_mode='supplied' needs the round's streams "
+                         "(ota.section_streams)")
+    _check_streams(streams, packer, n_clusters)
     leaves = tree_leaves(grads)
     out = [None] * len(leaves)
     for run in packer.leaf_runs():
-        b = gbits[run.section][:, run.offset:run.offset + run.size]
-        nb = nbits[run.section][run.offset:run.offset + run.size]
+        b = streams.gain[run.section][:, run.offset:run.offset + run.size]
+        nb = streams.noise[run.section][run.offset:run.offset + run.size]
         out[run.leaf] = ota_client_fold_apply(
             leaves[run.leaf], p, b, nb, chan.sigma2, chan.h_threshold,
             chan.noise_std, chan.ota_on, n_clients, live=live, n_eff=n_eff)
     return tree_unflatten(grads, out)
 
 
-def final_layer_masks_packed(key, chan: ChannelParams, packer: TreePacker):
+# --------------------------------------------------------------------------
+# the streaming engines: one cluster's streams alive at a time
+# --------------------------------------------------------------------------
+
+class OTAStreamAcc(NamedTuple):
+    """Running state of the streaming aggregator: the masked MAC sum and
+    the |M| pass count, one leaf-shaped float32 tensor each, with no
+    cluster axis."""
+    y: Any       # tree: Σ_{folded l} M_l ∘ (Σ_n p g)
+    cnt: Any     # tree: Σ_{folded l} M_l
+
+
+def ota_stream_init(packer: TreePacker, device=None) -> OTAStreamAcc:
+    """Zeroed accumulator shaped like ``packer``'s tree."""
+    def zeros():
+        tree: dict = {}
+        for i, path in enumerate(packer.paths):
+            node = tree
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = torch.zeros(packer.slots[i].shape,
+                                         dtype=torch.float32, device=device)
+        return tree
+    return OTAStreamAcc(y=zeros(), cnt=zeros())
+
+
+def _cluster_gain_keys(key, folds, cluster) -> torch.Tensor:
+    """Gain-stream keys of one cluster for each fold in ``folds``:
+    (len(folds), 2), derived in two batched host hashes."""
+    skeys = rng.fold_in(rng.as_key(key).unsqueeze(0),
+                        torch.tensor(folds, dtype=torch.int64))
+    return cluster_key(skeys, int(cluster))
+
+
+def _stream_term(g_leaf, p_c, gkey, run, sig_c, chan: ChannelParams,
+                 live_c):
+    """One (cluster, leaf) term: draw the cluster's words of the leaf's
+    stream range and fold them through K5."""
+    b = stream_range_bits(gkey, run.offset, run.size, g_leaf.device)
+    return ota_stream_fold_apply(g_leaf, p_c, b, sig_c, chan.h_threshold,
+                                 chan.ota_on, live_c=live_c)
+
+
+def _finalize_leaf(y, cnt, nkey, run, chan: ChannelParams, denom):
+    """AWGN from the leaf's noise range, then the guarded eq.-10 estimate."""
+    nb = stream_range_bits(nkey, run.offset, run.size, y.device)
+    z = (bits_to_gaussian(nb, 1.0) * chan.noise_std.to(torch.float32)
+         * chan.ota_on.to(torch.float32))
+    yl = y.reshape(-1) + z
+    cl = cnt.reshape(-1)
+    g = torch.where(cl > 0, yl / (torch.clamp(cl, min=1.0) * denom),
+                    torch.zeros_like(yl))
+    return g.reshape(y.shape)
+
+
+def _denominator(n_clients: int, n_eff, device) -> torch.Tensor:
+    if n_eff is None:
+        return torch.tensor(float(n_clients), dtype=torch.float32,
+                            device=device)
+    return torch.clamp(torch.as_tensor(n_eff, dtype=torch.float32,
+                                       device=device), min=1.0)
+
+
+def _live_flags(live, n_clusters: int, device) -> List[Optional[torch.Tensor]]:
+    if live is None:
+        return [None] * n_clusters
+    lv = torch.as_tensor(live, dtype=torch.float32,
+                         device=device).reshape(n_clusters)
+    return [lv[c] for c in range(n_clusters)]
+
+
+def ota_stream_fold(key, acc: OTAStreamAcc, grads_c, p_c: torch.Tensor,
+                    chan: ChannelParams, cluster: int, packer: TreePacker,
+                    live_c=None) -> OTAStreamAcc:
+    """Fold ONE cluster's contribution into the running sum: draw only
+    cluster ``cluster``'s words of each leaf's stream range (the same
+    words the client-folded engine applies at those positions, because
+    partial chunks truncate), fold its client weights into the masked
+    apply (one K5 launch per leaf), and add the masked sum and the pass
+    count into ``acc``. ``grads_c`` has leading (N, ...) leaves.
+    Updates ``acc``'s tensors in place and returns it."""
+    folds = packed_section_folds(packer)
+    gkeys = _cluster_gain_keys(key, folds, cluster)
+    sig_c = chan.sigma2[cluster]
+    leaves = tree_leaves(grads_c)
+    y, cnt = tree_leaves(acc.y), tree_leaves(acc.cnt)
+    for run in packer.leaf_runs():
+        dy, dc = _stream_term(leaves[run.leaf], p_c, gkeys[run.section],
+                              run, sig_c, chan, live_c)
+        y[run.leaf].add_(dy)
+        cnt[run.leaf].add_(dc)
+    return acc
+
+
+def ota_stream_finalize(key, acc: OTAStreamAcc, chan: ChannelParams,
+                        n_clients: int, packer: TreePacker, n_eff=None):
+    """Close a streaming round: add the AWGN (the words
+    ``section_noise_streams`` draws, range by range) and apply the guarded
+    |M|·N_eff estimate of eq. 10. Returns the ĝ tree."""
+    folds = torch.tensor(packed_section_folds(packer), dtype=torch.int64)
+    nkeys = rng.fold_in(noise_key(key).unsqueeze(0), folds)
+    y, cnt = tree_leaves(acc.y), tree_leaves(acc.cnt)
+    denom = _denominator(n_clients, n_eff, y[0].device)
+    out = [None] * len(y)
+    for run in packer.leaf_runs():
+        out[run.leaf] = _finalize_leaf(y[run.leaf], cnt[run.leaf],
+                                       nkeys[run.section], run, chan, denom)
+    return tree_unflatten(acc.y, out)
+
+
+def ota_aggregate_streaming(key, grads, p: torch.Tensor, chan: ChannelParams,
+                            n_clients: int, packer: TreePacker,
+                            bits_mode: str = "fused",
+                            live: Optional[torch.Tensor] = None,
+                            n_eff: Optional[torch.Tensor] = None):
+    """Streaming OTA aggregation: the client-folded engine's math and
+    streams, with the cluster axis a loop over ``ota_stream_fold``, so
+    only one cluster's stream words and masked term are alive besides the
+    leaf-shaped accumulator; no (C, section) tensor is made. Sums over
+    clusters in cluster order, so it matches the client-folded engine to
+    float rounding, not bit for bit.
+
+    The draw depends on ``key`` alone and happens cluster by cluster
+    whatever ``bits_mode`` says ("fused" or "supplied", accepted as the
+    reference accepts them); there are no streams to supply."""
+    _check_bits_mode(bits_mode)
+    check_tree_matches_packer(packer, grads,
+                              "gradient tree (streaming OTA)", batch_ndim=2)
+    n_clusters = int(chan.sigma2.shape[0])
+    leaves = tree_leaves(grads)
+    acc = ota_stream_init(packer, p.device)
+    p32 = p.to(torch.float32)
+    for c, live_c in enumerate(_live_flags(live, n_clusters, p.device)):
+        grads_c = tree_unflatten(grads, [l[c] for l in leaves])
+        acc = ota_stream_fold(key, acc, grads_c, p32[c], chan, c, packer,
+                              live_c=live_c)
+    return ota_stream_finalize(key, acc, chan, n_clients, packer,
+                               n_eff=n_eff)
+
+
+def ota_aggregate_sectioned(key, grads, p: torch.Tensor, chan: ChannelParams,
+                            n_clients: int, packer: TreePacker,
+                            bits_mode: str = "fused",
+                            live: Optional[torch.Tensor] = None,
+                            n_eff: Optional[torch.Tensor] = None,
+                            streaming: bool = False):
+    """Section-at-a-time OTA aggregation: walk ``packer.sections`` in
+    order, draw only that section's streams (the same folds, so the same
+    words as the all-sections draw), fold only its leaf runs, and let the
+    buffers go before the next section. Peak live streams are one section
+    (bounded by the layout's ``max_section_rows``), never the (C, P) slab.
+
+    ``streaming=False`` hands every K1 launch the bytes the client-folded
+    engine hands it, so the result is bit-identical to that engine.
+    ``streaming=True`` runs the cluster loop inside each section (one
+    cluster's slice of one section alive at a time) and accumulates every
+    leaf in the streaming engine's cluster order: bit-identical to
+    ``ota_aggregate_streaming``. ``bits_mode`` is accepted as the
+    reference accepts it; the draw is per section either way."""
+    _check_bits_mode(bits_mode)
+    check_tree_matches_packer(packer, grads,
+                              "gradient tree (sectioned OTA)", batch_ndim=2)
+    n_clusters = int(chan.sigma2.shape[0])
+    device = p.device
+    folds = packed_section_folds(packer)
+    leaves = tree_leaves(grads)
+    out = [None] * len(leaves)
+    runs_by_sec: dict = {}
+    for run in packer.leaf_runs():
+        runs_by_sec.setdefault(run.section, []).append(run)
+    p32 = p.to(torch.float32)
+    live_v = _live_flags(live, n_clusters, device)
+    denom = _denominator(n_clients, n_eff, device)
+    for sec in packer.sections:
+        runs = runs_by_sec.get(sec.index, [])
+        if not runs:
+            continue
+        fold = folds[sec.index]
+        nkey = section_noise_key(key, fold)
+        if not streaming:
+            gb = _section_bits(key, fold, n_clusters, sec.length, device)
+            nb = _chunked_stream(nkey, sec.length, device)
+            for run in runs:
+                cols = slice(run.offset, run.offset + run.size)
+                out[run.leaf] = ota_client_fold_apply(
+                    leaves[run.leaf], p, gb[:, cols], nb[cols], chan.sigma2,
+                    chan.h_threshold, chan.noise_std, chan.ota_on, n_clients,
+                    live=live, n_eff=n_eff)
+            continue
+        y = [torch.zeros(packer.slots[r.leaf].shape, dtype=torch.float32,
+                         device=device) for r in runs]
+        cnt = [torch.zeros_like(t) for t in y]
+        for c in range(n_clusters):
+            gkey = section_gain_key(key, fold, c)
+            for k, run in enumerate(runs):
+                dy, dc = _stream_term(leaves[run.leaf][c], p32[c], gkey, run,
+                                      chan.sigma2[c], chan, live_v[c])
+                y[k].add_(dy)
+                cnt[k].add_(dc)
+        for k, run in enumerate(runs):
+            out[run.leaf] = _finalize_leaf(y[k], cnt[k], nkey, run, chan,
+                                           denom)
+    return tree_unflatten(grads, out)
+
+
+def final_layer_masks_packed(key, chan: ChannelParams, packer: TreePacker,
+                             gain: Optional[List[torch.Tensor]] = None):
     """Masks M^(l) on the last-shared-layer params ω̃ (eqs. 5-7), drawn
     from the tail section's stream: the same masks the aggregation
-    applies to those entries. Returns the tail subtree of (C, *shape)
-    bool masks."""
+    applies to those entries. ``gain``, the round's per-section gain
+    streams (``SectionStreams.gain``) when the caller has drawn them, is
+    read instead of drawing the tail again. Returns the tail subtree of
+    (C, *shape) bool masks."""
     if packer.tail_name is None or not packer.tail_len:
         raise ValueError("final_layer_masks_packed needs a packer with a "
                          "non-empty tail section (the ω̃ params)")
     n_clusters = int(chan.sigma2.shape[0])
     tail_sec = next(s for s in packer.sections
                     if s.name == packer.tail_name)
-    bits = _section_bits(key, PACKED_TAIL_FOLD, n_clusters, tail_sec.length,
-                         chan.sigma2.device)
+    if gain is None:
+        bits = _section_bits(key, PACKED_TAIL_FOLD, n_clusters,
+                             tail_sec.length, chan.sigma2.device)
+    else:
+        bits = gain[tail_sec.index]
+        if tuple(bits.shape) != (n_clusters, tail_sec.length):
+            raise ValueError(f"tail gain stream shaped {tuple(bits.shape)}, "
+                             f"expected ({n_clusters}, {tail_sec.length})")
     sig = chan.sigma2.reshape(n_clusters, 1)
     masks = {}
     for run in packer.leaf_runs():

@@ -1,10 +1,13 @@
 """Paper-scale simulator of HOTA-FedGradNorm (Algorithm 1 + Algorithm 2).
 
-Port of ``repro.core.sim`` for the main path: the slab-native round at
-the default ``FLConfig`` (client-folded channel, ``"toplevel"`` or
-``"tail"`` section layout), without faults, streaming or sectioning.
-The reference's ``vmap`` over (cluster, client) is a batch dimension
-written out: every client-indexed tensor carries leading (C, N) axes.
+Port of ``repro.core.sim``: the slab-native round on each of the
+reference's aggregation engines (client-folded, streaming, sectioned,
+sectioned + streaming, picked by ``FLConfig.ota_streaming`` /
+``ota_sectioned``; ``"toplevel"`` or ``"tail"`` section layout, optional
+``max_section_rows`` splits), without faults and without the per-leaf
+oracle (``use_pallas_ota=False``). The reference's ``vmap`` over
+(cluster, client) is a batch dimension written out: every client-indexed
+tensor carries leading (C, N) axes.
 
 Per global iteration k (Alg. 1):
  1. PS broadcasts ω_k.
@@ -13,18 +16,20 @@ Per global iteration k (Alg. 1):
  3. IS l runs FGN_Server (Alg. 2) on channel-masked last-layer gradient
     norms (the ``masked_gradnorm`` kernel, one launch for all clusters).
  4. The clusters superpose over the fading MAC and the PS estimates ĝ
-    (eqs. 3, 8-10): the ``ota_client_fold`` kernel, one launch per leaf.
+    (eqs. 3, 8-10): the ``ota_client_fold`` kernel, one launch per leaf,
+    or on the streaming engines ``ota_mask_weight``, one launch per
+    (cluster, leaf).
  5. PS updates ω with the slab-view Adam.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 
 from repro_torch.common.config import FLConfig, TrainConfig
 from repro_torch.common.device import resolve_device
-from repro_torch.common.flatpack import packer_for
+from repro_torch.common.flatpack import TreePacker, packer_for
 from repro_torch.common.tree import (
     tree_leaves, tree_map, tree_unflatten,
 )
@@ -74,16 +79,36 @@ class HotaSim:
                  n_classes_per_client, max_classes: int = None,
                  device="cuda"):
         self.device = resolve_device(device)
-        # static gates this engine does not carry refuse loudly rather
-        # than silently running a different round
+        # the reference's own refusals: a static gate the chosen engine
+        # cannot honour refuses loudly instead of being silently inert
+        if fl.ota_sectioned and not fl.use_pallas_ota:
+            raise ValueError(
+                "fl.ota_sectioned requires the slab engine "
+                "(use_pallas_ota=True): the per-leaf oracle has no "
+                "Section partition to stream — the gate would be "
+                "silently inert (DESIGN.md §3.16)")
+        if fl.ota_sectioned and fl.ota_sections != "toplevel":
+            raise ValueError(
+                "fl.ota_sectioned requires a multi-section layout "
+                f"(ota_sections='toplevel', got {fl.ota_sections!r}): "
+                "section streaming over the legacy two-section layout "
+                "holds most of the model in its head section — the "
+                "memory bound would be silently vacuous (DESIGN.md §3.16)")
+        if fl.max_section_rows and not fl.use_pallas_ota:
+            raise ValueError(
+                "fl.max_section_rows requires the slab engine "
+                "(use_pallas_ota=True): the per-leaf oracle has no "
+                "section layout to split — the cap would be silently "
+                "inert (DESIGN.md §3.16)")
+        # what the port does not carry yet refuses rather than silently
+        # running a different round
         unsupported = [name for name, on in (
-            ("faults", fl.faults), ("ota_streaming", fl.ota_streaming),
-            ("ota_sectioned", fl.ota_sectioned),
-            ("max_section_rows", fl.max_section_rows),
+            ("faults", fl.faults),
             ("use_pallas_ota=False", not fl.use_pallas_ota)) if on]
         if unsupported:
             raise ValueError(f"HotaSim does not carry {unsupported} yet: "
-                             f"only the client-folded slab round is ported")
+                             f"faults and the per-leaf oracle are not "
+                             f"ported")
         self.model = model
         self.fl = fl
         self.tcfg = tcfg
@@ -161,6 +186,59 @@ class HotaSim:
         return masked_gradnorm(gm, mm)
 
     # ------------------------------------------------------------------
+    def packer(self, omega) -> TreePacker:
+        """The round's slab layout of the shared tree ``omega``: the
+        config's section layout, coalescing and split cap."""
+        fl = self.fl
+        return packer_for(omega, tail="final", sections=fl.ota_sections,
+                          min_section_rows=fl.min_section_rows,
+                          max_section_rows=fl.max_section_rows)
+
+    @property
+    def draws_streams_at_once(self) -> bool:
+        """Whether this sim's engine reads the round's streams of every
+        section at once (the client-folded engine), so that a caller
+        running several scenarios on one key can draw them once
+        (``round_streams``). The streaming and sectioned engines draw
+        inside the aggregation, a cluster or a section at a time."""
+        return not (self.fl.ota_streaming or self.fl.ota_sectioned)
+
+    def round_streams(self, key, omega) -> ota.SectionStreams:
+        """The round's section streams under round key ``key`` for the
+        client-folded engine: what ``step_with_channel(...,
+        ota_bits_mode="supplied", streams=...)`` reads."""
+        if not self.draws_streams_at_once:
+            raise ValueError("the streaming and sectioned engines draw their "
+                             "streams inside the aggregation")
+        return ota.section_streams(ota.sim_channel_key(key),
+                                   self.packer(omega), self.fl.n_clusters,
+                                   self.device)
+
+    def aggregate(self, chan_key, g, p, chan: ChannelParams,
+                  packer: TreePacker, ota_bits_mode: str = "fused",
+                  streams: Optional[ota.SectionStreams] = None):
+        """The PS estimate ĝ (eqs. 3, 8-10) of the raw (C, N, ...) gradient
+        tree ``g`` under the (C, N) weights ``p``, on this sim's engine as
+        the reference picks it: ``ota_sectioned`` walks the sections
+        (streaming inside them with ``ota_streaming``), else
+        ``ota_streaming`` folds one cluster at a time, else the
+        client-folded engine reads ``streams`` (drawn from ``chan_key``
+        when None)."""
+        fl = self.fl
+        if fl.ota_sectioned:
+            return ota.ota_aggregate_sectioned(
+                chan_key, g, p, chan, fl.n_clients, packer,
+                bits_mode=ota_bits_mode, streaming=fl.ota_streaming)
+        if fl.ota_streaming:
+            return ota.ota_aggregate_streaming(
+                chan_key, g, p, chan, fl.n_clients, packer,
+                bits_mode=ota_bits_mode)
+        return ota.ota_aggregate_client_folded(
+            chan_key, g, p, chan, fl.n_clients, packer,
+            bits_mode="fused" if streams is None else "supplied",
+            streams=streams)
+
+    # ------------------------------------------------------------------
     @torch.no_grad()
     def step(self, state: SimState, xb, yb, key,
              chan: ChannelParams = None):
@@ -168,31 +246,59 @@ class HotaSim:
         key: the round's threefry key, (2,) uint32 values (a JAX key as
         numpy, or ``repro_torch.rng.PRNGKey``/``fold_in`` output).
         ``chan`` overrides the channel knobs (default: this sim's)."""
+        return self.step_with_channel(state, xb, yb, key,
+                                      self.chan if chan is None else chan)
+
+    @torch.no_grad()
+    def step_with_channel(self, state: SimState, xb, yb, key,
+                          chan: ChannelParams, ota_bits_mode: str = "fused",
+                          streams: Optional[ota.SectionStreams] = None):
+        """The round with explicit channel knobs: what ``ScenarioBank``
+        runs for each scenario, on the engine the config picks
+        (``aggregate``).
+
+        ``ota_bits_mode="supplied"`` on the client-folded engine reads the
+        round's streams from ``streams`` (``round_streams(key, ...)``), so
+        the bank draws them once per round for all scenarios; "fused"
+        draws them here. The other engines draw inside the aggregation in
+        either mode and take no ``streams``. The values are the same."""
         fl, tcfg, dev = self.fl, self.tcfg, self.device
-        chan = self.chan if chan is None else chan
+        if ota_bits_mode not in ("fused", "supplied"):
+            raise ValueError(f"ota_bits_mode must be 'fused' or 'supplied', "
+                             f"got {ota_bits_mode!r}")
+        if streams is not None and (ota_bits_mode != "supplied"
+                                    or not self.draws_streams_at_once):
+            raise ValueError("streams are read only by the client-folded "
+                             "engine with ota_bits_mode='supplied'")
         x = torch.as_tensor(xb, dtype=torch.float32).to(dev)
         y = torch.as_tensor(yb).to(device=dev, dtype=torch.int64)
         heads, head_opt, g, F = self._client_update(
             state.omega, state.heads, state.head_opt, x, y)
 
         chan_key = ota.sim_channel_key(key)   # reserved fold (DESIGN.md §4)
-        packer = packer_for(state.omega, tail="final",
-                            sections=fl.ota_sections,
-                            min_section_rows=fl.min_section_rows)
+        packer = self.packer(state.omega)
+        if self.draws_streams_at_once and streams is None:
+            if ota_bits_mode == "supplied":
+                raise ValueError("ota_bits_mode='supplied' needs the round's "
+                                 "streams (HotaSim.round_streams)")
+            streams = ota.section_streams(chan_key, packer, fl.n_clusters,
+                                          dev)
 
         # --- Alg. 2: FGN_Server per cluster -------------------------------
         # f0 latches each slot's first observed loss (the F̃ baseline); a
         # negative f0 marks a never-seen slot
         f0 = torch.where((state.step == 0) | (state.f0 < 0.0), F, state.f0)
         ratios = F / torch.clamp(f0, min=1e-12)
-        final_masks = ota.final_layer_masks_packed(chan_key, chan, packer)
+        final_masks = ota.final_layer_masks_packed(
+            chan_key, chan, packer,
+            gain=None if streams is None else streams.gain)
         norms = self._masked_final_norms(g["final"], final_masks)   # (C, N)
         p_new, fgn_state, fval = fgn_update_gated(
             state.p, norms, ratios, state.fgn, fl, chan.fgn_on)
 
-        # --- eqs. (3), (8)-(10): client-folded OTA, then the PS update -----
-        ghat = ota.ota_aggregate_client_folded(
-            chan_key, g, p_new, chan, fl.n_clients, packer)
+        # --- eqs. (3), (8)-(10): OTA aggregation, then the PS update -------
+        ghat = self.aggregate(chan_key, g, p_new, chan, packer,
+                              ota_bits_mode, streams)
         omega, ps_opt = slab_adam_update(ghat, state.ps_opt, state.omega,
                                          tcfg.lr)
         metrics = {"loss": F, "p": p_new, "fgrad": fval,

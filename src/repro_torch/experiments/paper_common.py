@@ -1,0 +1,177 @@
+"""Shared runner for the paper-reproduction experiments (Figs. 2-4).
+
+Port of ``benchmarks/paper_common.py``. Faithful setting (paper Sec. IV):
+C clusters x N=3 clients, tasks (modulation-6, signal-8, anomaly-2),
+synthetic RadComDynamic, Table-I MLP, γ=0.6, α=0.008, β=3e-4, Adam
+everywhere, H_th=3.2e-2, z ~ N(0,1). "Epoch" on the x-axis =
+EPOCH_STEPS global iterations.
+
+Each figure runs as ONE ``ScenarioBank`` sweep (``run_sweep``): all of its
+scenarios share one data stream and common random numbers. The sweep runs
+on the card unless ``device="cpu"`` is asked for, on the default section
+layout (the reference's layout autotuner is not ported yet), and writes
+its JSON results under ``results/repro_torch/`` at the checkout's root.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+from pathlib import Path
+from typing import Callable, Dict
+
+import numpy as np
+
+from repro_torch import rng
+from repro_torch.common.config import FLConfig
+from repro_torch.core.paper_setup import paper_mlp_setup
+from repro_torch.core.sweep import ScenarioBank
+from repro_torch.data.radcom import TASKS
+
+RESULTS_DIR = str(Path(__file__).resolve().parents[3] / "results"
+                  / "repro_torch")
+EPOCH_STEPS = 10
+
+
+def _scenario_result(name: str, spec: Dict, losses: np.ndarray,
+                     ps: np.ndarray, steps: int, n_clients: int,
+                     wall_s: float, sweep_size: int) -> Dict:
+    """Per-scenario JSON payload from (steps, C, N) loss/p trajectories.
+    ``wall_s`` is the measured wall time of the WHOLE sweep this scenario
+    ran in (shared across its ``sweep_size`` scenarios — divide to
+    estimate a per-scenario share)."""
+    return {
+        "name": name,
+        "weighting": spec.get("weighting", "fedgradnorm"),
+        "sigma2": list(spec.get("sigma2", ())),
+        "steps": steps, "epoch_steps": EPOCH_STEPS,
+        "tasks": TASKS[:n_clients],
+        "loss_cluster0": losses[:, 0, :].tolist(),
+        "loss_mean_tasks": losses.mean(axis=1).tolist(),
+        "p_cluster0": ps[:, 0, :].tolist(),
+        "p_mean": ps.mean(axis=1).tolist(),
+        "final_loss_per_task": losses[-EPOCH_STEPS:].mean(axis=(0, 1)).tolist(),
+        "auc_loss_per_task": losses.mean(axis=(0, 1)).tolist(),
+        "wall_s": wall_s,
+        "sweep_size": sweep_size,
+    }
+
+
+def _engine_name(ota_streaming: bool, ota_sectioned: bool,
+                 max_section_rows: int) -> str:
+    parts = [n for n, on in (("sectioned", ota_sectioned),
+                             ("streaming", ota_streaming)) if on]
+    return (" + ".join(parts) or "client-folded") + (
+        f", max_section_rows={max_section_rows}" if max_section_rows else "")
+
+
+def run_sweep(
+    experiments: Dict[str, Dict],
+    steps: int = 800,
+    n_clusters: int = 10,
+    n_clients: int = 3,
+    batch: int = 24,
+    seed: int = 0,
+    force: bool = False,
+    log_every: int = 50,
+    ota_streaming: bool = False,
+    ota_sectioned: bool = False,
+    max_section_rows: int = 0,
+    device="cuda",
+) -> Dict[str, Dict]:
+    """Run ALL experiments as one ScenarioBank sweep.
+
+    ``experiments`` maps result-name -> FLConfig channel overrides
+    (``weighting``, ``sigma2``, ``noise_std``, ``ota``). Every scenario sees
+    the same data stream and per-step keys (common random numbers).
+    Results are cached per scenario under RESULTS_DIR; ``force`` runs
+    again. ``ota_streaming`` / ``ota_sectioned`` / ``max_section_rows``
+    select the engine for the whole bank (engines are static; ``HotaSim``
+    raises by name when a flag's prerequisites are off). The weights start
+    from ``HotaSim.init(seed)``, a ``torch.Generator`` draw, so a sweep
+    starts from other weights than the reference's sweep of the same seed;
+    the data, keys and channel streams are the reference's."""
+    os.makedirs(RESULTS_DIR, exist_ok=True)
+    paths = {n: os.path.join(RESULTS_DIR, n + ".json") for n in experiments}
+    if not force and all(os.path.exists(p) for p in paths.values()):
+        out = {}
+        for n, p in paths.items():
+            with open(p) as f:
+                out[n] = json.load(f)
+        return out
+
+    base_fl = FLConfig(n_clusters=n_clusters, n_clients=n_clients,
+                       ota_streaming=ota_streaming,
+                       ota_sectioned=ota_sectioned,
+                       max_section_rows=max_section_rows)
+    print(f"  layout: default ({base_fl.ota_sections}; the layout autotuner "
+          f"is not ported), engine: "
+          f"{_engine_name(ota_streaming, ota_sectioned, max_section_rows)}",
+          flush=True)
+    sim, batcher = paper_mlp_setup(base_fl, batch=batch, seed=seed,
+                                   device=device)
+    names = list(experiments)
+    specs = [dict(experiments[n]) for n in names]
+    for sp in specs:
+        if "sigma2" in sp:
+            sp["sigma2"] = tuple(sp["sigma2"])
+    bank = ScenarioBank(sim, specs)
+    states = bank.init(seed)
+
+    losses, ps = [], []
+    t0 = time.time()
+    for step in range(steps):
+        x, y = batcher.next_stacked()
+        states, m = bank.step(states, x, y,
+                              rng.PRNGKey(seed * 7919 + step))
+        losses.append(m["loss"].cpu().numpy())    # (S, C, N)
+        ps.append(m["p"].cpu().numpy())
+        if step % log_every == 0:
+            print(f"  [sweep x{bank.n_scenarios} on {sim.device}] step "
+                  f"{step}/{steps} loss {losses[-1].mean():.4f} "
+                  f"({(time.time()-t0)/(step+1):.2f}s/step)", flush=True)
+    wall_s = time.time() - t0
+
+    losses = np.stack(losses)   # (steps, S, C, N)
+    ps = np.stack(ps)
+    out = {}
+    for s, name in enumerate(names):
+        out[name] = _scenario_result(
+            name, specs[s], losses[:, s], ps[:, s], steps, n_clients,
+            wall_s, bank.n_scenarios)
+        with open(paths[name], "w") as f:
+            json.dump(out[name], f)
+    return out
+
+
+def summarize(results: Dict[str, Dict], label: str) -> str:
+    lines = [f"== {label} =="]
+    for name, r in results.items():
+        fl = r["final_loss_per_task"]
+        auc = r["auc_loss_per_task"]
+        lines.append(
+            f"{name:34s} final per task: "
+            + " ".join(f"{x:.4f}" for x in fl)
+            + "  | auc: " + " ".join(f"{x:.4f}" for x in auc))
+    return "\n".join(lines)
+
+
+def main(run: Callable, argv=None):
+    """Command line of a figure runner: ``[steps] [--streaming]
+    [--sectioned] [--max-section-rows R] [--device D] [--force]``."""
+    ap = argparse.ArgumentParser(description=run.__module__)
+    ap.add_argument("steps", nargs="?", type=int, default=800)
+    ap.add_argument("--streaming", action="store_true",
+                    help="fold one cluster at a time (FLConfig.ota_streaming)")
+    ap.add_argument("--sectioned", action="store_true",
+                    help="one section at a time (FLConfig.ota_sectioned)")
+    ap.add_argument("--max-section-rows", type=int, default=0,
+                    help="split trunk sections above this many 128-rows")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--force", action="store_true",
+                    help="run again even if cached results exist")
+    a = ap.parse_args(argv)
+    return run(steps=a.steps, force=a.force, ota_streaming=a.streaming,
+               ota_sectioned=a.sectioned,
+               max_section_rows=a.max_section_rows, device=a.device)

@@ -47,6 +47,8 @@ SIGNATURES = {
                             _I32, _I32, _I32, _I32, _PTR],
     "masked_gradnorm_f32": [_PTR, _PTR, _PTR, _I64, _I32, _I32, _I32,
                             _PTR],
+    "ota_mask_weight_f32": [_PTR, _PTR, _I64, _PTR, _PTR, _PTR, _PTR, _I64,
+                            _I32, _I32, _I32, _PTR],
 }
 
 

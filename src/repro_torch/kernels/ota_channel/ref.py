@@ -63,6 +63,33 @@ def bits_to_mask(bits: torch.Tensor, sigma2, h_th, ota_on=1.0,
                             _f32(ota_on, u) < 0.5)
 
 
+def ota_mask_weight_ref(x: torch.Tensor, bits: torch.Tensor, sigma2, h_th,
+                        ota_on, w, p_pass=None):
+    """Fused mask and weighted apply: (M ∘ (w·x), M) with M as float32, on
+    float32 ``x`` and same-shape int32 ``bits``; σ², H_th, ``ota_on`` and
+    ``w`` are scalars. ``p_pass`` may be given when the caller has already
+    computed ``pass_probability(sigma2, h_th)``."""
+    m = bits_to_mask(bits, sigma2, h_th, ota_on, p_pass=p_pass)
+    wx = _f32(w, x) * x.to(torch.float32)
+    return torch.where(m, wx, torch.zeros_like(wx)), m.to(torch.float32)
+
+
+def ota_stream_fold_ref(g: torch.Tensor, p_c: torch.Tensor,
+                        bits: torch.Tensor, sigma2_c, h_th, ota_on,
+                        live_c=None):
+    """One cluster's streaming-fold term (M_l ∘ Σ_n p[n]·g[n], M_l) from its
+    raw (N, ...) client gradients, its (N,) loss weights and its stream
+    slice, before any cross-cluster sum. Folding every cluster in order
+    and adding the AWGN and the eq.-10 guard gives the client-folded
+    estimate. ``live_c`` ANDs into the mask after the ``ota_on`` gate."""
+    wg = torch.einsum("n,n...->...", p_c.to(torch.float32),
+                      g.to(torch.float32))
+    m = bits_to_mask(bits.reshape(wg.shape), sigma2_c, h_th, ota_on)
+    if live_c is not None:
+        m = torch.logical_and(m, _f32(live_c, wg) > 0.5)
+    return torch.where(m, wg, torch.zeros_like(wg)), m.to(torch.float32)
+
+
 def ota_aggregate_slab_ref(wg, bits, nbits, sigma2, h_th, noise_std, ota_on,
                            n_clients: int, live=None, n_eff=None,
                            p_pass=None) -> torch.Tensor:

@@ -153,7 +153,8 @@ def test_wrappers_refuse_other_devices():
 
 def test_kernel_sources_and_build_without_nvcc(monkeypatch, tmp_path):
     names = sorted(s.name for s in _build.sources())
-    assert names == ["masked_gradnorm.cu", "ota_client_fold.cu"]
+    assert names == ["masked_gradnorm.cu", "ota_client_fold.cu",
+                     "ota_mask_weight.cu"]
     for src in _build.sources():
         text = src.read_text()
         assert "cudaGetLastError" in text and "Replaces the TPU kernel" in text

@@ -236,8 +236,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("gate", [
-    dict(faults=True), dict(ota_streaming=True), dict(ota_sectioned=True),
-    dict(max_section_rows=64), dict(use_pallas_ota=False)])
+    dict(faults=True), dict(use_pallas_ota=False)])
 def test_unported_gates_refuse(gate):
     with pytest.raises(ValueError, match="does not carry"):
         HotaSim(build_model(ModelConfig(family="mlp"), DIMS),
