@@ -24,9 +24,13 @@ imports only ``repro_torch`` (never ``jax`` or the JAX package) and runs:
    |ĝ| ≈ 0 entries to ±lr, where last-bit differences flip a sign);
    TF32 is off for matmul and cuDNN on both sides;
 6. timings: the round (host clock, tracing off); K1 and K2 at the round's
-   shapes as device time (``torch.profiler`` kernel events) beside their
-   bounds, their plain versions, K2's ``torch.linalg.vector_norm``
-   yardstick and their back-to-back launch time (CUDA events); the
+   shapes as their own device time (profiler kernel records, scaled up
+   for the records the profiler drops) and as queued time (CUDA events
+   around calls queued behind a spacer kernel: no host launch gaps, but
+   the device's gaps between launches) beside their
+   bounds, their plain versions and K2's ``torch.linalg.vector_norm``
+   yardstick (``torch.profiler`` kernel events) and their back-to-back
+   launch time (CUDA events); the
    threefry stream draw and the client update; and the device-time
    breakdown of ``TRACED_ROUNDS`` traced rounds;
 7. K5 ``ota_mask_weight`` against its plain version on the card at trunk
@@ -48,18 +52,54 @@ imports only ``repro_torch`` (never ``jax`` or the JAX package) and runs:
    (loss/p rtol 1e-4, ω relative L2 1e-3); then per engine the median
    bank round over ``TIMED_BANK_ROUNDS`` rounds (host clock), one traced
    bank round, and K5's device time per scenario round at the round's
-   shapes beside its bound and its plain version.
+   shapes beside its bound and its plain version;
+10. K3 ``ota_aggregate`` (supplied words) and K4 ``ota_aggregate_fused``
+   (threefry2x32 in the kernel) against their plain versions on the card,
+   in both ``jax_threefry_partitionable`` layouts, at trunk fc2.w width
+   (2,097,152 entries), the fc2 section (2,099,200: a partial last chunk)
+   and a small odd width, in the default, ``ota_on=0``, σ²=0.05 and
+   all-blocked cases (rtol 1e-5, atol 1e-6; all-blocked exactly 0); K3
+   equal to K4 bit for bit on the same words; the device generator's
+   words equal to ``rng.bits`` word for word;
+11. the packed path at full width (3,938,304 entries, C=10, N=3) on one
+   round's gradients, counters set to 0 just before and read just after:
+   ``ota_aggregate_packed`` fused (one K4 launch per section) equal to
+   supplied (one K3 launch per section) bit for bit, the client-folded
+   engine against ``ota_aggregate_packed`` of the einsum-weighted tree
+   (rtol 1e-5, atol 1e-6), and an S=8 bank with the words drawn once (one
+   whole-slab K3 launch per scenario); then the device time of the packed
+   call and bank beside the per-leaf engine's, and K3's and K4's device
+   time beside their bounds, their plain versions and the int64 torch
+   draw K4 replaces;
+12. the per-leaf oracle round (``use_pallas_ota=False``) at full width for
+   ``PERLEAF_ROUNDS`` rounds (K2 once per round, no other kernel), one card
+   round against the CPU round (loss/p rtol 1e-4, ω relative L2 1e-3, the
+   eq.-7 masks equal except where |h² − H_th| is within ``MASK_ULPS`` ulp
+   of H_th), and its median round time;
+13. the layout tuner: ``calibrate_layout`` on the paper template on the
+   card with the layout cache off (every candidate's µs and estimated
+   peak bytes, and the winner); one Fig. 4 bank round on the winning
+   layout against the same round on the CPU (loss/p rtol 1e-4, ω
+   relative L2 1e-3); then ``run_sweep`` with the tuner on for
+   ``SWEEP_ROUNDS`` rounds of Fig. 4's bank, reading the winner from a
+   temporary cache file and writing its results to a temporary directory
+   (never to the checkout's ``results/``), counters set to 0 just before
+   and read just after (per scenario round: K1 once per leaf run on the
+   slab and sectioned engines, K2 once, nothing else), every scenario on
+   the winner's layout.
 
 Any failure exits non-zero. The line before last is the card's name and
-power limit, the one before it the kernels' JSON (K1, K2 and K5; each
-kernel's ``launches`` sums its counts over the main-path runs of phases 5
-and 9); the last line is
+power limit, the one before it the kernels' JSON (K1, K2, K5, K3 and K4;
+each kernel's ``launches`` sums its counts over the main-path runs of
+phases 5, 9, 11, 12 and 13); the last line is
 ``{"ok": true, "device": {...}}``. An earlier ``[record]`` line holds every
 number measured, as JSON.
 """
 from __future__ import annotations
 
+import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -81,7 +121,21 @@ ENGINES = {"client_folded": {}, "streaming": {"ota_streaming": True},
                                    "ota_streaming": True}}
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 F32_FLOPS_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
+INT32_LANES_PER_SM = 64       # Hopper: INT32 units per SM (x SMs x clock)
+# INT32-pipe instructions of one threefry2x32 as nvcc builds it for
+# sm_90a: 20 rotates (SHF), 21 xors (LOP3) and 7 three-input adds (IADD3),
+# from the SASS of threefry_chunk_kernel (4 hashes: 80 SHF, 85 LOP3, 27
+# IADD3; ``python -m repro_torch.kernels.sass_mix threefry_chunk``). The
+# hash's other adds issue as IMAD, which Hopper runs on the FMA pipe.
+HASH_INT_OPS = 48
+HASH_LOGIC_OPS = 41     # the floor: rotates and xors alone
 RTOL, ATOL = 1e-5, 1e-6
+K34_WIDTHS = (2_097_152, 2_099_200, 135_245)   # fc2.w, fc2 section, small
+BANK_S = 8                # scenarios of the packed and per-leaf banks
+PERLEAF_ROUNDS = 3        # per-leaf rounds with the counters on
+TIMED_PERLEAF_ROUNDS = 5  # per-leaf rounds for the median round time
+MASK_ULPS = 16            # per-leaf mask rule: |h² − H_th| within this
+SWEEP_ROUNDS = 2          # run_sweep rounds with the tuner on
 
 
 def _profile_acts():
@@ -122,10 +176,11 @@ def device_events(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def device_ms(fn, iters: int, match: str = "") -> float:
-    """Device time per call of ``fn``: the kernel time CUPTI records over
-    ``iters`` calls (only kernels whose name holds ``match``), without the
-    host's launch gaps."""
+def device_ms(fn, iters: int) -> float:
+    """Device time per call of ``fn``: the kernel and copy time the
+    profiler records over ``iters`` calls, without the host's launch gaps.
+    For a plain version or a whole call; CUPTI can drop records, so a
+    kernel's own time comes from ``kernel_ms``."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -133,8 +188,66 @@ def device_ms(fn, iters: int, match: str = "") -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in device_events(prof)
-               if match in e.key) / 1e3 / iters
+    return sum(e.self_device_time_total
+               for e in device_events(prof)) / 1e3 / iters
+
+
+SLEEP_CYCLES = 40_000_000   # first spacer kernel: ~20 ms at 1.98 GHz
+
+
+def kernel_ms(launches, iters: int):
+    """Device time per call of a sequence of raw kernel launches (a list
+    of callables that never wait for the card), as ``(ms, queued_ms,
+    recorded)``.
+
+    ``ms`` is the kernels' own time: the profiler's kernel records over
+    ``iters`` traced calls of the sequence. The profiler drops some kernel
+    records on the H100 (up to 13 % of a trace's launches), so the sum
+    over the records kept is scaled by launches over records kept
+    (``recorded``, the share kept): the mean duration of a kept record
+    stands in for a dropped one. (Other ways read high: CUDA event pairs
+    around each launch put K5's 3.3 µs launches at 7.8 µs, the events'
+    own device time, and per-launch traces after a warm-up step read
+    every kernel about twice as long as a plain trace.)
+
+    ``queued_ms`` is CUDA events around ``iters`` calls of the sequence
+    queued behind a spacer kernel (``torch.cuda._sleep``) that keeps the
+    card busy until the host has queued them all: no host launch gaps,
+    but the device's gaps between consecutive launches. The spacer grows
+    until the queueing fits in it."""
+    import torch
+    for fn in launches:
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=_profile_acts()) as prof:
+        for _ in range(iters):
+            for fn in launches:
+                fn()
+        torch.cuda.synchronize()
+    ev = device_events(prof)
+    n = sum(e.count for e in ev)
+    if n == 0:
+        fail("the profiler recorded no kernel of a timed launch")
+    recorded = n / (iters * len(launches))
+    ms = sum(e.self_device_time_total for e in ev) / 1e3 / iters / recorded
+    cycles = SLEEP_CYCLES
+    for _ in range(5):
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        e0.record()
+        torch.cuda._sleep(cycles)
+        e1.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            for fn in launches:
+                fn()
+        queued_host_ms = (time.perf_counter() - t0) * 1e3
+        e2.record()
+        torch.cuda.synchronize()
+        if queued_host_ms < e0.elapsed_time(e1):
+            return ms, e1.elapsed_time(e2) / iters, recorded
+        cycles *= 4
+    fail(f"the host needed {queued_host_ms:.1f} ms to queue {iters} calls, "
+         f"longer than the largest spacer kernel")
 
 
 def host_ms(fn) -> float:
@@ -312,14 +425,499 @@ def k5_round_timing(dev, runs, gbits, chan, gen):
     n_total = sum(r.size for r in runs) * c
     nbytes = 16 * n_total + 20 * len(calls)
     nops = 3 * n_total
+    ms, queued_ms, recorded = kernel_ms(
+        [functools.partial(kc.launch_mask_weight, *a) for a in calls], 10)
     return {"launches_per_round": len(calls),
-            "ms": device_ms(raw, 10, "ota_mask_weight"),
+            "ms": ms, "queued_ms": queued_ms, "recorded": recorded,
             "launch_ms": cuda_ms(raw, 10),
             "plain_ms": device_ms(plain, 2),
             "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
                                   nops / F32_FLOPS_PER_S),
             "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                          >= nops / F32_FLOPS_PER_S else "operations")}
+
+
+def int32_ops_per_s(dev) -> float:
+    """The card's int32 rate: SMs x INT32 lanes x the maximum SM clock
+    (``nvidia-smi``'s clocks.max.sm)."""
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    mhz = float(smi.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms * INT32_LANES_PER_SM * mhz * 1e6
+
+
+def k4_hashes(lens, c: int, partitionable: bool) -> int:
+    """threefry2x32 hashes K4 runs for sections of ``lens`` entries: one
+    per word of each gain stream and of the noise (one per word pair in
+    the original layout), plus each block's 2C + 1 key derivations."""
+    from repro_torch.kernels.ota_channel.ref import CHUNK
+    half, per_block = CHUNK // 2, 512
+    hashes = 0
+    for n in lens:
+        for j0 in range(0, n, CHUNK):
+            ln = min(CHUNK, n - j0)
+            pairs = min(ln, half)
+            hashes += ((c + 1) * (ln if partitionable else pairs)
+                       + (2 * c + 1) * (-(-pairs // per_block)))
+    return hashes
+
+
+def check_k34(dev, c, record):
+    """Phase 10: the device generator, K3 and K4 against their plain
+    versions and K3 against K4, in both threefry layouts."""
+    import torch
+    from repro_torch import rng
+    from repro_torch.kernels.ota_channel import ops
+    from repro_torch.kernels.ota_channel.ref import (
+        CHUNK, chunked_stream, ota_aggregate_fused_ref, ota_aggregate_slab_ref,
+    )
+    gen = torch.Generator(device=dev).manual_seed(10)
+    sig = torch.linspace(0.25, 2.5, c, device=dev)
+    cases = {"default": (sig, 0.032, 1.0, 1.0), "ota_off": (sig, 0.032, 1.0,
+                                                             0.0),
+             "sigma0.05": (torch.full_like(sig, 0.05), 0.032, 1.0, 1.0),
+             "all_blocked": (sig, 1e9, 5.0, 1.0)}
+    errs = {"k3": 0.0, "k4": 0.0}
+    prev = rng.threefry_partitionable()
+    try:
+        for part in (True, False):
+            rng.set_threefry_partitionable(part)
+            keys = rng.fold_in(rng.PRNGKey(7).unsqueeze(0), torch.arange(3))
+            for j in (0, 5, 16):
+                got = ops.threefry_chunk(keys, j, dev)
+                want = rng.bits(rng.fold_in(keys, j), CHUNK, device=dev)
+                if not torch.equal(got, want):
+                    fail(f"device threefry (partitionable={part}) chunk {j}: "
+                         f"{int((got != want).sum())} words differ from "
+                         f"rng.bits")
+            log(f"[threefry] partitionable={part}: device words equal "
+                f"rng.bits for 3 keys x chunks 0, 5, 16")
+            for n in K34_WIDTHS:
+                # a column slice of a wider slab, as the packed path reads
+                wg = torch.randn((c, n + 1024), generator=gen,
+                                 device=dev)[:, 512:512 + n]
+                skeys = torch.stack([rng.fold_in(rng.PRNGKey(1), n),
+                                     rng.fold_in(rng.PRNGKey(2), n)])
+                ckeys = rng.fold_in(skeys[0].unsqueeze(0), torch.arange(c))
+                bits = chunked_stream(ckeys, n, dev)
+                nbits = chunked_stream(skeys[1], n, dev)
+                for cname, (s2, h_th, z, on) in cases.items():
+                    args = (s2, h_th, z, on, 3)
+                    k3 = ops.ota_aggregate(wg, bits, nbits, *args)
+                    k4 = ops._ota_aggregate_fused_impl(
+                        wg, skeys.unsqueeze(0), [n], *args)
+                    torch.cuda.synchronize()
+                    want3 = ota_aggregate_slab_ref(wg, bits, nbits, *args)
+                    want4 = ota_aggregate_fused_ref(wg, skeys, *args)
+                    what = f"partitionable={part} n={n} {cname}"
+                    errs["k3"] = max(errs["k3"], check_close(
+                        f"K3 {what}", k3, want3))
+                    errs["k4"] = max(errs["k4"], check_close(
+                        f"K4 {what}", k4, want4))
+                    if not torch.equal(k3, k4):
+                        fail(f"K3 != K4 ({what}): "
+                             f"{int((k3 != k4).sum())} entries")
+                    if cname == "all_blocked" and bool((k4 != 0).any()):
+                        fail(f"K4 {what}: nonzero entries")
+                log(f"[K3/K4] partitionable={part} n={n}: default, ota_off, "
+                    f"sigma0.05, all_blocked within rtol {RTOL} atol {ATOL}; "
+                    f"K3 == K4 bit for bit")
+    finally:
+        rng.set_threefry_partitionable(prev)
+    record["k34_check"] = errs
+    return errs["k3"], errs["k4"]
+
+
+def packed_path(sim, state, batch, key, dev, record, counters):
+    """Phase 11: the packed engine at full width on one round's gradients,
+    counted; the S=8 bank with the words drawn once; device times."""
+    import torch
+    from repro_torch import rng
+    from repro_torch.common.config import FLConfig
+    from repro_torch.common.tree import tree_leaves, tree_map
+    from repro_torch.core import ota
+    from repro_torch.core.channel import (
+        channel_params, scenario_channel, stack_channel_params,
+    )
+    from repro_torch.kernels.ota_channel import ops
+    from repro_torch.kernels.ota_channel.ref import (
+        ota_aggregate_fused_ref, ota_aggregate_slab_ref,
+    )
+    fl = sim.fl
+    c, n_cl = fl.n_clusters, fl.n_clients
+    x = torch.as_tensor(batch[0]).to(dev)
+    y = torch.as_tensor(batch[1]).to(device=dev, dtype=torch.int64)
+    _, _, g, _ = sim._client_update(state.omega, state.heads, state.head_opt,
+                                    x, y)
+    p = torch.rand(state.p.shape, device=dev) + 0.5
+    wt = tree_map(lambda l: torch.einsum("cn,cn...->c...", p, l), g)
+    chan, chan_key = sim.chan, ota.sim_channel_key(key)
+    packer = sim.packer(state.omega)
+    n_sec = len(packer.sections)
+    bank = stack_channel_params([channel_params(FLConfig(
+        n_clusters=c, n_clients=n_cl, sigma2=(0.25 + 0.25 * (s % 8),),
+        ota=(s % 4 != 3)), device=dev) for s in range(BANK_S)])
+
+    def flat(tree):
+        return torch.cat([l.reshape(-1) for l in tree_leaves(tree)])
+
+    def packed_bank():
+        """Draw once, then one whole-slab K3 estimate per scenario."""
+        wg = packer.pack(wt)
+        bits = ota.packed_gain_bits(chan_key, packer, c, dev)
+        nbits = ota.packed_noise_bits(chan_key, packer, dev)
+        return [packer.unpack(ops.ota_aggregate(
+            wg, bits, nbits, *scenario_channel(bank, s)[:4], n_cl))
+            for s in range(BANK_S)]
+
+    def perleaf_bank():
+        return [ota.ota_aggregate_tree(chan_key, wt, scenario_channel(bank, s),
+                                       n_cl) for s in range(BANK_S)]
+
+    torch.cuda.synchronize()
+    for ctr in counters:
+        ctr.reset()
+    fused = flat(ota.ota_aggregate_packed(chan_key, wt, chan, n_cl, packer))
+    supplied = flat(ota.ota_aggregate_packed(chan_key, wt, chan, n_cl, packer,
+                                             bits_mode="supplied"))
+    banked = [flat(t) for t in packed_bank()]
+    torch.cuda.synchronize()
+    launches = {ctr.name: ctr.count for ctr in counters}
+    want = {"ota_client_fold": 0, "masked_gradnorm": 0, "ota_mask_weight": 0,
+            "ota_aggregate": n_sec + BANK_S, "ota_aggregate_fused": n_sec}
+    if launches != want:
+        fail(f"packed path launches {launches}, expected {want}")
+    if not torch.isfinite(fused).all():
+        fail("packed path: non-finite estimate")
+    if not torch.equal(fused, supplied):
+        fail(f"packed fused != supplied: {int((fused != supplied).sum())} "
+             f"entries")
+    s0 = flat(ota.ota_aggregate_packed(chan_key, wt, scenario_channel(bank, 0),
+                                       n_cl, packer, bits_mode="supplied"))
+    if not torch.equal(banked[0], s0):
+        fail("packed bank scenario 0 differs from its single packed call")
+    cf = flat(ota.ota_aggregate_client_folded(chan_key, g, p, chan, n_cl,
+                                              packer))
+    cf_err = check_close("client-folded vs einsum + packed", cf, fused)
+    log(f"[packed] {packer.size} slab entries, {n_sec} sections: fused == "
+        f"supplied bit for bit; client-folded vs einsum + packed max abs "
+        f"err {cf_err:.3e}; S={BANK_S} bank scenario 0 == its single call; "
+        f"launches {launches}")
+
+    # device and host time of one call and of the S=8 bank, against the
+    # per-leaf engine on the same weighted tree
+    times = {}
+    for name, fn, iters in (
+            ("packed", lambda: ota.ota_aggregate_packed(
+                chan_key, wt, chan, n_cl, packer), 5),
+            ("perleaf", lambda: ota.ota_aggregate_tree(
+                chan_key, wt, chan, n_cl), 2),
+            (f"packed_S{BANK_S}", packed_bank, 2),
+            (f"perleaf_S{BANK_S}", perleaf_bank, 1)):
+        times[name] = {"device_ms": device_ms(fn, iters),
+                       "host_ms": statistics.median(host_ms(fn)
+                                                    for _ in range(3))}
+    log(f"[packed time] device ms (host ms): " + "; ".join(
+        f"{k} {v['device_ms']:.3f} ({v['host_ms']:.3f})"
+        for k, v in times.items()))
+
+    # K3 and K4 at the packed call's shapes: one launch per section
+    wg = packer.pack(wt)
+    bits = ota.packed_gain_bits(chan_key, packer, c, dev)
+    nbits = ota.packed_noise_bits(chan_key, packer, dev)
+    skeys = ota.packed_section_keys(chan_key, packer)
+    params = ops.aggregate_params(*chan[:4], c, device=dev)
+    pp = ops._slab_p_pass(params, c)
+    out = torch.empty(packer.size, device=dev)
+    secs = []
+    off = 0
+    for sec in packer.sections:
+        secs.append((slice(off, off + sec.length), skeys[sec.index]))
+        off += sec.length
+    part = rng.threefry_partitionable()
+    k3_launches = [functools.partial(
+        ops.launch_aggregate, wg[:, cols], bits[:, cols], nbits[cols], params,
+        pp, n_cl, out[cols]) for cols, _ in secs]
+
+    def k4_launches(partitionable):
+        return [functools.partial(
+            ops.launch_aggregate_fused, wg[:, cols], k, params, pp, n_cl,
+            out[cols], partitionable) for cols, k in secs]
+
+    def run_all(launches):
+        for fn in launches:
+            fn()
+
+    def k3_plain():
+        for cols, _ in secs:
+            ota_aggregate_slab_ref(wg[:, cols], bits[:, cols], nbits[cols],
+                                   *chan[:4], n_cl, p_pass=pp)
+
+    def k4_plain():
+        for cols, k in secs:
+            ota_aggregate_fused_ref(wg[:, cols], k, *chan[:4], n_cl,
+                                    p_pass=pp)
+
+    def draw():
+        ota.packed_gain_bits(chan_key, packer, c, dev)
+        ota.packed_noise_bits(chan_key, packer, dev)
+    n = packer.size
+    lens = [s.length for s in packer.sections]
+    rate = int32_ops_per_s(dev)
+    k3_bytes = 4 * n * (2 * c + 2) + 4 * n_sec * (2 * c + 3)
+    k3_ops = n * (3 * c + 30)
+    k4_bytes = 4 * n * (c + 1) + 4 * n_sec * (2 * c + 3)
+
+    def k4_bound(partitionable, per_hash=HASH_INT_OPS):
+        ops_ = k4_hashes(lens, c, partitionable) * per_hash
+        return ops_, 1e3 * max(k4_bytes / HBM_BYTES_PER_S, ops_ / rate)
+    k4_ops, k4_bound_ms = k4_bound(part)
+    k3_ms, k3_queued, k3_rec = kernel_ms(k3_launches, 20)
+    k4_ms, k4_queued, k4_rec = kernel_ms(k4_launches(part), 20)
+    k3 = {"launches_per_call": n_sec,
+          "ms": k3_ms, "queued_ms": k3_queued, "recorded": k3_rec,
+          "launch_ms": cuda_ms(lambda: run_all(k3_launches), 20),
+          "plain_ms": device_ms(k3_plain, 3),
+          "bound_ms": 1e3 * max(k3_bytes / HBM_BYTES_PER_S,
+                                k3_ops / F32_FLOPS_PER_S),
+          "bound_by": ("bytes" if k3_bytes / HBM_BYTES_PER_S
+                       >= k3_ops / F32_FLOPS_PER_S else "operations")}
+    k4 = {"launches_per_call": n_sec,
+          "ms": k4_ms, "queued_ms": k4_queued, "recorded": k4_rec,
+          "launch_ms": cuda_ms(lambda: run_all(k4_launches(part)), 20),
+          "plain_ms": device_ms(k4_plain, 2),
+          "bound_ms": k4_bound_ms,
+          "bound_by": ("bytes" if k4_bytes / HBM_BYTES_PER_S
+                       >= k4_ops / rate else "operations"),
+          "int32_ops": k4_ops, "int32_ops_per_s": rate,
+          "logic_floor_ms": k4_bound(part, HASH_LOGIC_OPS)[1],
+          "partitionable": part}
+    # the other bits layout halves the hashes (one hash per word pair)
+    other = not part
+    k4["other_layout"] = {
+        "partitionable": other,
+        "ms": kernel_ms(k4_launches(other), 20)[0],
+        "bound_ms": k4_bound(other)[1],
+        "logic_floor_ms": k4_bound(other, HASH_LOGIC_OPS)[1]}
+    draw_ms = device_ms(draw, 2)
+    if min(k3["ms"], k4["ms"], k3["plain_ms"], k4["plain_ms"], draw_ms) <= 0:
+        fail("no device time measured for K3 or K4")
+    k4["torch_draw_ms"] = draw_ms
+    k4["draw_over_k4"] = draw_ms / k4["ms"]
+    log(f"[time] K3 ({n_sec} launches, {n} entries): {k3['ms']:.4f} ms device "
+        f"(queued {k3['queued_ms']:.4f}, launch {k3['launch_ms']:.4f}, plain "
+        f"{k3['plain_ms']:.4f}, bound {k3['bound_ms']:.4f} "
+        f"({k3['bound_by']})); K4: {k4['ms']:.4f} ms device (queued "
+        f"{k4['queued_ms']:.4f}, launch {k4['launch_ms']:.4f}, plain "
+        f"{k4['plain_ms']:.4f}, bound {k4['bound_ms']:.4f} ({k4['bound_by']}: "
+        f"{k4_ops:.3e} int32 ops at {rate:.3e}/s; rotates and xors alone "
+        f"{k4['logic_floor_ms']:.4f}); partitionable={other}: "
+        f"{k4['other_layout']['ms']:.4f} ms, bound "
+        f"{k4['other_layout']['bound_ms']:.4f}); the int64 torch draw it "
+        f"replaces {draw_ms:.3f} ms device, {k4['draw_over_k4']:.1f}x K4; "
+        f"profiler records kept: K3 {k3_rec:.0%}, K4 {k4_rec:.0%}")
+    record["packed"] = {"launches": launches, "client_folded_max_abs": cf_err,
+                        "times": times, "k3": k3, "k4": k4}
+    return launches, k3, k4
+
+
+def perleaf_phase(sim, batcher, key0, dev, record, counters):
+    """Phase 12: the per-leaf oracle's round at full width on the card,
+    counted, against the CPU round, and timed."""
+    import dataclasses
+    import torch
+    from repro_torch import rng
+    from repro_torch.common.tree import tree_flatten_with_path, tree_leaves
+    from repro_torch.core import ota
+    from repro_torch.core.sim import HotaSim
+    fl = dataclasses.replace(sim.fl, use_pallas_ota=False)
+    n_cls = sim.n_classes.tolist()
+    psim = HotaSim(sim.model, fl, sim.tcfg, n_cls, device=dev)
+    st = psim.init(0)
+    batches = [batcher.next_stacked() for _ in range(PERLEAF_ROUNDS + 1)]
+    keys = [rng.fold_in(key0, 3000 + r) for r in range(PERLEAF_ROUNDS + 1)]
+    torch.cuda.synchronize()
+    for ctr in counters:
+        ctr.reset()
+    losses = []
+    for r in range(PERLEAF_ROUNDS):
+        st, m = psim.step(st, *batches[r], keys[r])
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    launches = {ctr.name: ctr.count for ctr in counters}
+    want = {ctr.name: 0 for ctr in counters}
+    want["masked_gradnorm"] = PERLEAF_ROUNDS
+    if launches != want:
+        fail(f"per-leaf launches {launches}, expected {want}")
+    if not torch.isfinite(torch.stack(losses)).all():
+        fail("per-leaf round: non-finite loss")
+
+    cpu_sim = HotaSim(sim.model, fl, sim.tcfg, n_cls, device="cpu")
+    st_cpu = to_cpu(st)
+    new_gpu, m_gpu = psim.step(st, *batches[-1], keys[-1])
+    new_cpu, m_cpu = cpu_sim.step(st_cpu, *batches[-1], keys[-1])
+    cmp = {name: check_close(f"per-leaf round {name}", m_gpu[name].cpu(),
+                             m_cpu[name], rtol=1e-4, atol=1e-6)
+           for name in ("loss", "p")}
+    w_gpu = torch.cat([l.reshape(-1).cpu() for l in tree_leaves(new_gpu.omega)])
+    w_cpu = torch.cat([l.reshape(-1) for l in tree_leaves(new_cpu.omega)])
+    cmp["omega_rel_l2"] = rel_l2(w_gpu, w_cpu)
+    if cmp["omega_rel_l2"] > 1e-3:
+        fail(f"per-leaf card round vs CPU round: {cmp}")
+    # the round's eq.-7 masks on both devices: a flip counts only where
+    # |h² − H_th| is within MASK_ULPS ulp of H_th (erfinv's last place)
+    chan_key = ota.sim_channel_key(keys[-1])
+    h_th = float(psim.chan.h_threshold)
+    tol = MASK_ULPS * float(torch.finfo(torch.float32).eps) * h_th
+    flips = near = total = 0
+    for i, (_, leaf) in enumerate(tree_flatten_with_path(st.omega)):
+        ks = ota.leaf_key(chan_key, i)
+        shape = tuple(leaf.shape)
+        h_g = ota._cluster_gains(ks, shape, psim.chan, dev).cpu()
+        h_c = ota._cluster_gains(ks, shape, cpu_sim.chan, "cpu")
+        diff = (h_g * h_g >= h_th) != (h_c * h_c >= h_th)
+        close = (h_c * h_c - h_th).abs() <= tol
+        flips += int(diff.sum())
+        near += int((diff & close).sum())
+        total += diff.numel()
+        if bool((diff & ~close).any()):
+            fail(f"per-leaf masks: leaf {i} flips "
+                 f"{int((diff & ~close).sum())} entries away from H_th")
+    cmp.update(mask_flips=flips, mask_entries=total)
+    record_round = []
+    st_t = new_gpu
+    for r in range(TIMED_PERLEAF_ROUNDS):
+        b_r = batcher.next_stacked()
+        k_r = rng.fold_in(key0, 3100 + r)
+
+        def one():
+            nonlocal st_t
+            st_t, _ = psim.step(st_t, *b_r, k_r)
+        record_round.append(host_ms(one))
+    record["perleaf"] = {"launches": launches, "card_vs_cpu": cmp,
+                         "round_ms": record_round,
+                         "round_ms_median": statistics.median(record_round),
+                         "loss_mean_per_round": [float(l.mean())
+                                                 for l in losses]}
+    log(f"[per-leaf] {PERLEAF_ROUNDS} rounds, launches {launches}; card vs "
+        f"CPU {cmp}; median round "
+        f"{record['perleaf']['round_ms_median']:.2f} ms (all "
+        f"{['%.2f' % t for t in record_round]})")
+    return launches
+
+
+def tuner_phase(sim, batcher, dev, record, counters):
+    """Phase 13: calibrate the paper template on the card with the layout
+    cache off; one bank round on the winning layout against the same round
+    on the CPU; then a short tuned Fig. 4 sweep, counted, that reads the
+    winner from a cache file of its own and writes its results to a
+    directory of its own (both temporary)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import rng
+    from repro_torch.common import layout_tune
+    from repro_torch.common.tree import tree_leaves, tree_map
+    from repro_torch.core.sim import HotaSim
+    from repro_torch.core.sweep import ScenarioBank
+    from repro_torch.experiments import paper_common
+    from repro_torch.experiments.fig4_diverse_sigma import (
+        experiments as fig4_experiments,
+    )
+    fl = sim.fl
+    c, n_cl = fl.n_clusters, fl.n_clients
+    template = tree_map(lambda spec: spec.shape,
+                        {"final": sim.model.final_specs(),
+                         "trunk": sim.model.trunk_specs()})
+    t0 = time.perf_counter()
+    choice, report = layout_tune.calibrate_layout(template, c, n_cl,
+                                                  device=dev)
+    cal_s = time.perf_counter() - t0
+    for r in report:
+        log(f"[tune] {r['layout']:>44}: {r['us']:12.1f} us, "
+            f"{r['peak_bytes']:>11} estimated peak bytes")
+    log(f"[tune] winner {choice.describe()} ({cal_s:.1f} s to calibrate)")
+
+    # one bank round on the winning layout, card against CPU
+    fl_t = layout_tune.apply_layout(fl, choice)
+    n_cls = sim.n_classes.tolist()
+    specs = list(fig4_experiments().values())
+    tbank = ScenarioBank(HotaSim(sim.model, fl_t, sim.tcfg, n_cls,
+                                 device=dev), specs)
+    cbank = ScenarioBank(HotaSim(sim.model, fl_t, sim.tcfg, n_cls,
+                                 device="cpu"), specs)
+    states = tbank.init(0)
+    x, y = batcher.next_stacked()
+    key = rng.PRNGKey(4000)
+    st_g, m_g = tbank.step(states, x, y, key)
+    st_c, m_c = cbank.step(to_cpu(states), x, y, key)
+    cmp = {m: check_close(f"tuned bank round {m}", m_g[m].cpu(), m_c[m],
+                          rtol=1e-4, atol=1e-6) for m in ("loss", "p")}
+    cmp["omega_rel_l2"] = rel_l2(
+        torch.cat([l.reshape(-1).cpu() for l in tree_leaves(st_g.omega)]),
+        torch.cat([l.reshape(-1) for l in tree_leaves(st_c.omega)]))
+    if cmp["omega_rel_l2"] > 1e-3:
+        fail(f"tuned bank round, card vs CPU: {cmp}")
+    log(f"[tune] one {choice.describe()} bank round of {len(specs)} "
+        f"scenarios, card vs CPU: {cmp}")
+
+    # the tuned sweep, counted: the winner from a cache file of its own
+    # (so the sweep does not calibrate again), results in a directory of
+    # its own (so 2 rounds never stand in for a figure's results)
+    per = SWEEP_ROUNDS * len(specs)       # scenario rounds of the sweep
+    packer = tbank.sim.packer(tbank.scenario_state(states, 0).omega)
+    n_runs = 0 if packer is None else len(packer.leaf_runs())  # K1 each
+    want = {ctr.name: 0 for ctr in counters}
+    want.update(ota_client_fold=n_runs * per, masked_gradnorm=per)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    cache_prev = os.environ.get(layout_tune.CACHE_ENV)
+    try:
+        cache = os.path.join(tmp, "layout_tune.json")
+        with open(cache, "w") as f:
+            json.dump({layout_tune.template_hash(template, c, n_cl,
+                                                 device=dev):
+                       choice.to_metadata()}, f)
+        os.environ[layout_tune.CACHE_ENV] = cache
+        torch.cuda.synchronize()
+        for ctr in counters:
+            ctr.reset()
+        t0 = time.perf_counter()
+        res = paper_common.run_sweep(
+            fig4_experiments(), steps=SWEEP_ROUNDS, n_clusters=c,
+            n_clients=n_cl, force=True, log_every=1, tune=True, device=dev,
+            results_dir=os.path.join(tmp, "results"))
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        launches = {ctr.name: ctr.count for ctr in counters}
+    finally:
+        if cache_prev is None:
+            os.environ.pop(layout_tune.CACHE_ENV, None)
+        else:
+            os.environ[layout_tune.CACHE_ENV] = cache_prev
+        shutil.rmtree(tmp, ignore_errors=True)
+    if launches != want:
+        fail(f"tuned sweep on {choice.describe()}: launches {launches}, "
+             f"expected {want}")
+    for name, r in res.items():
+        if r["layout"] != choice.describe():
+            fail(f"tuned sweep ran {name} on {r['layout']}, not on the "
+                 f"winner {choice.describe()}")
+        if not all(math.isfinite(v) for v in r["loss_mean_tasks"][-1]):
+            fail(f"tuned sweep: non-finite loss in {name}")
+    record["tune"] = {"winner": choice.describe(), "calibrate_s": cal_s,
+                      "report": [{k: v for k, v in r.items() if k != "choice"}
+                                 for r in report],
+                      "bank_round_vs_cpu": cmp, "sweep_launches": launches,
+                      "sweep_s": sweep_s}
+    log(f"[tune] tuned sweep: {SWEEP_ROUNDS} rounds x {len(res)} scenarios on "
+        f"{choice.describe()} in {sweep_s:.1f} s (set-up included), "
+        f"launches {launches}")
+    return launches
 
 
 def main() -> None:
@@ -445,7 +1043,8 @@ def main() -> None:
     # --- 5. the main path ---------------------------------------------------
     batches = [batcher.next_stacked() for _ in range(ROUNDS + 1)]
     keys = [rng.fold_in(key0, r) for r in range(ROUNDS + 1)]
-    counters = (k1.client_fold_counter, k2.counter, k1.mask_weight_counter)
+    counters = (k1.client_fold_counter, k2.counter, k1.mask_weight_counter,
+                k1.aggregate_counter, k1.fused_counter)
     for ctr in counters:
         ctr.reset()
     losses = []
@@ -456,7 +1055,8 @@ def main() -> None:
     torch.cuda.synchronize()
     launches = {ctr.name: ctr.count for ctr in counters}
     want = {"ota_client_fold": len(runs) * ROUNDS,
-            "masked_gradnorm": ROUNDS, "ota_mask_weight": 0}
+            "masked_gradnorm": ROUNDS, "ota_mask_weight": 0,
+            "ota_aggregate": 0, "ota_aggregate_fused": 0}
     if launches != want:
         fail(f"main-path launches {launches}, expected {want}")
     loss = torch.stack(losses)
@@ -533,10 +1133,12 @@ def main() -> None:
         f"{record['client_update_ms']:.2f} ms (device "
         f"{record['client_update_device_ms']:.2f})")
 
-    # K1 at the round's shapes, every leaf once per round. "ms" is device
-    # time (profiler kernel events); "launch_ms" is back-to-back calls of
-    # the raw launch on CUDA events, which small leaves spend waiting for
-    # the host; "wrapper_ms" adds the params row the wrapper builds
+    # K1 at the round's shapes, every leaf once per round. "ms" is the
+    # kernel's own device time (kernel_ms), "queued_ms" adds the device's
+    # gaps between launches; "launch_ms" is
+    # back-to-back calls of the raw launch on CUDA events, which small
+    # leaves spend waiting for the host; "wrapper_ms" adds the params row
+    # the wrapper builds
     k1_ms = k1_plain_ms = k1_launch_ms = k1_path_ms = 0.0
     k1_bytes = k1_ops = 0
     per_leaf = []
@@ -557,8 +1159,9 @@ def main() -> None:
             ota_aggregate_client_ref(g, p_w, b, nb, chan.sigma2,
                                      chan.h_threshold, chan.noise_std,
                                      chan.ota_on, n_cl)
+        ms, queued_ms, recorded = kernel_ms([raw], iters)
         leaf = {"leaf": names[run.leaf], "n": n,
-                "ms": device_ms(raw, iters, "ota_client_fold"),
+                "ms": ms, "queued_ms": queued_ms, "recorded": recorded,
                 "launch_ms": cuda_ms(raw, iters),
                 "wrapper_ms": cuda_ms(lambda: k1.ota_client_fold_apply(
                     g, p_w, b, nb, chan.sigma2, chan.h_threshold,
@@ -583,26 +1186,33 @@ def main() -> None:
     # K2 at the round's shape; the yardstick is one vector_norm over the
     # masked product (the multiply and the norm)
     out2 = torch.empty((c, n_cl), device=dev)
-    k2_ms = device_ms(lambda: k2.launch(gm, mm, out2), 100,
-                      "masked_gradnorm")
+    k2_ms, record["k2_queued_ms"], record["k2_recorded"] = kernel_ms(
+        [lambda: k2.launch(gm, mm, out2)], 100)
     record["k2_launch_ms"] = cuda_ms(lambda: k2.launch(gm, mm, out2), 100)
     k2_plain = device_ms(lambda: masked_gradnorm_ref(gm, mm), 20)
     k2_lib = device_ms(lambda: torch.linalg.vector_norm(
         gm * mm.unsqueeze(1), dim=-1), 20)
     if min(k1_ms, k2_ms, k1_plain_ms, k2_plain, k2_lib) <= 0.0:
-        fail("the profiler recorded no device time for a timed kernel")
+        fail("no device time measured for a timed kernel")
     k2_bytes = 4 * (c * n_cl * p_tail + c * p_tail + c * n_cl)
     k2_ops = 3 * c * n_cl * p_tail
     k2_bound = 1e3 * max(k2_bytes / HBM_BYTES_PER_S,
                          k2_ops / F32_FLOPS_PER_S)
-    log(f"[time] K1 per round {k1_ms:.4f} ms device (launch "
+    k1_queued = sum(leaf["queued_ms"] for leaf in per_leaf)
+    k1_rec = min(leaf["recorded"] for leaf in per_leaf)
+    record.update(k1_queued_ms=k1_queued, k1_recorded=k1_rec)
+    log(f"[time] K1 per round {k1_ms:.4f} ms device (queued {k1_queued:.4f}, "
+        f"records kept {k1_rec:.0%}, launch "
         f"{k1_launch_ms:.4f}, wrapper {k1_path_ms:.4f}, plain "
         f"{k1_plain_ms:.4f}, bound {k1_bound:.4f}); K2 {k2_ms:.4f} ms "
-        f"device (launch {record['k2_launch_ms']:.4f}, plain "
+        f"device (queued {record['k2_queued_ms']:.4f}, records kept "
+        f"{record['k2_recorded']:.0%}, launch "
+        f"{record['k2_launch_ms']:.4f}, plain "
         f"{k2_plain:.4f}, vector_norm {k2_lib:.4f}, bound {k2_bound:.4f})")
     for leaf in per_leaf:
         log(f"  K1 {leaf['leaf']:>12} n={leaf['n']:>8}: {leaf['ms']:.4f} ms "
-            f"(launch {leaf['launch_ms']:.4f}, bound {leaf['bound_ms']:.4f}, "
+            f"(queued {leaf['queued_ms']:.4f}, launch "
+            f"{leaf['launch_ms']:.4f}, bound {leaf['bound_ms']:.4f}, "
             f"plain {leaf['plain_ms']:.4f})")
     if not all(bool(torch.isfinite(v).all()) for v in m_gpu.values()):
         fail("non-finite metrics")
@@ -656,7 +1266,8 @@ def main() -> None:
         streams = name in streaming_engines
         want = {"ota_client_fold": 0 if streams else len(runs) * per,
                 "masked_gradnorm": per,
-                "ota_mask_weight": c * len(runs) * per if streams else 0}
+                "ota_mask_weight": c * len(runs) * per if streams else 0,
+                "ota_aggregate": 0, "ota_aggregate_fused": 0}
         if got != want:
             fail(f"bank on {name}: launches {got}, expected {want}")
         for k_name, v in got.items():
@@ -721,11 +1332,31 @@ def main() -> None:
     k5 = k5_round_timing(dev, runs, gbits, chan, gen)
     record["k5_round"] = k5
     log(f"[time] K5 per scenario round ({k5['launches_per_round']} "
-        f"launches): {k5['ms']:.4f} ms device (launch {k5['launch_ms']:.4f}, "
+        f"launches): {k5['ms']:.4f} ms device (queued {k5['queued_ms']:.4f}, "
+        f"records kept {k5['recorded']:.0%}, launch {k5['launch_ms']:.4f}, "
         f"plain {k5['plain_ms']:.4f}, bound {k5['bound_ms']:.4f} "
         f"({k5['bound_by']}))")
     if min(k5["ms"], k5["plain_ms"]) <= 0.0:
-        fail("the profiler recorded no device time for K5")
+        fail("no device time measured for K5")
+
+    # --- 10. K3 and K4 against their plain versions ------------------------
+    k3_err, k4_err = check_k34(dev, c, record)
+
+    # --- 11. the packed path at full width ----------------------------------
+    got, k3, k4 = packed_path(sim, st_t, batcher.next_stacked(),
+                              rng.fold_in(key0, 2500), dev, record, counters)
+    for k_name, v in got.items():
+        total[k_name] += v
+
+    # --- 12. the per-leaf oracle's round ------------------------------------
+    got = perleaf_phase(sim, batcher, key0, dev, record, counters)
+    for k_name, v in got.items():
+        total[k_name] += v
+
+    # --- 13. the layout tuner and a tuned sweep -----------------------------
+    got = tuner_phase(sim, batcher, dev, record, counters)
+    for k_name, v in got.items():
+        total[k_name] += v
 
     kernels = [
         {"name": "ota_client_fold", "route": "cuda",
@@ -753,6 +1384,22 @@ def main() -> None:
          "launches": total["ota_mask_weight"], "max_abs_err": k5_err,
          "ms": k5["ms"], "plain_ms": k5["plain_ms"],
          "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+         "library_ms": None},
+        {"name": "ota_aggregate", "route": "cuda",
+         "source": "src/repro_torch/kernels/ota_channel/csrc/"
+                   "ota_aggregate.cu",
+         "replaces": "src/repro/kernels/ota_channel/kernel.py:782",
+         "launches": total["ota_aggregate"], "max_abs_err": k3_err,
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+         "library_ms": None},
+        {"name": "ota_aggregate_fused", "route": "cuda",
+         "source": "src/repro_torch/kernels/ota_channel/csrc/"
+                   "ota_aggregate_fused.cu",
+         "replaces": "src/repro/kernels/ota_channel/kernel.py:695",
+         "launches": total["ota_aggregate_fused"], "max_abs_err": k4_err,
+         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
          "library_ms": None},
     ]
     record["launches_main_path"] = total

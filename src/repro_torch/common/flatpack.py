@@ -3,10 +3,11 @@
 Port of the layout half of ``repro.common.flatpack``. The channel draws
 one chunk-quantized bit stream per section (``repro_torch.core.ota``), so
 this layout fixes which random bits every parameter entry sees; it must
-match the reference bit for bit. The port never packs a slab: the
-client-folded channel reads each gradient leaf in place against its
-``LeafRun`` (its section and the offset of its storage in that section's
-stream), which is all this module computes.
+match the reference bit for bit. The client-folded channel reads each
+gradient leaf in place against its ``LeafRun`` (its section and the
+offset of its storage in that section's stream); the packed engine
+(``repro_torch.core.ota.ota_aggregate_packed``) copies the tree into a
+(*batch, P) float32 slab with ``pack`` and back with ``unpack``.
 
 Layouts (``sections``):
 
@@ -23,7 +24,11 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
-from repro_torch.common.tree import tree_flatten_with_path
+import torch
+
+from repro_torch.common.tree import (
+    tree_flatten_with_path, tree_leaves, tree_unflatten,
+)
 from repro_torch.kernels.slab import LANE, ROW_QUANTUM, round_up
 
 
@@ -31,6 +36,7 @@ class LeafSlot(NamedTuple):
     offset: int                # start index into the (P,) slab
     size: int                  # element count
     shape: Tuple[int, ...]
+    dtype: torch.dtype = torch.float32   # the template leaf's dtype
 
 
 class Section(NamedTuple):
@@ -53,6 +59,11 @@ class LeafRun(NamedTuple):
 
 def _shape(leaf) -> Tuple[int, ...]:
     return tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf)
+
+
+def _dtype(leaf) -> torch.dtype:
+    """A tensor leaf's dtype; a shape-tuple leaf stands for float32."""
+    return leaf.dtype if isinstance(leaf, torch.Tensor) else torch.float32
 
 
 def _section_key(path, tail: Optional[str]) -> Optional[str]:
@@ -106,11 +117,12 @@ class TreePacker:
         self.sections: List[Section] = []
 
         def _slot(i, off):
-            shape = _shape(paths_leaves[i][1])
+            leaf = paths_leaves[i][1]
+            shape = _shape(leaf)
             size = 1
             for d in shape:
                 size *= d
-            self.slots[i] = LeafSlot(off, size, shape)
+            self.slots[i] = LeafSlot(off, size, shape, _dtype(leaf))
             return size
 
         if sections == "tail":
@@ -135,6 +147,7 @@ class TreePacker:
         self.size = self.head_len + self.tail_len       # P, lane-aligned
         if self.size == 0:
             raise ValueError("cannot pack an empty tree")
+        self.n_rows = self.size // LANE
 
     def _toplevel(self, paths_leaves, idx, tail, _slot):
         names: List[Optional[str]] = []
@@ -234,6 +247,43 @@ class TreePacker:
                                     slot.size))
         return runs
 
+    def peak_section_rows(self) -> int:
+        """Largest section in LANE-wide rows: the peak live stream
+        footprint of the sectioned engine."""
+        return max(sec.length for sec in self.sections) // LANE
+
+    def pack(self, tree) -> torch.Tensor:
+        """Tree -> (*batch, P) float32 slab; section padding stays zero.
+        Leaves may carry identical leading batch axes (the (C,) cluster
+        axis of weighted gradients), which the slab keeps."""
+        leaves = tree_leaves(tree)
+        i0 = self.order[0]
+        nb = leaves[i0].dim() - len(self.slots[i0].shape)
+        batch = tuple(leaves[i0].shape[:nb])
+        slab = torch.zeros(batch + (self.size,), dtype=torch.float32,
+                           device=leaves[i0].device)
+        for i in self.order:
+            slot = self.slots[i]
+            slab[..., slot.offset:slot.offset + slot.size] = (
+                leaves[i].reshape(batch + (-1,)))
+        return slab
+
+    def unpack(self, slab: torch.Tensor):
+        """(*batch, P) slab -> tree of (*batch, *shape) leaves, each in its
+        slot's dtype."""
+        batch = tuple(slab.shape[:-1])
+        leaves = [None] * len(self.slots)
+        for i, slot in self.slots.items():
+            piece = slab[..., slot.offset:slot.offset + slot.size]
+            leaves[i] = piece.reshape(batch + slot.shape).to(slot.dtype)
+        template: Dict[str, Any] = {}
+        for path in self.paths:
+            node = template
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = None
+        return tree_unflatten(template, leaves)
+
 
 def check_tree_matches_packer(packer: TreePacker, tree, what: str,
                               batch_ndim: int = 0) -> None:
@@ -268,8 +318,8 @@ def packer_for(tree, tail: Optional[str] = "final", sections: str = "tail",
                max_section_rows: int = 0) -> TreePacker:
     """Cached ``TreePacker`` for ``tree``'s paths and leaf shapes."""
     paths_leaves = tree_flatten_with_path(tree)
-    key = (tuple((p, _shape(l)) for p, l in paths_leaves), tail, sections,
-           int(min_section_rows), int(max_section_rows))
+    key = (tuple((p, _shape(l), _dtype(l)) for p, l in paths_leaves), tail,
+           sections, int(min_section_rows), int(max_section_rows))
     packer = _PACKER_CACHE.get(key)
     if packer is None:
         template: Dict[str, Any] = {}
@@ -277,7 +327,9 @@ def packer_for(tree, tail: Optional[str] = "final", sections: str = "tail",
             node = template
             for k in path[:-1]:
                 node = node.setdefault(k, {})
-            node[path[-1]] = _shape(leaf)
+            # a storage-free stand-in keeps shape and dtype, not the data
+            node[path[-1]] = torch.empty(_shape(leaf), dtype=_dtype(leaf),
+                                         device="meta")
         packer = TreePacker(template, tail, sections=sections,
                             min_section_rows=min_section_rows,
                             max_section_rows=max_section_rows)

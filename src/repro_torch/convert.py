@@ -6,7 +6,8 @@ The caller turns the reference state into numpy first
 numpy leaves, in the reference's field order, and never imports JAX::
 
     SimState(omega, heads, p, ps_opt, head_opt, fgn, f0, step, ...)
-    ps_opt   = SlabAdamState(step, mu, nu)     (moments flat, (L,))
+    ps_opt   = SlabAdamState(step, mu, nu)     (moments flat, (L,)), or on
+               the per-leaf oracle AdamState(step, mu, nu) (moment trees)
     head_opt = AdamState(step, mu, nu)         (step (C, N), moments trees)
     fgn      = FGNState(step, mu, nu)          (step (C,), moments (C, N))
 
@@ -45,13 +46,19 @@ def sim_state_from_numpy(state, device="cpu") -> SimState:
                          "(omega, heads, p, ps_opt, head_opt, fgn, f0, step)")
     omega, heads, p, ps_opt, head_opt, fgn, f0, step = fields[:8]
     i32 = torch.int32
+    if isinstance(ps_opt[1], dict):     # the per-leaf oracle's tree Adam
+        ps = AdamState(step=_tensor(ps_opt[0], device, i32),
+                       mu=_tree(ps_opt[1], device),
+                       nu=_tree(ps_opt[2], device))
+    else:
+        ps = SlabAdamState(step=_tensor(ps_opt[0], device, i32),
+                           mu=_tensor(ps_opt[1], device, torch.float32),
+                           nu=_tensor(ps_opt[2], device, torch.float32))
     return SimState(
         omega=_tree(omega, device),
         heads=_tree(heads, device),
         p=_tensor(p, device, torch.float32),
-        ps_opt=SlabAdamState(step=_tensor(ps_opt[0], device, i32),
-                             mu=_tensor(ps_opt[1], device, torch.float32),
-                             nu=_tensor(ps_opt[2], device, torch.float32)),
+        ps_opt=ps,
         head_opt=AdamState(step=_tensor(head_opt[0], device, i32),
                            mu=_tree(head_opt[1], device),
                            nu=_tree(head_opt[2], device)),

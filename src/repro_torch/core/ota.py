@@ -2,9 +2,14 @@
 
 Port of ``repro.core.ota``: the reserved fold registry and key schedule
 (DESIGN.md §4), the chunk-quantized section streams, the eq.-5 masks
-``final_layer_masks_packed`` and the simulator's three aggregation
-engines:
+(``final_layer_masks_packed``, and ``final_layer_masks`` for the per-leaf
+oracle) and the aggregation engines:
 
+* ``ota_aggregate_tree``: the per-leaf oracle, gains drawn per (leaf,
+  cluster) through ``rng.normal`` and thresholded as |H|² ≥ H_th (eq. 7);
+* ``ota_aggregate_packed``: pack the (C, ...) weighted tree into a
+  (C, P) slab, one K4 launch per section (stream words drawn in the
+  kernel), or K3 on words drawn outside (``bits_mode="supplied"``);
 * ``ota_aggregate_client_folded``: every cluster's streams drawn at once,
   one K1 launch per leaf;
 * ``ota_aggregate_streaming``: one cluster at a time (the reference's
@@ -36,12 +41,12 @@ from repro_torch.common.flatpack import TreePacker, check_tree_matches_packer
 from repro_torch.common.tree import tree_leaves, tree_unflatten
 from repro_torch.core.channel import ChannelParams
 from repro_torch.kernels.ota_channel.ops import (
-    ota_client_fold_apply, ota_stream_fold_apply,
+    _ota_aggregate_fused_impl, ota_client_fold_apply, ota_stream_fold_apply,
 )
 from repro_torch.kernels.ota_channel.ref import (
-    bits_to_gaussian, bits_to_mask,
+    CHUNK, CHUNK_ROWS, bits_to_gaussian, bits_to_mask, chunk_stream,
+    chunked_stream,
 )
-from repro_torch.kernels.slab import LANE
 
 # --------------------------------------------------------------------------
 # the reserved fold registry (DESIGN.md §4): same names, same values
@@ -61,12 +66,13 @@ PART_DROP_FOLD = 0               # client dropout uniforms
 PART_BLACK_FOLD = 1              # cluster blackout uniforms
 PART_STRAG_FOLD = 2              # straggler-flag uniforms
 
-CHUNK_ROWS = 1024
-CHUNK = CHUNK_ROWS * LANE        # the stream quantum (entries per chunk)
-
 
 def cluster_key(key, cluster) -> torch.Tensor:
     return rng.fold_in(key, cluster)
+
+
+def leaf_key(ckey, leaf_idx) -> torch.Tensor:
+    return rng.fold_in(ckey, leaf_idx)
 
 
 def noise_key(key) -> torch.Tensor:
@@ -80,23 +86,6 @@ def sim_channel_key(key) -> torch.Tensor:
     return rng.fold_in(key, SIM_CHAN_FOLD)
 
 
-def _chunk_stream(keys: torch.Tensor, j0: int, j1: int,
-                  device=None) -> torch.Tensor:
-    """Chunks j0..j1 (inclusive) of each (..., 2) key's stream, laid end
-    to end: (..., (j1 - j0 + 1) * CHUNK) int32 bit patterns."""
-    keys = rng.as_key(keys)
-    j = torch.arange(j0, j1 + 1, dtype=torch.int64)
-    chunk_keys = rng.fold_in(keys.unsqueeze(-2), j)     # (..., n_chunks, 2)
-    words = rng.bits(chunk_keys, CHUNK, device=device)  # (..., n_chunks, K)
-    return words.reshape(words.shape[:-2] + (-1,))
-
-
-def _chunked_stream(key, length: int, device=None) -> torch.Tensor:
-    """(..., length) words of each key's chunk-quantized stream."""
-    n_chunks = -(-length // CHUNK)
-    return _chunk_stream(key, 0, n_chunks - 1, device)[..., :length]
-
-
 def _section_bits(key, fold: int, n_clusters: int, length: int,
                   device=None) -> torch.Tensor:
     """(C, length) gain bits of one section: cluster c's stream is keyed
@@ -104,7 +93,7 @@ def _section_bits(key, fold: int, n_clusters: int, length: int,
     skey = rng.fold_in(key, fold)
     ckeys = cluster_key(skey.unsqueeze(0),
                         torch.arange(n_clusters, dtype=torch.int64))
-    return _chunked_stream(ckeys, length, device)
+    return chunked_stream(ckeys, length, device)
 
 
 def packed_section_folds(packer: TreePacker) -> List[int]:
@@ -129,7 +118,7 @@ def stream_range_bits(key, start: int, length: int,
     j0 = start // CHUNK
     j1 = (start + length - 1) // CHUNK
     a = start - j0 * CHUNK
-    return _chunk_stream(key, j0, j1, device)[..., a:a + length]
+    return chunk_stream(key, j0, j1, device)[..., a:a + length]
 
 
 def section_gain_key(slab_key, fold: int, cluster) -> torch.Tensor:
@@ -150,7 +139,7 @@ def section_gain_streams(key, packer: TreePacker, n_clusters: int,
     skeys = rng.fold_in(rng.as_key(key).unsqueeze(0), folds)     # (S, 2)
     ckeys = cluster_key(skeys.unsqueeze(1),
                         torch.arange(n_clusters, dtype=torch.int64))
-    return [_chunked_stream(ckeys[sec.index], sec.length, device)
+    return [chunked_stream(ckeys[sec.index], sec.length, device)
             for sec in packer.sections]
 
 
@@ -159,8 +148,33 @@ def section_noise_streams(key, packer: TreePacker,
     """One (length,) AWGN stream per section, under its fold."""
     folds = torch.tensor(packed_section_folds(packer), dtype=torch.int64)
     nkeys = rng.fold_in(noise_key(key).unsqueeze(0), folds)      # (S, 2)
-    return [_chunked_stream(nkeys[sec.index], sec.length, device)
+    return [chunked_stream(nkeys[sec.index], sec.length, device)
             for sec in packer.sections]
+
+
+def packed_gain_bits(key, packer: TreePacker, n_clusters: int,
+                     device=None) -> torch.Tensor:
+    """The round's (C, P) gain words: the per-section streams of
+    ``section_gain_streams`` in layout order."""
+    parts = section_gain_streams(key, packer, n_clusters, device)
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+
+def packed_noise_bits(key, packer: TreePacker, device=None) -> torch.Tensor:
+    """The round's (P,) AWGN words, section by section."""
+    parts = section_noise_streams(key, packer, device)
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def packed_section_keys(key, packer: TreePacker) -> torch.Tensor:
+    """(S, 2, 2) keys of the packer's sections in layout order: [gain,
+    AWGN] = [fold_in(key, f), fold_in(noise_key(key), f)] for each
+    section fold f of ``packed_section_folds``."""
+    folds = torch.tensor(packed_section_folds(packer), dtype=torch.int64)
+    k = rng.as_key(key).unsqueeze(0)
+    return torch.stack([rng.fold_in(k, folds),
+                        rng.fold_in(noise_key(key).unsqueeze(0), folds)],
+                       dim=1)
 
 
 class SectionStreams(NamedTuple):
@@ -203,6 +217,129 @@ def _check_bits_mode(bits_mode: str) -> None:
     if bits_mode not in ("fused", "supplied"):
         raise ValueError(f"bits_mode must be 'fused' or 'supplied', got "
                          f"{bits_mode!r}")
+
+
+# --------------------------------------------------------------------------
+# the per-leaf oracle
+# --------------------------------------------------------------------------
+
+def sample_gain(key, shape, sigma2, device=None) -> torch.Tensor:
+    """Gains H ~ N(0, σ²) of ``shape`` from ``key`` (or from a (..., 2) key
+    table, with ``sigma2`` broadcasting against the result)."""
+    dev = device if device is not None else torch.as_tensor(sigma2).device
+    return rng.normal(key, shape, device=dev) * torch.sqrt(
+        torch.as_tensor(sigma2, dtype=torch.float32, device=dev))
+
+
+def gain_mask(h: torch.Tensor, h_threshold) -> torch.Tensor:
+    """eq. (7): pass the entries with |H|² ≥ H_th."""
+    return (h * h) >= h_threshold
+
+
+def _cluster_gains(ks, shape, chan: ChannelParams, device) -> torch.Tensor:
+    """(C, *shape) gains of one leaf: cluster c's draw is keyed
+    ``cluster_key(ks, c)`` and scaled by √σ²_c."""
+    n_clusters = int(chan.sigma2.shape[0])
+    ckeys = cluster_key(rng.as_key(ks).unsqueeze(0),
+                        torch.arange(n_clusters, dtype=torch.int64))
+    sig = chan.sigma2.to(device).reshape((n_clusters,) + (1,) * len(shape))
+    return sample_gain(ckeys, shape, sig, device=device)
+
+
+def _leaf_masks(ks, shape, chan: ChannelParams, device) -> torch.Tensor:
+    """(C, *shape) eq.-7 masks of one leaf; ``ota_on`` off passes all."""
+    hs = _cluster_gains(ks, shape, chan, device)
+    return torch.logical_or(gain_mask(hs, chan.h_threshold.to(device)),
+                            chan.ota_on.to(device) < 0.5)
+
+
+def ota_aggregate_leaf(weighted_grads: torch.Tensor, masks: torch.Tensor,
+                       noise: torch.Tensor, n_clients: int,
+                       live=None, n_eff=None) -> torch.Tensor:
+    """eqs. (8)-(10) for one leaf: y = Σ_l M_l ∘ wg_l + z, then the
+    guarded |M|·N estimate. ``live`` (C,) ANDs into the masks; ``n_eff``
+    replaces the static N."""
+    if live is not None:
+        lv = torch.as_tensor(live, dtype=torch.float32,
+                             device=masks.device).reshape(
+            (masks.shape[0],) + (1,) * (masks.dim() - 1))
+        masks = torch.logical_and(masks, lv > 0.5)
+    wg = weighted_grads.to(torch.float32)
+    y = torch.sum(torch.where(masks, wg, torch.zeros_like(wg)), dim=0)
+    y = y + noise
+    cnt = torch.sum(masks.to(torch.float32), dim=0)
+    denom = _denominator(n_clients, n_eff, y.device)
+    return torch.where(cnt > 0, y / (torch.clamp(cnt, min=1.0) * denom),
+                       torch.zeros_like(y))
+
+
+def ota_aggregate_tree(key, weighted_grads, chan: ChannelParams,
+                       n_clients: int, live=None, n_eff=None):
+    """The per-leaf oracle: for leaf i, ks = ``leaf_key(key, i)``; cluster
+    c's gains are ``normal(cluster_key(ks, c))·√σ²_c``, its mask |H|² ≥
+    H_th (all-pass with ``ota_on`` off) and the AWGN
+    ``normal(noise_key(ks))·noise_std·ota_on``. ``weighted_grads`` has
+    (C, ...) leaves; returns the ĝ tree."""
+    leaves = tree_leaves(weighted_grads)
+    out = []
+    for i, wg in enumerate(leaves):
+        ks = leaf_key(key, i)
+        shape = tuple(wg.shape[1:])
+        masks = _leaf_masks(ks, shape, chan, wg.device)
+        noise = (rng.normal(noise_key(ks), shape, device=wg.device)
+                 * chan.noise_std.to(wg.device)
+                 * chan.ota_on.to(wg.device))
+        out.append(ota_aggregate_leaf(wg, masks, noise, n_clients,
+                                      live=live, n_eff=n_eff))
+    return tree_unflatten(weighted_grads, out)
+
+
+def final_layer_masks(key, final_tree, chan: ChannelParams,
+                      leaf_offset: int = 0):
+    """Masks M^(l) on the last-shared-layer params ω̃ (eqs. 5-7) for the
+    per-leaf oracle: the per-leaf keys of the full aggregation (ω̃'s
+    leaves come first in the tree), so FedGradNorm sees the channel the
+    transmission uses. Returns a tree of (C, *shape) bool masks."""
+    leaves = tree_leaves(final_tree)
+    masks = [_leaf_masks(leaf_key(key, leaf_offset + i), tuple(l.shape),
+                         chan, l.device)
+             for i, l in enumerate(leaves)]
+    return tree_unflatten(final_tree, masks)
+
+
+# --------------------------------------------------------------------------
+# the packed slab engine
+# --------------------------------------------------------------------------
+
+def ota_aggregate_packed(key, weighted_grads, chan: ChannelParams,
+                         n_clients: int, packer: TreePacker,
+                         bits_mode: str = "fused"):
+    """Packed-slab OTA aggregation: pack the (C, ...) weighted tree into a
+    (C, P) slab, estimate every section (``ops._ota_aggregate_fused_impl``:
+    one K4 launch per section, which draws the section's stream words in
+    the kernel), unpack. Same math as ``ota_aggregate_tree`` on the packed
+    key schedule.
+
+    ``bits_mode="supplied"`` draws the identical (C, P) gain and (P,)
+    noise words outside (``packed_gain_bits``/``packed_noise_bits``) and
+    hands them to K3: a caller running several scenarios on one key draws
+    them once. Both modes return the same values."""
+    _check_bits_mode(bits_mode)
+    check_tree_matches_packer(packer, weighted_grads,
+                              "weighted gradient tree (packed OTA)",
+                              batch_ndim=1)
+    wg = packer.pack(weighted_grads)                       # (C, P)
+    n_clusters = int(wg.shape[0])
+    bits = nbits = None
+    if bits_mode == "supplied":
+        bits = packed_gain_bits(key, packer, n_clusters, wg.device)
+        nbits = packed_noise_bits(key, packer, wg.device)
+    ghat = _ota_aggregate_fused_impl(
+        wg, packed_section_keys(key, packer),
+        [sec.length for sec in packer.sections], chan.sigma2,
+        chan.h_threshold, chan.noise_std, chan.ota_on, n_clients,
+        bits=bits, nbits=nbits)
+    return packer.unpack(ghat)
 
 
 # --------------------------------------------------------------------------
@@ -431,7 +568,7 @@ def ota_aggregate_sectioned(key, grads, p: torch.Tensor, chan: ChannelParams,
         nkey = section_noise_key(key, fold)
         if not streaming:
             gb = _section_bits(key, fold, n_clusters, sec.length, device)
-            nb = _chunked_stream(nkey, sec.length, device)
+            nb = chunked_stream(nkey, sec.length, device)
             for run in runs:
                 cols = slice(run.offset, run.offset + run.size)
                 out[run.leaf] = ota_client_fold_apply(

@@ -4,10 +4,11 @@ Port of ``repro.core.sim``: the slab-native round on each of the
 reference's aggregation engines (client-folded, streaming, sectioned,
 sectioned + streaming, picked by ``FLConfig.ota_streaming`` /
 ``ota_sectioned``; ``"toplevel"`` or ``"tail"`` section layout, optional
-``max_section_rows`` splits), without faults and without the per-leaf
-oracle (``use_pallas_ota=False``). The reference's ``vmap`` over
-(cluster, client) is a batch dimension written out: every client-indexed
-tensor carries leading (C, N) axes.
+``max_section_rows`` splits) and the per-leaf oracle
+(``use_pallas_ota=False``: ``ota.ota_aggregate_tree`` with the tree Adam
+for the PS), without faults. The reference's ``vmap`` over (cluster,
+client) is a batch dimension written out: every client-indexed tensor
+carries leading (C, N) axes.
 
 Per global iteration k (Alg. 1):
  1. PS broadcasts ω_k.
@@ -18,8 +19,9 @@ Per global iteration k (Alg. 1):
  4. The clusters superpose over the fading MAC and the PS estimates ĝ
     (eqs. 3, 8-10): the ``ota_client_fold`` kernel, one launch per leaf,
     or on the streaming engines ``ota_mask_weight``, one launch per
-    (cluster, leaf).
- 5. PS updates ω with the slab-view Adam.
+    (cluster, leaf); the per-leaf oracle draws Gaussian gains per leaf.
+ 5. PS updates ω with the slab-view Adam (the tree Adam on the per-leaf
+    oracle).
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ class SimState(NamedTuple):
     omega: Any                  # {"final": ..., "trunk": ...} shared net
     heads: Any                  # leaves (C, N, ...)
     p: torch.Tensor             # (C, N) loss weights
-    ps_opt: Any                 # SlabAdamState of the PS update
+    ps_opt: Any                 # PS update: SlabAdamState (AdamState per-leaf)
     head_opt: AdamState         # step (C, N), moments (C, N, ...)
     fgn: FGNState               # step (C,), moments (C, N)
     f0: torch.Tensor            # (C, N) initial losses (for F̃)
@@ -102,13 +104,9 @@ class HotaSim:
                 "inert (DESIGN.md §3.16)")
         # what the port does not carry yet refuses rather than silently
         # running a different round
-        unsupported = [name for name, on in (
-            ("faults", fl.faults),
-            ("use_pallas_ota=False", not fl.use_pallas_ota)) if on]
-        if unsupported:
-            raise ValueError(f"HotaSim does not carry {unsupported} yet: "
-                             f"faults and the per-leaf oracle are not "
-                             f"ported")
+        if fl.faults:
+            raise ValueError("HotaSim does not carry faults yet: fault "
+                             "injection is not ported")
         self.model = model
         self.fl = fl
         self.tcfg = tcfg
@@ -130,8 +128,10 @@ class HotaSim:
         heads = init_params(self.model.head_specs(self.max_classes), gen,
                             batch_shape=(c, n), device=dev)
         ones = torch.ones((c, n), dtype=torch.float32, device=dev)
+        ps_opt = (slab_adam_init(omega) if fl.use_pallas_ota
+                  else adam_init(omega))
         return SimState(
-            omega=omega, heads=heads, p=ones, ps_opt=slab_adam_init(omega),
+            omega=omega, heads=heads, p=ones, ps_opt=ps_opt,
             head_opt=adam_init(heads, batch_shape=(c, n)),
             fgn=fgn_init(n, c, device=dev), f0=ones.clone(),
             step=torch.zeros((), dtype=torch.int32, device=dev))
@@ -186,10 +186,13 @@ class HotaSim:
         return masked_gradnorm(gm, mm)
 
     # ------------------------------------------------------------------
-    def packer(self, omega) -> TreePacker:
+    def packer(self, omega) -> Optional[TreePacker]:
         """The round's slab layout of the shared tree ``omega``: the
-        config's section layout, coalescing and split cap."""
+        config's section layout, coalescing and split cap; None on the
+        per-leaf oracle, which has no slab."""
         fl = self.fl
+        if not fl.use_pallas_ota:
+            return None
         return packer_for(omega, tail="final", sections=fl.ota_sections,
                           min_section_rows=fl.min_section_rows,
                           max_section_rows=fl.max_section_rows)
@@ -200,16 +203,19 @@ class HotaSim:
         section at once (the client-folded engine), so that a caller
         running several scenarios on one key can draw them once
         (``round_streams``). The streaming and sectioned engines draw
-        inside the aggregation, a cluster or a section at a time."""
-        return not (self.fl.ota_streaming or self.fl.ota_sectioned)
+        inside the aggregation, a cluster or a section at a time, and the
+        per-leaf oracle a leaf at a time."""
+        fl = self.fl
+        return fl.use_pallas_ota and not (fl.ota_streaming
+                                          or fl.ota_sectioned)
 
     def round_streams(self, key, omega) -> ota.SectionStreams:
         """The round's section streams under round key ``key`` for the
         client-folded engine: what ``step_with_channel(...,
         ota_bits_mode="supplied", streams=...)`` reads."""
         if not self.draws_streams_at_once:
-            raise ValueError("the streaming and sectioned engines draw their "
-                             "streams inside the aggregation")
+            raise ValueError("the streaming, sectioned and per-leaf engines "
+                             "draw their streams inside the aggregation")
         return ota.section_streams(ota.sim_channel_key(key),
                                    self.packer(omega), self.fl.n_clusters,
                                    self.device)
@@ -219,12 +225,20 @@ class HotaSim:
                   streams: Optional[ota.SectionStreams] = None):
         """The PS estimate ĝ (eqs. 3, 8-10) of the raw (C, N, ...) gradient
         tree ``g`` under the (C, N) weights ``p``, on this sim's engine as
-        the reference picks it: ``ota_sectioned`` walks the sections
-        (streaming inside them with ``ota_streaming``), else
-        ``ota_streaming`` folds one cluster at a time, else the
-        client-folded engine reads ``streams`` (drawn from ``chan_key``
-        when None)."""
+        the reference picks it: ``use_pallas_ota=False`` weights the
+        clients' gradients and runs the per-leaf oracle (``packer`` is then
+        None), ``ota_sectioned`` walks the sections (streaming inside them
+        with ``ota_streaming``), else ``ota_streaming`` folds one cluster
+        at a time, else the client-folded engine reads ``streams`` (drawn
+        from ``chan_key`` when None)."""
         fl = self.fl
+        if not fl.use_pallas_ota:
+            weighted = tree_map(
+                lambda gl: torch.einsum("cn,cn...->c...",
+                                        p.to(torch.float32),
+                                        gl.to(torch.float32)), g)
+            return ota.ota_aggregate_tree(chan_key, weighted, chan,
+                                          fl.n_clients)
         if fl.ota_sectioned:
             return ota.ota_aggregate_sectioned(
                 chan_key, g, p, chan, fl.n_clients, packer,
@@ -289,9 +303,13 @@ class HotaSim:
         # negative f0 marks a never-seen slot
         f0 = torch.where((state.step == 0) | (state.f0 < 0.0), F, state.f0)
         ratios = F / torch.clamp(f0, min=1e-12)
-        final_masks = ota.final_layer_masks_packed(
-            chan_key, chan, packer,
-            gain=None if streams is None else streams.gain)
+        if packer is None:      # the per-leaf oracle's draw for ω̃
+            final_masks = ota.final_layer_masks(chan_key, state.omega["final"],
+                                                chan)
+        else:                   # the tail section of the round's draw
+            final_masks = ota.final_layer_masks_packed(
+                chan_key, chan, packer,
+                gain=None if streams is None else streams.gain)
         norms = self._masked_final_norms(g["final"], final_masks)   # (C, N)
         p_new, fgn_state, fval = fgn_update_gated(
             state.p, norms, ratios, state.fgn, fl, chan.fgn_on)
@@ -299,8 +317,12 @@ class HotaSim:
         # --- eqs. (3), (8)-(10): OTA aggregation, then the PS update -------
         ghat = self.aggregate(chan_key, g, p_new, chan, packer,
                               ota_bits_mode, streams)
-        omega, ps_opt = slab_adam_update(ghat, state.ps_opt, state.omega,
-                                         tcfg.lr)
+        if packer is None:
+            omega, ps_opt = adam_update(ghat, state.ps_opt, state.omega,
+                                        tcfg.lr)
+        else:       # the slab view: moments stay one flat slab
+            omega, ps_opt = slab_adam_update(ghat, state.ps_opt, state.omega,
+                                             tcfg.lr)
         metrics = {"loss": F, "p": p_new, "fgrad": fval,
                    "grad_norms": norms}
         return SimState(omega=omega, heads=heads, p=p_new, ps_opt=ps_opt,

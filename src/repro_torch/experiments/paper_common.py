@@ -8,9 +8,13 @@ EPOCH_STEPS global iterations.
 
 Each figure runs as ONE ``ScenarioBank`` sweep (``run_sweep``): all of its
 scenarios share one data stream and common random numbers. The sweep runs
-on the card unless ``device="cpu"`` is asked for, on the default section
-layout (the reference's layout autotuner is not ported yet), and writes
-its JSON results under ``results/repro_torch/`` at the checkout's root.
+on the card unless ``device="cpu"`` is asked for, on the layout the
+autotuner picks for the model (``common.layout_tune``, cached per device
+in ``build/layout_tune.json``) unless an engine flag is given, and writes
+its JSON results under ``results/repro_torch/`` at the checkout's root
+(or ``results_dir``). Each result records the sweep's settings (``run``)
+and the layout it ran on; a cached result is reused only for the same
+settings, so a short sweep never stands in for a longer one.
 """
 from __future__ import annotations
 
@@ -19,13 +23,16 @@ import json
 import os
 import time
 from pathlib import Path
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 
 from repro_torch import rng
 from repro_torch.common.config import FLConfig
+from repro_torch.common.layout_tune import layout_of, tuned_fl
+from repro_torch.common.tree import tree_map
 from repro_torch.core.paper_setup import paper_mlp_setup
+from repro_torch.core.sim import HotaSim
 from repro_torch.core.sweep import ScenarioBank
 from repro_torch.data.radcom import TASKS
 
@@ -36,13 +43,17 @@ EPOCH_STEPS = 10
 
 def _scenario_result(name: str, spec: Dict, losses: np.ndarray,
                      ps: np.ndarray, steps: int, n_clients: int,
-                     wall_s: float, sweep_size: int) -> Dict:
+                     wall_s: float, sweep_size: int, run: Dict,
+                     layout: str) -> Dict:
     """Per-scenario JSON payload from (steps, C, N) loss/p trajectories.
     ``wall_s`` is the measured wall time of the WHOLE sweep this scenario
     ran in (shared across its ``sweep_size`` scenarios — divide to
-    estimate a per-scenario share)."""
+    estimate a per-scenario share). ``run`` holds the sweep's settings
+    (what a cached result must match, with ``spec``) and ``layout`` the
+    layout it ran."""
     return {
         "name": name,
+        "spec": json.loads(json.dumps(spec)),
         "weighting": spec.get("weighting", "fedgradnorm"),
         "sigma2": list(spec.get("sigma2", ())),
         "steps": steps, "epoch_steps": EPOCH_STEPS,
@@ -55,7 +66,27 @@ def _scenario_result(name: str, spec: Dict, losses: np.ndarray,
         "auc_loss_per_task": losses.mean(axis=(0, 1)).tolist(),
         "wall_s": wall_s,
         "sweep_size": sweep_size,
+        "run": run,
+        "layout": layout,
     }
+
+
+def _cached_results(paths: Dict[str, str], experiments: Dict[str, Dict],
+                    run: Dict) -> Optional[Dict]:
+    """The cached results of a sweep with settings ``run``, or None when
+    any scenario's file is missing, unreadable, or from other settings or
+    overrides."""
+    out = {}
+    for n, p in paths.items():
+        try:
+            with open(p) as f:
+                out[n] = json.load(f)
+        except (OSError, ValueError):
+            return None
+        if (out[n].get("run") != run or out[n].get("spec")
+                != json.loads(json.dumps(experiments[n]))):
+            return None
+    return out
 
 
 def _engine_name(ota_streaming: bool, ota_sectioned: bool,
@@ -75,42 +106,68 @@ def run_sweep(
     seed: int = 0,
     force: bool = False,
     log_every: int = 50,
+    tune: bool = True,
     ota_streaming: bool = False,
     ota_sectioned: bool = False,
     max_section_rows: int = 0,
     device="cuda",
+    results_dir: Optional[str] = None,
 ) -> Dict[str, Dict]:
     """Run ALL experiments as one ScenarioBank sweep.
 
     ``experiments`` maps result-name -> FLConfig channel overrides
     (``weighting``, ``sigma2``, ``noise_std``, ``ota``). Every scenario sees
     the same data stream and per-step keys (common random numbers).
-    Results are cached per scenario under RESULTS_DIR; ``force`` runs
-    again. ``ota_streaming`` / ``ota_sectioned`` / ``max_section_rows``
-    select the engine for the whole bank (engines are static; ``HotaSim``
-    raises by name when a flag's prerequisites are off). The weights start
+    Results are cached per scenario under ``results_dir`` (default
+    RESULTS_DIR) with the sweep's settings and the scenario's overrides,
+    and reused only by a sweep of the same; ``force`` runs again. ``tune``
+    runs the section-layout autotuner on the model's template before the
+    sweep (its calibration persists per device, so
+    only the first sweep on a machine pays for it). ``ota_streaming`` /
+    ``ota_sectioned`` / ``max_section_rows`` select the engine for the
+    whole bank (engines are static; ``HotaSim`` raises by name when a
+    flag's prerequisites are off); setting any of them skips the tuner,
+    which would otherwise override the explicit choice. The weights start
     from ``HotaSim.init(seed)``, a ``torch.Generator`` draw, so a sweep
     starts from other weights than the reference's sweep of the same seed;
     the data, keys and channel streams are the reference's."""
-    os.makedirs(RESULTS_DIR, exist_ok=True)
-    paths = {n: os.path.join(RESULTS_DIR, n + ".json") for n in experiments}
-    if not force and all(os.path.exists(p) for p in paths.values()):
-        out = {}
-        for n, p in paths.items():
-            with open(p) as f:
-                out[n] = json.load(f)
-        return out
+    results_dir = results_dir or RESULTS_DIR
+    os.makedirs(results_dir, exist_ok=True)
+    paths = {n: os.path.join(results_dir, n + ".json") for n in experiments}
+    explicit_engine = ota_streaming or ota_sectioned or bool(max_section_rows)
+    run = {"steps": steps, "n_clusters": n_clusters, "n_clients": n_clients,
+           "batch": batch, "seed": seed,
+           "tune": bool(tune and not explicit_engine),
+           "ota_streaming": bool(ota_streaming),
+           "ota_sectioned": bool(ota_sectioned),
+           "max_section_rows": int(max_section_rows)}
+    if not force:
+        cached = _cached_results(paths, experiments, run)
+        if cached is not None:
+            return cached
 
     base_fl = FLConfig(n_clusters=n_clusters, n_clients=n_clients,
                        ota_streaming=ota_streaming,
                        ota_sectioned=ota_sectioned,
                        max_section_rows=max_section_rows)
-    print(f"  layout: default ({base_fl.ota_sections}; the layout autotuner "
-          f"is not ported), engine: "
-          f"{_engine_name(ota_streaming, ota_sectioned, max_section_rows)}",
-          flush=True)
     sim, batcher = paper_mlp_setup(base_fl, batch=batch, seed=seed,
                                    device=device)
+    if tune and not explicit_engine:
+        model = sim.model
+        template = tree_map(lambda spec: spec.shape,
+                            {"final": model.final_specs(),
+                             "trunk": model.trunk_specs()})
+        tuned = tuned_fl(base_fl, template, device=sim.device)
+        print(f"  layout: {layout_of(tuned).describe()} (tuned on "
+              f"{sim.device})", flush=True)
+        sim = HotaSim(model, tuned, sim.tcfg, sim.n_classes.tolist(),
+                      max_classes=sim.max_classes, device=sim.device)
+    else:
+        why = ("explicit engine flags, autotuner skipped" if explicit_engine
+               else "autotuner off")
+        print(f"  layout: {base_fl.ota_sections} ({why}), engine: "
+              f"{_engine_name(ota_streaming, ota_sectioned, max_section_rows)}",
+              flush=True)
     names = list(experiments)
     specs = [dict(experiments[n]) for n in names]
     for sp in specs:
@@ -139,7 +196,7 @@ def run_sweep(
     for s, name in enumerate(names):
         out[name] = _scenario_result(
             name, specs[s], losses[:, s], ps[:, s], steps, n_clients,
-            wall_s, bank.n_scenarios)
+            wall_s, bank.n_scenarios, run, layout_of(sim.fl).describe())
         with open(paths[name], "w") as f:
             json.dump(out[name], f)
     return out

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Every ``kernels/**/csrc/*.cu`` source has a plain C interface (no PyTorch
-headers), so ``nvcc`` compiles each one in seconds. At first use the
+headers), so ``nvcc`` compiles each one in seconds; device code shared by
+several sources sits in ``csrc/*.cuh`` headers beside them. At first use the
 sources are compiled in parallel, one ``nvcc`` per file, and linked into
 one shared library that ``ctypes`` loads::
 
@@ -12,7 +13,7 @@ one shared library that ``ctypes`` loads::
 No ``--use_fast_math``: the channel's mask compare and Box-Muller stay
 IEEE. The library lands in ``build/kernels/<hash>/`` at the checkout's
 root, keyed by a hash of the sources and flags, so an edited source
-rebuilds and an unchanged one loads the existing library.
+(or header) rebuilds and an unchanged one loads the existing library.
 
 Each wrapper counts the launches of its kernel in a ``LaunchCounter``
 (one plain integer), so a run can show that its path went through the
@@ -41,6 +42,7 @@ LIB_NAME = "libreprotorch_kernels.so"
 _PTR = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
+_U32 = ctypes.c_uint32
 # C entry points: name -> argtypes (every entry returns cudaGetLastError())
 SIGNATURES = {
     "ota_client_fold_f32": [_PTR, _PTR, _I64, _PTR, _PTR, _PTR, _PTR, _I64,
@@ -49,6 +51,11 @@ SIGNATURES = {
                             _PTR],
     "ota_mask_weight_f32": [_PTR, _PTR, _I64, _PTR, _PTR, _PTR, _PTR, _I64,
                             _I32, _I32, _I32, _PTR],
+    "ota_aggregate_f32": [_PTR, _I64, _PTR, _I64, _PTR, _PTR, _PTR, _PTR,
+                          _I64, _I32, _I32, _I32, _I32, _PTR],
+    "ota_aggregate_fused_f32": [_PTR, _I64, _U32, _U32, _U32, _U32, _PTR,
+                                _PTR, _PTR, _I64, _I32, _I32, _I32, _PTR],
+    "threefry_chunk_u32": [_PTR, _I32, _U32, _I32, _PTR, _PTR],
 }
 
 
@@ -72,6 +79,11 @@ class _Loaded:
 
 def sources() -> List[Path]:
     return sorted(_KERNELS_DIR.glob("**/csrc/*.cu"))
+
+
+def headers() -> List[Path]:
+    """Device headers the sources include (part of the build's hash)."""
+    return sorted(_KERNELS_DIR.glob("**/csrc/*.cuh"))
 
 
 def _nvcc() -> str:
@@ -99,7 +111,7 @@ def build(verbose: bool = False) -> Path:
     return its path. ``verbose`` adds ``-Xptxas -v`` and keeps its report
     (registers, shared memory, spills per kernel) in ``ptxas_log()``."""
     srcs = sources()
-    out_dir = BUILD_ROOT / _digest(srcs)
+    out_dir = BUILD_ROOT / _digest(srcs + headers())
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
         return lib_path

@@ -1,4 +1,5 @@
-"""Wrappers of the OTA channel kernels: K1 (client fold) and K5 (mask and
+"""Wrappers of the OTA channel kernels: K1 (client fold), K3 and K4 (slab
+estimate from supplied or in-kernel stream words) and K5 (mask and
 weighted apply).
 
 Ports of ``repro.kernels.ota_channel.ops``:
@@ -10,7 +11,14 @@ Ports of ``repro.kernels.ota_channel.ops``:
   slice (``csrc/ota_mask_weight.cu``);
 * ``ota_stream_fold_apply``: one (leaf, cluster) term of the streaming
   engines, the (N,) client weights folded with one torch product and then
-  ``ota_mask_weight_apply``.
+  ``ota_mask_weight_apply``;
+* ``ota_aggregate``: the (P,) estimate of a whole (C, P) weighted slab from
+  its supplied gain and noise words, one K3 launch
+  (``csrc/ota_aggregate.cu``);
+* ``_ota_aggregate_fused_impl``: the packed engine's per-section schedule,
+  one launch per non-empty section: K4 (``csrc/ota_aggregate_fused.cu``)
+  draws the section's words in the kernel from its two keys, or, with the
+  words supplied, K3 reads them.
 
 For CPU tensors each runs its plain version (``ref``); for CUDA tensors it
 launches its kernel or raises.
@@ -19,14 +27,18 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import rng
 from repro_torch.kernels import _build
 from repro_torch.kernels.ota_channel.ref import (
-    ota_aggregate_client_ref, ota_mask_weight_ref, ota_stream_fold_ref,
+    CHUNK, ota_aggregate_client_ref, ota_aggregate_fused_ref,
+    ota_aggregate_slab_ref, ota_mask_weight_ref, ota_stream_fold_ref,
     pass_probability,
 )
 
 client_fold_counter = _build.LaunchCounter("ota_client_fold")
 mask_weight_counter = _build.LaunchCounter("ota_mask_weight")
+aggregate_counter = _build.LaunchCounter("ota_aggregate")
+fused_counter = _build.LaunchCounter("ota_aggregate_fused")
 
 BLOCK = 256
 BLOCKS_PER_SM = 8
@@ -239,3 +251,191 @@ def ota_stream_fold_apply(g: torch.Tensor, p_c: torch.Tensor,
               > 0.5).to(torch.float32)
         out, mask = out * lv, mask * lv
     return out.reshape(shape), mask.reshape(shape)
+
+
+# --------------------------------------------------------------------------
+# K3 and K4: the packed slab estimate
+# --------------------------------------------------------------------------
+
+def aggregate_params(sigma2, h_th, noise_std, ota_on, n_clusters: int,
+                     device=None) -> torch.Tensor:
+    """K3's and K4's params row, laid out as the reference's (1, C+3)
+    block: [σ²_0..σ²_{C-1}, H_th, z_std, ota_on]."""
+    return torch.cat([
+        torch.as_tensor(sigma2, dtype=torch.float32,
+                        device=device).reshape(n_clusters),
+        _scalar(h_th, device), _scalar(noise_std, device),
+        _scalar(ota_on, device)])
+
+
+def _check_rows(name: str, t: torch.Tensor, shape, dtype, dev) -> None:
+    """Raise unless ``t`` is a ``shape`` CUDA tensor of ``dtype`` on
+    ``dev`` whose entries (the last axis) have unit stride; rows may sit
+    at any stride (a column slice of a wider slab)."""
+    if (t.dtype != dtype or t.device != dev or tuple(t.shape) != shape
+            or (shape[-1] > 1 and t.stride(-1) != 1)):
+        raise ValueError(f"{name} must be a {shape} {dtype} CUDA tensor "
+                         f"with unit stride along the entries")
+
+
+def _check_aggregate_operands(wg, params, p_pass, out) -> None:
+    n_clusters, n = wg.shape
+    _check_rows("wg", wg, (n_clusters, n), torch.float32, wg.device)
+    for name, t, size in (("params", params, n_clusters + 3),
+                          ("p_pass", p_pass, n_clusters), ("out", out, n)):
+        if (t.dtype != torch.float32 or t.device != wg.device
+                or not t.is_contiguous() or t.numel() != size):
+            raise ValueError(f"{name} must be a contiguous float32 CUDA "
+                             f"tensor of {size} elements")
+
+
+def launch_aggregate(wg: torch.Tensor, bits: torch.Tensor,
+                     nbits: torch.Tensor, params: torch.Tensor,
+                     p_pass: torch.Tensor, n_clients: int,
+                     out: torch.Tensor) -> torch.Tensor:
+    """Launch K3 on prepared CUDA operands: ``wg`` (C, n) float32 and
+    ``bits`` (C, n) int32, each with unit stride along n (rows may be
+    strided), ``nbits`` (n,) int32, the ``aggregate_params`` row, ``p_pass``
+    (C,) and ``out`` (n,) float32. Checks what the kernel assumes and
+    raises otherwise."""
+    n_clusters, n = wg.shape
+    dev = wg.device
+    _check_aggregate_operands(wg, params, p_pass, out)
+    _check_rows("bits", bits, (n_clusters, n), torch.int32, dev)
+    _check_rows("nbits", nbits, (n,), torch.int32, dev)
+    if n == 0:
+        return out
+    grid = max(1, min(-(-n // BLOCK), BLOCKS_PER_SM * _build.sm_count(dev)))
+    err = _build.library().ota_aggregate_f32(
+        wg.data_ptr(), wg.stride(0), bits.data_ptr(), bits.stride(0),
+        nbits.data_ptr(), params.data_ptr(), p_pass.data_ptr(),
+        out.data_ptr(), n, n_clusters, int(n_clients), grid, BLOCK,
+        _build.current_stream_handle(dev))
+    _build.check(err, "ota_aggregate")
+    aggregate_counter.count += 1
+    return out
+
+
+def launch_aggregate_fused(wg: torch.Tensor, keys, params: torch.Tensor,
+                           p_pass: torch.Tensor, n_clients: int,
+                           out: torch.Tensor,
+                           partitionable: bool) -> torch.Tensor:
+    """Launch K4 on prepared CUDA operands: ``wg`` (C, n) float32 with
+    unit stride along n, the section's (2, 2) keys [gain, AWGN] (host
+    uint32 values), the ``aggregate_params`` row, ``p_pass`` (C,), ``out``
+    (n,) float32 and the ``bits`` layout (``rng.threefry_partitionable``)."""
+    n_clusters, n = wg.shape
+    _check_aggregate_operands(wg, params, p_pass, out)
+    k = [int(v) for v in rng.as_key(keys).reshape(4).tolist()]
+    if n == 0:
+        return out
+    err = _build.library().ota_aggregate_fused_f32(
+        wg.data_ptr(), wg.stride(0), k[0], k[1], k[2], k[3],
+        params.data_ptr(), p_pass.data_ptr(), out.data_ptr(), n, n_clusters,
+        int(n_clients), int(bool(partitionable)),
+        _build.current_stream_handle(wg.device))
+    _build.check(err, "ota_aggregate_fused")
+    fused_counter.count += 1
+    return out
+
+
+def threefry_chunk(keys, chunk: int, device) -> torch.Tensor:
+    """Chunk ``chunk`` of each key's stream drawn by K4's device generator:
+    (K, CHUNK) int32 words of ``bits(fold_in(key_k, chunk), CHUNK)`` in the
+    layout in force. A test entry: it holds the device threefry word for
+    word against ``rng.bits``; no simulator path calls it."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("threefry_chunk runs the device generator: pass a "
+                         "CUDA device")
+    k = rng.to_bit_pattern(rng.as_key(keys).reshape(-1, 2)).to(dev)
+    out = torch.empty((k.shape[0], CHUNK), dtype=torch.int32, device=dev)
+    err = _build.library().threefry_chunk_u32(
+        k.data_ptr(), k.shape[0], int(chunk),
+        int(rng.threefry_partitionable()), out.data_ptr(),
+        _build.current_stream_handle(dev))
+    _build.check(err, "threefry_chunk")
+    return out
+
+
+def _slab_p_pass(params: torch.Tensor, n_clusters: int) -> torch.Tensor:
+    # the same torch call the plain version makes, on the same device
+    return pass_probability(params[:n_clusters], params[n_clusters])
+
+
+def ota_aggregate(wg: torch.Tensor, bits: torch.Tensor, nbits: torch.Tensor,
+                  sigma2, h_th, noise_std, ota_on,
+                  n_clients: int) -> torch.Tensor:
+    """Whole-slab OTA estimate (eqs. 8-10): the (P,) ĝ of a (C, P) float32
+    weighted slab from its (C, P) gain words and (P,) noise words (int32
+    bit patterns, the packed key schedule's). One K3 launch on the card;
+    the plain version for CPU tensors."""
+    n_clusters, n = wg.shape
+    if tuple(bits.shape) != (n_clusters, n) or tuple(nbits.shape) != (n,):
+        raise ValueError(f"bits {tuple(bits.shape)} / nbits "
+                         f"{tuple(nbits.shape)} do not match a ({n_clusters}, "
+                         f"{n}) slab")
+    if wg.device.type == "cpu":
+        return ota_aggregate_slab_ref(wg, bits, nbits, sigma2, h_th,
+                                      noise_std, ota_on, n_clients)
+    if wg.device.type != "cuda":
+        raise ValueError(f"unsupported device {wg.device}")
+    dev = wg.device
+    params = aggregate_params(sigma2, h_th, noise_std, ota_on, n_clusters,
+                              device=dev)
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    return launch_aggregate(wg.to(torch.float32), bits, nbits, params,
+                            _slab_p_pass(params, n_clusters), n_clients, out)
+
+
+def _ota_aggregate_fused_impl(wg: torch.Tensor, section_keys,
+                              section_lens, sigma2, h_th, noise_std, ota_on,
+                              n_clients: int, bits=None,
+                              nbits=None) -> torch.Tensor:
+    """The packed slab path, section by section: ``wg`` is the (C, P)
+    weighted slab, ``section_keys`` the (S, 2, 2) keys [section][gain |
+    AWGN] of the packer's sections in layout order and ``section_lens``
+    their lengths. Each non-empty section runs its own launch on its
+    columns of the slab, read in place: K4, which draws the section's
+    chunk-quantized words in the kernel, or, when the (C, P) ``bits`` and
+    (P,) ``nbits`` words are supplied, K3 on their columns. Both give the
+    same values. Returns the (P,) estimate."""
+    n_clusters, p = wg.shape
+    if sum(int(l) for l in section_lens) != p:
+        raise ValueError(f"section lengths {list(section_lens)} do not add "
+                         f"up to the slab's {p} entries")
+    if (bits is None) != (nbits is None):
+        raise ValueError("supply both bits and nbits, or neither")
+    keys = rng.as_key(section_keys)
+    dev = wg.device
+    wg32 = wg.to(torch.float32)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    out = torch.empty(p, dtype=torch.float32, device=dev)
+    if dev.type == "cuda":
+        params = aggregate_params(sigma2, h_th, noise_std, ota_on,
+                                  n_clusters, device=dev)
+        p_pass = _slab_p_pass(params, n_clusters)
+        partitionable = rng.threefry_partitionable()
+    off = 0
+    for s, length in enumerate(int(l) for l in section_lens):
+        if not length:
+            continue
+        cols = slice(off, off + length)
+        if dev.type == "cpu":
+            if bits is None:
+                out[cols] = ota_aggregate_fused_ref(
+                    wg32[:, cols], keys[s], sigma2, h_th, noise_std, ota_on,
+                    n_clients)
+            else:
+                out[cols] = ota_aggregate_slab_ref(
+                    wg32[:, cols], bits[:, cols], nbits[cols], sigma2, h_th,
+                    noise_std, ota_on, n_clients)
+        elif bits is None:
+            launch_aggregate_fused(wg32[:, cols], keys[s], params, p_pass,
+                                   n_clients, out[cols], partitionable)
+        else:
+            launch_aggregate(wg32[:, cols], bits[:, cols], nbits[cols],
+                             params, p_pass, n_clients, out[cols])
+        off += length
+    return out

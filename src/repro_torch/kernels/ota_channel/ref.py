@@ -11,11 +11,21 @@ round-to-nearest like ``bits.astype(f32)``.
 
 These are the CPU path of the kernel wrappers and the yardstick the CUDA
 kernels are held against on the card.
+
+The chunk-quantized stream (DESIGN.md §4) lives here too, since K4's
+plain version draws it: chunk j of a key's stream is ``bits(fold_in(key,
+j), CHUNK)`` and a partial last chunk is truncated, so any range of the
+stream can be drawn on its own.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import rng
+from repro_torch.kernels.slab import LANE
+
+CHUNK_ROWS = 1024
+CHUNK = CHUNK_ROWS * LANE        # the stream quantum (entries per chunk)
 TWO_PI = 6.283185307179586
 _TWO_PI_F32 = torch.tensor(TWO_PI, dtype=torch.float32)
 
@@ -27,6 +37,22 @@ def _u32(bits: torch.Tensor) -> torch.Tensor:
 
 def _f32(x, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+
+
+def chunk_stream(keys, j0: int, j1: int, device=None) -> torch.Tensor:
+    """Chunks j0..j1 (inclusive) of each (..., 2) key's stream, laid end
+    to end: (..., (j1 - j0 + 1) * CHUNK) int32 bit patterns."""
+    keys = rng.as_key(keys)
+    j = torch.arange(j0, j1 + 1, dtype=torch.int64)
+    chunk_keys = rng.fold_in(keys.unsqueeze(-2), j)     # (..., n_chunks, 2)
+    words = rng.bits(chunk_keys, CHUNK, device=device)  # (..., n_chunks, K)
+    return words.reshape(words.shape[:-2] + (-1,))
+
+
+def chunked_stream(keys, length: int, device=None) -> torch.Tensor:
+    """(..., length) words of each key's chunk-quantized stream."""
+    n_chunks = -(-length // CHUNK)
+    return chunk_stream(keys, 0, n_chunks - 1, device)[..., :length]
 
 
 def bits_to_gaussian(bits: torch.Tensor, sigma2) -> torch.Tensor:
@@ -130,3 +156,20 @@ def ota_aggregate_client_ref(g, p, bits, nbits, sigma2, h_th, noise_std,
     return ota_aggregate_slab_ref(wg, bits, nbits, sigma2, h_th, noise_std,
                                   ota_on, n_clients, live=live, n_eff=n_eff,
                                   p_pass=p_pass)
+
+
+def ota_aggregate_fused_ref(wg, keys, sigma2, h_th, noise_std, ota_on,
+                            n_clients: int, p_pass=None) -> torch.Tensor:
+    """K4's plain version: ``ota_aggregate_slab_ref`` on ONE section's
+    (C, n) weighted gradients with the section's streams drawn from its
+    (2, 2) keys [gain, AWGN]: cluster l's gain chunk j is
+    ``bits(fold_in(fold_in(gain_key, l), j), CHUNK)``, AWGN chunk j is
+    ``bits(fold_in(noise_key, j), CHUNK)``, on ``wg``'s device."""
+    c, n = wg.shape
+    keys = rng.as_key(keys)
+    ckeys = rng.fold_in(keys[0].unsqueeze(0),
+                        torch.arange(c, dtype=torch.int64))
+    bits = chunked_stream(ckeys, n, wg.device)
+    nbits = chunked_stream(keys[1], n, wg.device)
+    return ota_aggregate_slab_ref(wg, bits, nbits, sigma2, h_th, noise_std,
+                                  ota_on, n_clients, p_pass=p_pass)

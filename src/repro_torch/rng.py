@@ -147,3 +147,62 @@ def bits(key, n: int, device=None) -> torch.Tensor:
     b = torch.where(b < n, b, torch.zeros_like(b))
     y0, y1 = threefry2x32(k0, k1, a, b)
     return to_bit_pattern(torch.where(first, y0, y1))
+
+
+def _shaped_bits(key, shape, device) -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` for every key of a (..., 2) table:
+    the words of the flattened shape (JAX counts the counter over the
+    row-major flat index), as (..., *shape) uint32-valued int64."""
+    shape = tuple(int(d) for d in shape)
+    n = 1
+    for d in shape:
+        n *= d
+    words = bits(key, n, device=device).to(torch.int64) & MASK32
+    return words.reshape(words.shape[:-1] + shape)
+
+
+def _fma_f32(a: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor) -> torch.Tensor:
+    """float32 a·b + c rounded once, as XLA's CPU backend contracts it
+    into a fused multiply-add. The product is exact in float64; the sum
+    rounds once there, and where that lands exactly on a float32 midpoint
+    the rounding error of the float64 sum (TwoSum) breaks the tie."""
+    p = a.double() * b.double()
+    c64 = c.double()
+    r = p + c64
+    bv = r - p
+    err = (p - (r - bv)) + (c64 - bv)
+    out = r.float()
+    side = torch.where(r > out.double(), 1.0, -1.0).to(torch.float32)
+    other = torch.nextafter(out, side * float("inf"))
+    mid = (out.double() + other.double()) * 0.5
+    fix = (r == mid) & (err != 0) & ((err > 0) == (other > out))
+    return torch.where(fix, other, out)
+
+
+def uniform(key, shape, minval=0.0, maxval=1.0, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``, bit for
+    bit: the top 23 bits of each word become the mantissa of a float in
+    [1, 2), which is scaled by (maxval − minval) and shifted by minval in
+    one fused multiply-add (as XLA computes it) and clamped below at
+    ``minval``. Broadcasts over leading key dimensions."""
+    w = _shaped_bits(key, shape, device)
+    f = to_bit_pattern((w >> 9) | 0x3F800000).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=f.device)
+    return torch.maximum(lo, _fma_f32(f, hi - lo, lo))
+
+
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2_F32 = float(np.float32(np.sqrt(2.0)))
+
+
+def normal(key, shape, device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: √2·erfinv(u) of a
+    uniform on [nextafter(-1, 0), 1). The uniform is bit-identical to
+    JAX's; ``torch.special.erfinv`` and XLA's ``erf_inv`` differ in the
+    last place, so the result matches to float32 rounding, not bit for
+    bit. Broadcasts over leading key dimensions."""
+    u = uniform(key, shape, _NORMAL_LO, 1.0, device=device)
+    return torch.special.erfinv(u) * torch.tensor(
+        _SQRT2_F32, dtype=torch.float32, device=u.device)

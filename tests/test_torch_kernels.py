@@ -153,11 +153,24 @@ def test_wrappers_refuse_other_devices():
 
 def test_kernel_sources_and_build_without_nvcc(monkeypatch, tmp_path):
     names = sorted(s.name for s in _build.sources())
-    assert names == ["masked_gradnorm.cu", "ota_client_fold.cu",
+    assert names == ["masked_gradnorm.cu", "ota_aggregate.cu",
+                     "ota_aggregate_fused.cu", "ota_client_fold.cu",
                      "ota_mask_weight.cu"]
+    assert sorted(h.name for h in _build.headers()) == [
+        "ota_estimate.cuh", "threefry.cuh"]
     for src in _build.sources():
         text = src.read_text()
         assert "cudaGetLastError" in text and "Replaces the TPU kernel" in text
+    # K3 and K4 share the per-entry estimate; K4 includes the generator
+    for name in ("ota_aggregate.cu", "ota_aggregate_fused.cu"):
+        text = next(s for s in _build.sources() if s.name == name).read_text()
+        assert '#include "ota_estimate.cuh"' in text
+    fused = next(s for s in _build.sources()
+                 if s.name == "ota_aggregate_fused.cu").read_text()
+    assert '#include "threefry.cuh"' in fused
+    for entry in ("ota_aggregate_f32", "ota_aggregate_fused_f32",
+                  "threefry_chunk_u32"):
+        assert entry in _build.SIGNATURES
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))

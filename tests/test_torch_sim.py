@@ -236,8 +236,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("gate", [
-    dict(faults=True), dict(use_pallas_ota=False)])
+    dict(faults=True), dict(faults=True, use_pallas_ota=False)])
 def test_unported_gates_refuse(gate):
+    """Faults are not ported: refused on the slab engines and on the
+    per-leaf oracle (which is ported and otherwise runs)."""
     with pytest.raises(ValueError, match="does not carry"):
         HotaSim(build_model(ModelConfig(family="mlp"), DIMS),
                 FLConfig(n_clusters=C, n_clients=N, **gate), TrainConfig(),
