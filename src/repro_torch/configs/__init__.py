@@ -1,0 +1,70 @@
+"""Architecture configs the port builds: the dense text family and the
+paper's MLP.
+
+Copied from the JAX package's ``repro.configs`` so the port depends on
+nothing there: ids, aliases, full-size ``CONFIG`` and reduced
+``SMOKE_CONFIG`` are the reference's. ``get_config(name)`` returns the
+full-size ``ModelConfig``, ``get_smoke_config(name)`` the reduced one.
+The reference's other architectures are listed with the ROADMAP item
+(Queue 1) that ports their family; asking for one raises.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.common.config import ModelConfig
+
+ARCH_IDS: List[str] = [
+    "starcoder2_3b",
+    "stablelm_3b",
+    "gemma3_12b",
+    "qwen2_5_14b",
+    "paper_mlp",
+]
+
+# the reference's architectures whose family the port does not build yet
+NOT_PORTED: Dict[str, str] = {
+    "musicgen_medium": "item 14 (audio and vision stub frontends)",
+    "phi3_vision_4_2b": "item 14 (audio and vision stub frontends)",
+    "zamba2_1_2b": "item 14 (mamba2, xlstm and hybrid)",
+    "xlstm_1_3b": "item 14 (mamba2, xlstm and hybrid)",
+    "phi3_5_moe_42b": "item 14 (MoE)",
+    "mixtral_8x22b": "item 14 (MoE)",
+}
+
+# CLI-friendly aliases, as in the reference
+ALIASES: Dict[str, str] = {
+    "starcoder2-3b": "starcoder2_3b",
+    "stablelm-3b": "stablelm_3b",
+    "musicgen-medium": "musicgen_medium",
+    "phi-3-vision-4.2b": "phi3_vision_4_2b",
+    "gemma3-12b": "gemma3_12b",
+    "zamba2-1.2b": "zamba2_1_2b",
+    "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b",
+    "xlstm-1.3b": "xlstm_1_3b",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "qwen2.5-14b": "qwen2_5_14b",
+    "paper-mlp": "paper_mlp",
+}
+
+
+def _module(name: str):
+    name = ALIASES.get(name, name)
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"architecture {name!r} is not ported yet: ROADMAP Queue 1 "
+            f"{NOT_PORTED[name]}")
+    if name not in ARCH_IDS:
+        raise ValueError(f"unknown architecture {name!r}; known: "
+                         f"{ARCH_IDS + sorted(NOT_PORTED)}")
+    return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    return _module(name).SMOKE_CONFIG
+

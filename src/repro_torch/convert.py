@@ -1,5 +1,5 @@
-"""Carry a JAX-package ``SimState``, or a ``ScenarioBank``'s banked
-state, across into the port.
+"""Carry a JAX-package ``SimState``, a ``ScenarioBank``'s banked state,
+or an LM's parameters across into the port.
 
 The caller turns the reference state into numpy first
 (``jax.tree.map(np.asarray, state)``); this module reads only those
@@ -14,6 +14,12 @@ numpy leaves, in the reference's field order, and never imports JAX::
 Fields beyond ``step`` (the fault-injection copies) must be None: the
 port's simulator does not carry faults yet. A bank's state is the same
 structure with a leading (S,) axis on every leaf.
+
+An LM's parameters (``init_params`` of the reference's ``trunk_specs``,
+``final_specs`` or ``head_specs``) are nested dicts with stacked layer
+dims (``layers``, or gemma3's ``local`` (n_super, r, ...) and ``global``
+(n_super, ...)); the port's dense model reads the same trees, so
+``lm_params_from_numpy`` only turns each leaf into a tensor.
 """
 from __future__ import annotations
 
@@ -35,6 +41,14 @@ def _tree(tree, device):
     if isinstance(tree, dict):
         return {k: _tree(v, device) for k, v in tree.items()}
     return _tensor(tree, device)
+
+
+def lm_params_from_numpy(params, device="cpu"):
+    """The port's copy of a reference LM parameter tree (numpy leaves):
+    the same nesting and stacked shapes, each leaf a float32 tensor."""
+    if isinstance(params, dict):
+        return {k: lm_params_from_numpy(v, device) for k, v in params.items()}
+    return _tensor(np.asarray(params, np.float32), device, torch.float32)
 
 
 def sim_state_from_numpy(state, device="cpu") -> SimState:

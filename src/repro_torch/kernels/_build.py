@@ -43,6 +43,7 @@ _PTR = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 _U32 = ctypes.c_uint32
+_F32 = ctypes.c_float
 # C entry points: name -> argtypes (every entry returns cudaGetLastError())
 SIGNATURES = {
     "ota_client_fold_f32": [_PTR, _PTR, _I64, _PTR, _PTR, _PTR, _PTR, _I64,
@@ -56,6 +57,10 @@ SIGNATURES = {
     "ota_aggregate_fused_f32": [_PTR, _I64, _U32, _U32, _U32, _U32, _PTR,
                                 _PTR, _PTR, _I64, _I32, _I32, _I32, _PTR],
     "threefry_chunk_u32": [_PTR, _I32, _U32, _I32, _PTR, _PTR],
+    "flash_attention_bf16": [_PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32,
+                             _I32, _I32, _F32, _PTR],
+    "flash_attention_f32": [_PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32,
+                            _I32, _I32, _F32, _PTR],
 }
 
 

@@ -1,13 +1,19 @@
-"""The paper's Table-I network (the ``mlp`` family), batched over clients.
+"""Model facade over the families the port builds: ``mlp`` and ``dense``.
 
-Port of the ``mlp`` family of ``repro.models.model``. The personalized-FL
-split of eq. (2) is structural: trunk ``fc0..fc3`` (shared) -> ``final``,
-the last shared layer ω̃ that FedGradNorm differentiates -> a per-client
-head padded to the largest class count. Every apply function accepts
-parameters with leading batch axes matching the input's (the simulator's
-(C, N) clients each hold their own copy) or without them (one shared
-copy broadcast over the batch), so the reference's (C, N) ``vmap`` is a
-batched matmul here.
+Port of ``repro.models.model``. The personalized-FL split of eq. (2) is
+structural: trunk (shared) -> ``final``, the last shared layer ω̃ that
+FedGradNorm differentiates -> a per-client head.
+
+* ``mlp``: the paper's Table-I network, batched over clients: trunk
+  ``fc0..fc3`` -> ``final`` -> a head padded to the largest class count.
+  Every apply function accepts parameters with leading batch axes
+  matching the input's (the simulator's (C, N) clients each hold their
+  own copy) or without them (one shared copy broadcast over the batch),
+  so the reference's (C, N) ``vmap`` is a batched matmul here.
+* ``dense``: the decoder LM of ``models/transformer.py`` (embedding and
+  stacked layers) -> final RMSNorm -> a vocab head with float32 logits,
+  for prefill and decode. MoE, SSM, xLSTM and hybrid families wait for
+  ROADMAP Queue 1, item 14.
 """
 from __future__ import annotations
 
@@ -17,6 +23,8 @@ from typing import Tuple
 import torch
 
 from repro_torch.common.config import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 from repro_torch.models.params import ParamSpec
 
 # paper Table I: shared network FC dims (input 256 -> ... -> 256 out)
@@ -34,43 +42,88 @@ class Model:
     dims: Tuple[int, ...] = field(default=PAPER_MLP_DIMS)
 
     def __post_init__(self):
-        if self.cfg.family != "mlp":
-            raise ValueError(f"the port builds only the 'mlp' family, got "
-                             f"{self.cfg.family!r}")
+        if self.cfg.family not in ("mlp", "dense"):
+            raise NotImplementedError(
+                f"the port builds the 'mlp' and 'dense' families, got "
+                f"{self.cfg.family!r} (ROADMAP Queue 1, item 14)")
+
+    @property
+    def is_lm(self) -> bool:
+        return self.cfg.family == "dense"
 
     # ---------------- specs ----------------
     def trunk_specs(self):
+        if self.is_lm:
+            return T.dense_trunk_specs(self.cfg)
         d = self.dims
         return {f"fc{i}": {"w": ParamSpec((d[i], d[i + 1])),
                            "b": ParamSpec((d[i + 1],), "zeros")}
                 for i in range(len(d) - 2)}   # all but the last FC
 
     def final_specs(self):
+        if self.is_lm:
+            return T.final_specs(self.cfg)
         d = self.dims
         return {"w": ParamSpec((d[-2], d[-1])),
                 "b": ParamSpec((d[-1],), "zeros")}
 
-    def head_specs(self, n_out: int):
+    def head_specs(self, n_out=None):
+        if self.is_lm:
+            return {"w": ParamSpec((self.cfg.d_model,
+                                    n_out or self.cfg.vocab_size))}
         return {"w": ParamSpec((self.dims[-1], n_out)),
                 "b": ParamSpec((n_out,), "zeros")}
 
+    def backbone_specs(self):
+        return {"trunk": self.trunk_specs(), "final": self.final_specs()}
+
     # ---------------- apply ----------------
-    def trunk_apply(self, params, inputs: torch.Tensor) -> torch.Tensor:
-        h = inputs
-        for i in range(len(self.dims) - 2):
-            h = torch.relu(_dense(h, params[f"fc{i}"]))
-        return h
+    def trunk_apply(self, params, inputs: torch.Tensor, *, positions=None,
+                    mode: str = "prefill", cache=None, cache_len=None):
+        """``mlp``: the trunk's features. ``dense``: (hidden, aux,
+        new_cache) as in the reference."""
+        if not self.is_lm:
+            h = inputs
+            for i in range(len(self.dims) - 2):
+                h = torch.relu(_dense(h, params[f"fc{i}"]))
+            return h
+        if positions is None:
+            positions = torch.arange(inputs.shape[1], device=inputs.device)
+        return T.dense_trunk_apply(params, inputs, self.cfg,
+                                   positions=positions, mode=mode,
+                                   cache=cache, cache_len=cache_len)
 
     def final_apply(self, params, hidden: torch.Tensor) -> torch.Tensor:
+        if self.is_lm:
+            return L.rms_norm(hidden, params["norm"], self.cfg.norm_eps)
         return torch.relu(_dense(hidden, params))
 
     def head_apply(self, params, features: torch.Tensor) -> torch.Tensor:
+        if self.is_lm:   # logits in float32
+            return (features @ params["w"].to(features.dtype)).float()
         return _dense(features, params)
 
     def features(self, omega, inputs: torch.Tensor) -> torch.Tensor:
-        """final(trunk(x)): the shared network's output."""
+        """final(trunk(x)): the shared network's output (``mlp``)."""
         return self.final_apply(omega["final"],
                                 self.trunk_apply(omega["trunk"], inputs))
+
+    # ---------------- LM serving ----------------
+    def init_cache(self, batch: int, cache_len: int, dtype=torch.bfloat16,
+                   device="cpu"):
+        if not self.is_lm:
+            raise ValueError("the mlp family has no cache")
+        return T.init_dense_cache(self.cfg, batch, cache_len, dtype, device)
+
+    def forward_logits(self, backbone_params, head_params, inputs, *,
+                       positions=None, mode="prefill", cache=None,
+                       cache_len=None):
+        """(logits, aux, new_cache)."""
+        h, aux, new_cache = self.trunk_apply(
+            backbone_params["trunk"], inputs, positions=positions, mode=mode,
+            cache=cache, cache_len=cache_len)
+        feats = self.final_apply(backbone_params["final"], h)
+        return self.head_apply(head_params, feats), aux, new_cache
 
 
 def build_model(cfg: ModelConfig, dims: Tuple[int, ...] = PAPER_MLP_DIMS

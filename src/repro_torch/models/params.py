@@ -3,9 +3,11 @@
 Port of ``repro.models.params`` for the shapes the port builds: a spec
 tree (nested dicts of ``ParamSpec``) gives the parameter shapes and how
 each leaf is initialized. Draws come from an explicit ``torch.Generator``
-and are scaled by 1/√fan_in like the reference; they are not the
-reference's numbers (``jax.random.normal`` goes through erfinv), so tests
-pass weights across instead of redrawing them.
+and are scaled like the reference (1/√fan_in, or 1.0 for an ``embed``
+table); they are not the reference's numbers (``jax.random.normal`` goes
+through erfinv), so tests pass weights across instead of redrawing them.
+A generator on the card draws there: a 3.2 B-parameter model's 12.7 GB
+of float32 never passes through host memory.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from repro_torch.common.tree import tree_leaves, tree_unflatten
 @dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
-    init: str = "normal"           # normal | zeros | ones
+    init: str = "normal"           # normal | zeros | ones | embed
     scale: Optional[float] = None  # stddev override; default 1/√fan_in
 
 
@@ -36,20 +38,29 @@ def init_params(specs, generator: torch.Generator, batch_shape=(),
                 device="cpu"):
     """Materialize a spec tree as float32 tensors of shape
     ``batch_shape + spec.shape``. Draws run on the generator's device (the
-    host for a CPU generator) and then move to ``device``, so a seed gives
-    the same weights on every device."""
+    host for a CPU generator) and then move to ``device``, so a CPU
+    generator's seed gives the same weights on every device."""
     out = []
     for spec in tree_leaves(specs):
         shape = tuple(batch_shape) + tuple(spec.shape)
         if spec.init == "zeros":
-            arr = torch.zeros(shape, dtype=torch.float32)
+            arr = torch.zeros(shape, dtype=torch.float32, device=device)
         elif spec.init == "ones":
-            arr = torch.ones(shape, dtype=torch.float32)
+            arr = torch.ones(shape, dtype=torch.float32, device=device)
         else:
-            std = (spec.scale if spec.scale is not None
-                   else 1.0 / math.sqrt(max(_fan_in(spec.shape), 1)))
+            if spec.scale is not None:
+                std = spec.scale
+            elif spec.init == "embed":
+                std = 1.0
+            else:
+                std = 1.0 / math.sqrt(max(_fan_in(spec.shape), 1))
             arr = torch.randn(shape, generator=generator,
-                              dtype=torch.float32) * std
-        out.append(arr.to(device))
+                              dtype=torch.float32, device=generator.device)
+            arr = arr.mul_(std).to(device)
+        out.append(arr)
     return tree_unflatten(specs, out)
+
+
+def param_count(specs) -> int:
+    return sum(math.prod(s.shape) for s in tree_leaves(specs))
 

@@ -1,0 +1,309 @@
+"""Dense decoder backbone: GQA + RoPE + SwiGLU/GELU, stacked layers.
+
+Port of ``repro.models.transformer`` for inference (``prefill`` and
+``decode``). Covers starcoder2 (sliding window), stablelm, qwen2.5 (qkv
+bias) and gemma3's local:global pattern (stacks ``local`` of shape
+(n_super, r, ...) and ``global`` of shape (n_super, ...)). MoE layers
+are refused (ROADMAP Queue 1, item 14).
+
+Parameters are the reference's stacked trees: every leaf of
+``layers`` carries a leading layer dim, and the layer loop indexes it
+(a view, no copy). Weights stay in ``param_dtype`` (float32) and are
+cast to the compute dtype where they are used, as in the reference.
+
+Caches: dicts of stacked tensors
+    {"k": (L, B, C, KV, D), "v": ..., "pos": (L, B, C)} with pos[.., b,
+    slot] = absolute position held by that slot (-1 = empty). Windowed
+    layers use a ring buffer of capacity min(window, cache_len), full
+    layers capacity cache_len. Prefill returns new caches; decode writes
+    the incoming token into the caller's cache in place (the reference
+    returns an updated copy) and returns it.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from repro_torch.common.config import ModelConfig
+from repro_torch.common.tree import tree_leaves, tree_map
+from repro_torch.models import layers as L
+from repro_torch.models.params import ParamSpec
+
+
+# --------------------------------------------------------------------------
+# param specs
+# --------------------------------------------------------------------------
+
+def _stack(specs, n: int):
+    """Prepend a stacking dim of size ``n`` to every spec in a tree."""
+    return tree_map(lambda s: ParamSpec((n,) + s.shape, s.init, s.scale),
+                    specs)
+
+
+def attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, h, kv, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                    cfg.resolved_head_dim)
+    specs = {
+        "norm": ParamSpec((d,), "zeros"),
+        "wq": ParamSpec((d, h, hd)),
+        "wk": ParamSpec((d, kv, hd)),
+        "wv": ParamSpec((d, kv, hd)),
+        "wo": ParamSpec((h, hd, d)),
+    }
+    if cfg.qkv_bias:
+        specs["bq"] = ParamSpec((h, hd), "zeros")
+        specs["bk"] = ParamSpec((kv, hd), "zeros")
+        specs["bv"] = ParamSpec((kv, hd), "zeros")
+    return specs
+
+
+def mlp_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, f = cfg.d_model, cfg.d_ff
+    specs = {
+        "norm": ParamSpec((d,), "zeros"),
+        "w_up": ParamSpec((d, f)),
+        "w_down": ParamSpec((f, d)),
+    }
+    if cfg.mlp_act == "silu":
+        specs["w_gate"] = ParamSpec((d, f))
+    return specs
+
+
+def dense_layer_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    if cfg.moe is not None:
+        raise NotImplementedError("MoE layers are not ported yet (ROADMAP "
+                                  "Queue 1, item 14: MoE)")
+    return {"attn": attn_specs(cfg), "mlp": mlp_specs(cfg)}
+
+
+def _super_blocks(cfg: ModelConfig) -> int:
+    r = cfg.local_global_ratio
+    n_super = cfg.n_layers // (r + 1)
+    if n_super * (r + 1) != cfg.n_layers:
+        raise ValueError(f"n_layers {cfg.n_layers} is not a multiple of "
+                         f"local_global_ratio + 1 = {r + 1}")
+    return n_super
+
+
+def dense_trunk_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    specs: Dict[str, Any] = {
+        "embed": ParamSpec((cfg.vocab_size, cfg.d_model), "embed"),
+    }
+    if cfg.local_global_ratio:
+        r, n_super = cfg.local_global_ratio, _super_blocks(cfg)
+        specs["local"] = _stack(_stack(dense_layer_specs(cfg), r), n_super)
+        specs["global"] = _stack(dense_layer_specs(cfg), n_super)
+    else:
+        specs["layers"] = _stack(dense_layer_specs(cfg), cfg.n_layers)
+    return specs
+
+
+def final_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    """The 'last shared layer' ω̃ that FedGradNorm differentiates."""
+    return {"norm": ParamSpec((cfg.d_model,), "zeros")}
+
+
+# --------------------------------------------------------------------------
+# attention block apply
+# --------------------------------------------------------------------------
+
+def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig):
+    """q (B, S, H, D), k and v (B, S, KV, D): one matmul each over the
+    flattened (heads, head_dim) columns."""
+    def proj(w, b=None):
+        d, n, hd = w.shape
+        y = (x @ w.reshape(d, n * hd).to(x.dtype)).unflatten(-1, (n, hd))
+        return y if b is None else y + b.to(x.dtype)
+    return (proj(p["wq"], p.get("bq")), proj(p["wk"], p.get("bk")),
+            proj(p["wv"], p.get("bv")))
+
+
+def _prefill_cache(k, v, positions, window, cache_len, batch):
+    """The layer's cache after a prefill: the last min(cap, S) positions in
+    ring order by absolute position (window) or in order (full), padded
+    to the capacity with zeros and pos = -1."""
+    s = k.shape[1]
+    total = cache_len if cache_len is not None else s + 1
+    cap = min(window, total) if window is not None else total
+    keep = min(cap, s)
+    k_tail, v_tail = k[:, s - keep:], v[:, s - keep:]
+    pos_tail = positions[s - keep:]
+    if window is not None:
+        order = torch.argsort(pos_tail % cap)
+        k_tail, v_tail, pos_tail = k_tail[:, order], v_tail[:, order], \
+            pos_tail[order]
+    pos_tail = pos_tail.to(torch.int32).expand(batch, keep)
+    pad = cap - keep
+    if pad > 0:
+        k_tail = torch.cat([k_tail, k_tail.new_zeros(
+            (batch, pad) + tuple(k_tail.shape[2:]))], dim=1)
+        v_tail = torch.cat([v_tail, v_tail.new_zeros(
+            (batch, pad) + tuple(v_tail.shape[2:]))], dim=1)
+        pos_tail = torch.cat([pos_tail, pos_tail.new_full((batch, pad), -1)],
+                             dim=1)
+    return {"k": k_tail.contiguous(), "v": v_tail.contiguous(),
+            "pos": pos_tail.contiguous()}
+
+
+def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, *, positions,
+               window: Optional[int], theta: float, mode: str,
+               cache: Optional[Dict[str, torch.Tensor]] = None,
+               cache_len: Optional[int] = None):
+    """Pre-norm attention block; returns (x + attn(x), cache).
+
+    ``positions`` is (S,) in prefill and the (B,) absolute positions of
+    the incoming tokens in decode."""
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(f"mode {mode!r}: the port runs prefill "
+                                  f"and decode (training is ROADMAP Queue "
+                                  f"1, item 14)")
+    h = L.rms_norm(x, p["norm"], 1e-6)
+    q, k, v = _project_qkv(p, h, cfg)
+    if mode == "decode":
+        q = L.apply_rope(q, positions[:, None], theta)
+        k = L.apply_rope(k, positions[:, None], theta)
+        cap = cache["k"].shape[1]
+        slot = positions % cap if window is not None else positions
+        slot = slot.clamp(0, cap - 1)
+        bidx = torch.arange(x.shape[0], device=x.device)
+        cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
+        cache["pos"][bidx, slot] = positions.to(cache["pos"].dtype)
+        out = L.decode_attention(q, cache["k"], cache["v"], pos_q=positions,
+                                 pos_kv=cache["pos"], window=window)
+        new_cache = cache
+    else:
+        q = L.apply_rope(q, positions[None, :], theta)
+        k = L.apply_rope(k, positions[None, :], theta)
+        out = L.attention(q, k, v, pos_q=positions, pos_kv=positions,
+                          impl=cfg.attn_impl, window=window)
+        new_cache = _prefill_cache(k, v, positions, window, cache_len,
+                                   x.shape[0])
+    wo = p["wo"]
+    y = out.flatten(-2) @ wo.reshape(-1, wo.shape[-1]).to(x.dtype)
+    return x + y, new_cache
+
+
+def mlp_block_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = L.rms_norm(x, p["norm"], 1e-6)
+    w = {k: v.to(x.dtype) for k, v in p.items() if k != "norm"}
+    return x + L.mlp_apply(w, h, cfg.mlp_act)
+
+
+def dense_layer_apply(p, x, cfg: ModelConfig, *, positions, window, theta,
+                      mode, cache=None, cache_len=None):
+    """Returns (x, new_cache); a dense layer has no auxiliary loss."""
+    x, new_cache = attn_apply(p["attn"], x, cfg, positions=positions,
+                              window=window, theta=theta, mode=mode,
+                              cache=cache, cache_len=cache_len)
+    return mlp_block_apply(p["mlp"], x, cfg), new_cache
+
+
+# --------------------------------------------------------------------------
+# trunk forward (a loop over stacked layers)
+# --------------------------------------------------------------------------
+
+def _index(tree, i: int):
+    """Layer ``i`` of a stacked tree (views, no copies)."""
+    return tree_map(lambda t: t[i], tree)
+
+
+def _stack_caches(caches: List[Dict[str, torch.Tensor]]):
+    return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+
+
+def _run_stack(layer_fn, stack_params, x, cache, mode: str):
+    """Run ``layer_fn(lp, h, c) -> (h, c)`` over a stacked param tree
+    (and, in decode, the matching stacked cache). Returns (x, new_cache);
+    prefill stacks the layers' caches, decode returns the updated input
+    cache."""
+    n = tree_leaves(stack_params)[0].shape[0]
+    caches = []
+    for i in range(n):
+        c = _index(cache, i) if mode == "decode" else None
+        x, c2 = layer_fn(_index(stack_params, i), x, c)
+        caches.append(c2)
+    if mode == "decode":
+        return x, cache
+    return x, _stack_caches(caches)
+
+
+def _cdt(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+def dense_trunk_apply(params, tokens_or_embeds, cfg: ModelConfig, *,
+                      positions, mode: str = "prefill", cache=None,
+                      cache_len=None):
+    """Returns (hidden_pre_final, aux_loss, new_cache), aux_loss 0 as no
+    ported layer has one."""
+    if torch.is_floating_point(tokens_or_embeds):
+        x = tokens_or_embeds.to(_cdt(cfg))
+    else:   # gather, then cast: the same numbers as casting the table
+        x = params["embed"][tokens_or_embeds].to(_cdt(cfg))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    if cfg.local_global_ratio:
+        theta_g = cfg.rope_theta_global or cfg.rope_theta
+        n_super = _super_blocks(cfg)
+
+        def local_fn(lp, h, c):
+            return dense_layer_apply(lp, h, cfg, positions=positions,
+                                     window=cfg.local_window,
+                                     theta=cfg.rope_theta, mode=mode,
+                                     cache=c, cache_len=cache_len)
+
+        def global_fn(lp, h, c):
+            return dense_layer_apply(lp, h, cfg, positions=positions,
+                                     window=None, theta=theta_g, mode=mode,
+                                     cache=c, cache_len=cache_len)
+
+        loc, glob = [], []
+        for si in range(n_super):
+            c_l = _index(cache["local"], si) if mode == "decode" else None
+            x, nc_l = _run_stack(local_fn, _index(params["local"], si), x,
+                                 c_l, mode)
+            c_g = _index(cache["global"], si) if mode == "decode" else None
+            x, nc_g = global_fn(_index(params["global"], si), x, c_g)
+            loc.append(nc_l)
+            glob.append(nc_g)
+        if mode == "decode":
+            return x, aux, cache
+        return x, aux, {"local": _stack_caches(loc),
+                        "global": _stack_caches(glob)}
+
+    def layer_fn(lp, h, c):
+        return dense_layer_apply(lp, h, cfg, positions=positions,
+                                 window=cfg.sliding_window,
+                                 theta=cfg.rope_theta, mode=mode, cache=c,
+                                 cache_len=cache_len)
+    x, new_cache = _run_stack(layer_fn, params["layers"], x, cache, mode)
+    return x, aux, new_cache
+
+
+# --------------------------------------------------------------------------
+# cache construction
+# --------------------------------------------------------------------------
+
+def init_dense_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                     dtype=torch.bfloat16, device="cpu"):
+    """Empty stacked cache for decode from scratch."""
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+
+    def one(lead, window):
+        cap = min(window, cache_len) if window is not None else cache_len
+        return {
+            "k": torch.zeros(lead + (batch, cap, kv, hd), dtype=dtype,
+                             device=device),
+            "v": torch.zeros(lead + (batch, cap, kv, hd), dtype=dtype,
+                             device=device),
+            "pos": torch.full(lead + (batch, cap), -1, dtype=torch.int32,
+                              device=device),
+        }
+
+    if cfg.local_global_ratio:
+        r, n_super = cfg.local_global_ratio, _super_blocks(cfg)
+        return {"local": one((n_super, r), cfg.local_window),
+                "global": one((n_super,), None)}
+    return one((cfg.n_layers,), cfg.sliding_window)

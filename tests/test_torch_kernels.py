@@ -153,9 +153,9 @@ def test_wrappers_refuse_other_devices():
 
 def test_kernel_sources_and_build_without_nvcc(monkeypatch, tmp_path):
     names = sorted(s.name for s in _build.sources())
-    assert names == ["masked_gradnorm.cu", "ota_aggregate.cu",
-                     "ota_aggregate_fused.cu", "ota_client_fold.cu",
-                     "ota_mask_weight.cu"]
+    assert names == ["flash_attention.cu", "masked_gradnorm.cu",
+                     "ota_aggregate.cu", "ota_aggregate_fused.cu",
+                     "ota_client_fold.cu", "ota_mask_weight.cu"]
     assert sorted(h.name for h in _build.headers()) == [
         "ota_estimate.cuh", "threefry.cuh"]
     for src in _build.sources():
@@ -169,7 +169,8 @@ def test_kernel_sources_and_build_without_nvcc(monkeypatch, tmp_path):
                  if s.name == "ota_aggregate_fused.cu").read_text()
     assert '#include "threefry.cuh"' in fused
     for entry in ("ota_aggregate_f32", "ota_aggregate_fused_f32",
-                  "threefry_chunk_u32"):
+                  "threefry_chunk_u32", "flash_attention_bf16",
+                  "flash_attention_f32"):
         assert entry in _build.SIGNATURES
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

@@ -1,0 +1,245 @@
+"""The port's dense LM serving path against the JAX package's, on the
+smoke configs of the dense text family.
+
+Both sides run ``attn_impl="pallas"``: JAX's flash attention kernel in
+interpret mode (as its suite runs it on the CPU), the port's K8 through
+its plain version. The reference's ``init_params`` weights are carried
+across with ``repro_torch.convert``. Prefill logits, every cache leaf and
+each of 4 decode steps agree to rtol 1e-4 (float32 compute; the two
+libraries sum in other orders); greedy tokens agree exactly.
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_config
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro.launch.steps import (
+    make_decode_step as jax_decode_step, make_prefill_step as jax_prefill_step,
+)
+from repro.models import build_model as jax_build_model
+from repro.models import init_params as jax_init_params
+from repro_torch import configs
+from repro_torch.common.tree import tree_flatten_with_path
+from repro_torch.convert import lm_params_from_numpy
+from repro_torch.kernels.flash_attention import ops as k8
+from repro_torch.launch import serve as serve_mod
+from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.models.model import build_model
+
+ARCHS = ["starcoder2_3b", "stablelm_3b", "qwen2_5_14b", "gemma3_12b"]
+B, S, STEPS = 2, 40, 4          # S=40 crosses the smoke windows of 32
+CACHE_LEN = S + STEPS + 1
+RTOL, ATOL = 1e-4, 1e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several worker processes."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@functools.lru_cache(maxsize=None)
+def reference(arch):
+    """The reference's weights, prompt, prefill and 4 greedy decode steps
+    (numpy), with the kernel attention."""
+    cfg = jax_smoke_config(arch).replace(attn_impl="pallas")
+    m = jax_build_model(cfg)
+    backbone = jax_init_params(m.backbone_specs(), jax.random.PRNGKey(0))
+    head = jax_init_params(m.head_specs(), jax.random.PRNGKey(1))
+    r = np.random.default_rng(len(arch))
+    tokens = r.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+    prefill_full = jax.jit(lambda bb, hd, t: m.forward_logits(
+        bb, hd, t, positions=jnp.arange(t.shape[1]), mode="prefill",
+        cache_len=CACHE_LEN))
+    logits, _, cache = prefill_full(backbone, head, jnp.asarray(tokens))
+    last, cache_step = jax.jit(jax_prefill_step(m, cache_len=CACHE_LEN))(
+        backbone, head, jnp.asarray(tokens))
+    decode = jax.jit(jax_decode_step(m))
+    nxt = jnp.argmax(last, axis=-1).astype(jnp.int32)
+    toks, steps = [np.asarray(nxt)], []
+    pos = jnp.full((B,), S, jnp.int32)
+    c = cache_step
+    for _ in range(STEPS):
+        nxt, lg, c = decode(backbone, head, c, nxt[:, None], pos)
+        steps.append((np.asarray(lg), _np(c)))
+        toks.append(np.asarray(nxt))
+        pos = pos + 1
+    return {"backbone": _np(backbone), "head": _np(head),
+            "tokens": tokens, "logits": np.asarray(logits),
+            "cache": _np(cache), "last": np.asarray(last),
+            "steps": steps, "greedy": np.stack(toks, axis=1)}
+
+
+def _port(arch):
+    ref = reference(arch)
+    cfg = configs.get_smoke_config(arch).replace(attn_impl="pallas")
+    model = build_model(cfg)
+    return (ref, model, lm_params_from_numpy(ref["backbone"]),
+            lm_params_from_numpy(ref["head"]))
+
+
+def _check_cache(got, want, where):
+    flat_g = {"/".join(p): v for p, v in tree_flatten_with_path(got)}
+    flat_w = {"/".join(p): v for p, v in tree_flatten_with_path(want)}
+    assert flat_g.keys() == flat_w.keys(), where
+    for name, w in flat_w.items():
+        g = flat_g[name].numpy()
+        assert g.shape == w.shape, (where, name)
+        if name.endswith("pos"):
+            np.testing.assert_array_equal(g, w, err_msg=f"{where} {name}")
+        else:
+            np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL,
+                                       err_msg=f"{where} {name}")
+
+
+def test_smoke_configs_are_the_references():
+    for arch in ARCHS:
+        for port, ref in ((configs.get_config, jax_config),
+                          (configs.get_smoke_config, jax_smoke_config)):
+            assert dataclasses.asdict(port(arch)) == \
+                dataclasses.asdict(ref(arch))
+    assert configs.get_config("paper-mlp").family == "mlp"
+    with pytest.raises(NotImplementedError, match="MoE"):
+        configs.get_config("mixtral-8x22b")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        configs.get_smoke_config("zamba2-1.2b")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_logits_and_caches_match_jax(arch):
+    ref, model, backbone, head = _port(arch)
+    tokens = torch.from_numpy(ref["tokens"]).long()
+    logits, _, cache = model.forward_logits(
+        backbone, head, tokens, positions=torch.arange(S), mode="prefill",
+        cache_len=CACHE_LEN)
+    np.testing.assert_allclose(logits.numpy(), ref["logits"], rtol=RTOL,
+                               atol=ATOL)
+    _check_cache(cache, ref["cache"], "prefill")
+    # the serve step's last-position-only head gives the same logits
+    last, _ = make_prefill_step(model, cache_len=CACHE_LEN)(backbone, head,
+                                                            tokens)
+    np.testing.assert_allclose(last.numpy(), ref["last"], rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_steps_match_jax(arch):
+    ref, model, backbone, head = _port(arch)
+    _, cache = make_prefill_step(model, cache_len=CACHE_LEN)(
+        backbone, head, torch.from_numpy(ref["tokens"]).long())
+    decode = make_decode_step(model)
+    pos = torch.full((B,), S, dtype=torch.int32)
+    for i, (want_logits, want_cache) in enumerate(ref["steps"]):
+        tok = torch.from_numpy(ref["greedy"][:, i:i + 1]).long()
+        nxt, logits, cache = decode(backbone, head, cache, tok, pos)
+        np.testing.assert_allclose(logits.numpy(), want_logits, rtol=RTOL,
+                                   atol=ATOL, err_msg=f"step {i}")
+        _check_cache(cache, want_cache, f"step {i}")
+        np.testing.assert_array_equal(nxt.numpy(), ref["greedy"][:, i + 1])
+        pos = pos + 1
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_greedy_tokens_match_jax(arch):
+    ref, _, backbone, head = _port(arch)
+    before = k8.counter.count
+    res = serve_mod.serve(configs.get_smoke_config(arch), B, S, STEPS + 1,
+                          device="cpu", weights=(backbone, head),
+                          prompt=torch.from_numpy(ref["tokens"]).long(),
+                          log=lambda msg: None)
+    np.testing.assert_array_equal(res.tokens.numpy(), ref["greedy"])
+    np.testing.assert_allclose(res.prefill_logits.numpy(), ref["last"],
+                               rtol=RTOL, atol=ATOL)
+    assert len(res.decode_s) == STEPS
+    assert k8.counter.count == before    # CPU: K8's plain version
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_then_decode_equals_longer_prefill(arch):
+    """prefill(S) + decode(1) must agree with prefill(S + 1)."""
+    ref, model, backbone, head = _port(arch)
+    tokens = torch.from_numpy(ref["tokens"]).long()
+    extra = torch.from_numpy(ref["greedy"][:, :1]).long()
+    full, _, _ = model.forward_logits(
+        backbone, head, torch.cat([tokens, extra], dim=1), mode="prefill")
+    _, cache = make_prefill_step(model, cache_len=CACHE_LEN)(backbone, head,
+                                                            tokens)
+    _, dec, _ = make_decode_step(model)(backbone, head, cache, extra,
+                                        torch.full((B,), S,
+                                                   dtype=torch.int32))
+    np.testing.assert_allclose(dec.numpy(), full[:, -1].numpy(), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_causality(arch):
+    """Changing a future token must not change past logits."""
+    ref, model, backbone, head = _port(arch)
+    tokens = torch.from_numpy(ref["tokens"]).long()
+    mutated = tokens.clone()
+    mutated[:, -1] = (mutated[:, -1] + 1) % model.cfg.vocab_size
+    a, _, _ = model.forward_logits(backbone, head, tokens, mode="prefill")
+    b, _, _ = model.forward_logits(backbone, head, mutated, mode="prefill")
+    np.testing.assert_array_equal(a[:, :-1].numpy(), b[:, :-1].numpy())
+    assert not np.array_equal(a[:, -1].numpy(), b[:, -1].numpy())
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_cache_matches_jax(arch):
+    """An empty cache has the reference's leaves, shapes and dtypes, and a
+    decode step from it matches the reference's decode from scratch."""
+    ref, model, backbone, head = _port(arch)
+    jm = jax_build_model(jax_smoke_config(arch).replace(attn_impl="pallas"))
+    want = _np(jm.init_cache(B, 9, jnp.float32))
+    got = model.init_cache(B, 9, torch.float32)
+    _check_cache(got, want, "init")
+    tok = ref["tokens"][:, :1]
+    pos = np.zeros((B,), np.int32)
+    _, want_logits, want_cache = jax.jit(jax_decode_step(jm))(
+        jax.tree.map(jnp.asarray, ref["backbone"]),
+        jax.tree.map(jnp.asarray, ref["head"]), jax.tree.map(
+            jnp.asarray, want), jnp.asarray(tok), jnp.asarray(pos))
+    _, logits, cache = make_decode_step(model)(
+        backbone, head, got, torch.from_numpy(tok).long(),
+        torch.from_numpy(pos))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(want_logits),
+                               rtol=RTOL, atol=ATOL)
+    _check_cache(cache, _np(want_cache), "decode from scratch")
+
+
+def test_bf16_compute_runs_the_cache_in_bf16():
+    cfg = configs.get_smoke_config("starcoder2_3b").replace(
+        compute_dtype="bfloat16")
+    res = serve_mod.serve(cfg, 1, 36, 3, seed=3, device="cpu",
+                          log=lambda msg: None)
+    assert res.tokens.shape == (1, 3)
+    assert torch.isfinite(res.last_logits).all()
+    model = serve_mod.serving_model(cfg)
+    backbone, head = serve_mod.init_weights(model, 3, "cpu")
+    _, cache = make_prefill_step(model, cache_len=40)(
+        backbone, head, serve_mod.draw_prompt(cfg, 1, 36, 3))
+    assert cache["k"].dtype == torch.bfloat16
+    assert cache["k"].shape == (2, 1, 32, 2, 32)   # ring of the window
+
+
+def test_serve_on_cuda_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_mod.serve(configs.get_smoke_config("stablelm_3b"), 1, 4, 2,
+                        device="cuda", log=lambda msg: None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_mod.main(["--arch", "stablelm-3b", "--batch", "1",
+                        "--prefill-len", "4", "--decode-steps", "2"])
