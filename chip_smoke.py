@@ -117,15 +117,51 @@ imports only ``repro_torch`` (never ``jax`` or the JAX package) and runs:
    decode(1) against prefill(8193) (relative L2 of the logits 2e-2, the
    argmax rule above).
 
+17. K6 ``ota_mask_count`` against its plain version on the card at the
+   Table-I MLP's 3,936,512 entries, at C = 2 and C = 10 clusters, in the
+   default, dead-cluster, ``ota_on=0`` and both cases, for the first and
+   the last cluster (``out`` and ``cnt`` equal bit for bit); its time
+   beside the byte bound (12 + 4C) B per entry and its plain version's;
+18. K7 ``ota_channel`` (``ops.ota_channel``: the padded slab's words drawn
+   on the card) against its plain version at the same width for σ² 0.5,
+   1 and 2 and ``ota_on=0``: masks equal except within ``MASK_ULPS`` ulp
+   of H_th, ``out`` equal where they agree; its time beside its bound
+   (16 B per entry against one log, cos and sqrt per entry on the SFUs);
+19. the distributed step (``core.hota_step.make_hota_train_step``) at full
+   width: the Table-I MLP on a (2 clusters x 2 clients) mesh of four
+   ranks sharing ``cuda:0`` (``launch.mesh.run_ranks``: spawned processes,
+   gloo on the ranks' CUDA tensors; first a probe that gloo runs
+   all-gather and reduce-scatter on CUDA tensors and right, each timed
+   beside the same call staged through host tensors),
+   default ``FLConfig`` (σ² = 1, H_th = 0.032, FedGradNorm), ``DIST_STEPS``
+   steps in each count mode with every counter set to 0 just before and
+   read just after in every rank (``DIST_LEAVES`` K6 launches per rank per
+   step in "local", as many K5 in "psum", nothing else); the two modes
+   equal bit for bit; both against the same steps on four CPU ranks
+   (metrics and each rank's p rtol 1e-4, ω relative L2 1e-3); the slab
+   backward on shared keys against ``packed_omega_aggregate_ref`` (rtol
+   2e-5, atol 1e-6);
+   the median step (host clock, every rank synchronized and at a
+   barrier), and one step's split into collectives, stream draws and the
+   rest (``MeshStats``), and each rank's peak device memory;
+20. the packed ω̃ gather (``make_packed_final_gather``) and
+   ``packed_final_norm`` on the same ranks, counters set to 0 just before
+   and read just after (2 K7 launches per rank), ĝ against the CPU ranks'
+   (relative L2 1e-4, at most 16 entries off by more than rtol 1e-4: K7's
+   masks may flip within a few ulp of H_th between the two devices' log
+   and cos), the masked norms rtol 1e-5.
+
 Any failure exits non-zero. The line before last is the card's name and
-power limit, the one before it the kernels' JSON (K1, K2, K5, K3, K4 and
-K8; each kernel's ``launches`` sums its counts over the main-path runs of
-phases 5, 9, 11, 12, 13 and 16); the last line is
+power limit, the one before it the kernels' JSON (K1, K2, K5, K3, K4, K8,
+K6 and K7; each kernel's ``launches`` sums its counts over the main-path
+runs of phases 5, 9, 11, 12, 13, 16, 19 and 20, over all ranks); the last
+line is
 ``{"ok": true, "device": {...}}``. An earlier ``[record]`` line holds every
 number measured, as JSON.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -179,11 +215,53 @@ PREFILL_DECODE_LIMIT = 2e-2   # prefill(S)+decode(1) vs prefill(S+1), bf16
 K8_ROW_LIMIT = 1e-2           # bf16 K8 vs plain, relative L2 of each (s, h)
                               # row over D; bf16 output rounding is ~2e-3
 
+# phases 17-20: the distributed step (Table-I MLP, 2 clusters x 2 clients)
+TABLE_I_PARAMS = 3_936_512    # the MLP's parameters, 10 leaves
+SFU_LANES_PER_SM = 16         # Hopper: transcendental results per SM clock
+DIST_SHAPE = (2, 2)           # (cluster, client): four ranks on one card
+DIST_BATCH = 24               # examples per client
+DIST_CLASSES = 8              # head width
+DIST_STEPS = 3                # counted steps per count mode
+DIST_TIMED_STEPS = 5          # timed steps per count mode
+DIST_LEAVES = 10              # K6 (or K5) launches per rank per step
+CPU_RANK_THREADS = 2          # intra-op threads of each CPU rank
+
 
 def _profile_acts():
     import torch
     return [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+
+
+TRACE_MARGIN_S = 0.1     # idle host time before and after a traced body
+TRACE_SPACERS = 256      # 1-cycle spacer kernels that open every trace
+SPACER_KERNEL = "spin_kernel"    # the kernel of ``torch.cuda._sleep``
+
+
+@contextlib.contextmanager
+def device_trace():
+    """A ``torch.profiler`` trace (host and CUDA activity) of the body,
+    opened by ``TRACE_SPACERS`` spacer kernels and with ``TRACE_MARGIN_S``
+    of idle host time before and after the body.
+
+    On an H100 the profiler dropped kernel records of short traces. In a
+    fresh process one trace in 40 placed its kernels up to 2.2 ms before
+    their launches and lost the first ones (``python -m
+    repro_torch.kernels.trace_probe``); the margins keep such records
+    inside the trace. Late in this script, traces of 50 launches kept
+    58-72 % of their records with or without the margins, and one kept
+    none in 3 tries; opened by the spacers, every trace kept them all.
+    ``device_events`` leaves the spacers out.
+    """
+    import torch
+    with torch.profiler.profile(activities=_profile_acts()) as prof:
+        time.sleep(TRACE_MARGIN_S)
+        for _ in range(TRACE_SPACERS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
 
 
 def fail(msg: str) -> None:
@@ -212,29 +290,31 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 def device_events(prof):
-    """The profiler's device-side events (kernels and copies), by name."""
+    """The profiler's device-side events (kernels and copies), by name,
+    without ``device_trace``'s spacers."""
     import torch
     return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and SPACER_KERNEL not in e.key]
 
 
 def device_ms(fn, iters: int) -> float:
     """Device time per call of ``fn``: the kernel and copy time the
     profiler records over ``iters`` calls, without the host's launch gaps.
-    For a plain version or a whole call; CUPTI can drop records, so a
-    kernel's own time comes from ``kernel_ms``."""
+    For a plain version or a whole call; a kernel's own time comes from
+    ``kernel_ms``."""
     import torch
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):   # CUPTI can drop every record of a short trace
-        with torch.profiler.profile(activities=_profile_acts()) as prof:
+    for _ in range(3):   # a trace that kept no record is taken again
+        with device_trace() as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         total = sum(e.self_device_time_total for e in device_events(prof))
         if total > 0.0:
-            break
-    return total / 1e3 / iters
+            return total / 1e3 / iters
+    fail("the profiler recorded no device time of a timed call in 3 traces")
 
 
 SLEEP_CYCLES = 40_000_000   # first spacer kernel: ~20 ms at 1.98 GHz
@@ -246,14 +326,16 @@ def kernel_ms(launches, iters: int):
     recorded)``.
 
     ``ms`` is the kernels' own time: the profiler's kernel records over
-    ``iters`` traced calls of the sequence. The profiler drops some kernel
-    records on the H100 (up to 13 % of a trace's launches), so the sum
-    over the records kept is scaled by launches over records kept
-    (``recorded``, the share kept): the mean duration of a kept record
-    stands in for a dropped one. (Other ways read high: CUDA event pairs
-    around each launch put K5's 3.3 µs launches at 7.8 µs, the events'
-    own device time, and per-launch traces after a warm-up step read
-    every kernel about twice as long as a plain trace.)
+    ``iters`` traced calls of the sequence (``device_trace``). The
+    profiler drops some records late in this script, so the sum over the
+    records kept is scaled by launches over records kept (``recorded``,
+    the share kept): the mean duration of a kept record stands in for a
+    dropped one. A trace that lost records prints which launches lost
+    them; one that kept none is taken again with 4 times the calls, up to
+    3 times. (Other ways read high: CUDA event pairs around each launch
+    put K5's 3.3 µs launches at 7.8 µs, the events' own device time, and
+    per-launch traces after a warm-up step read every kernel about twice
+    as long as a plain trace.)
 
     ``queued_ms`` is CUDA events around ``iters`` calls of the sequence
     queued behind a spacer kernel (``torch.cuda._sleep``) that keeps the
@@ -261,20 +343,31 @@ def kernel_ms(launches, iters: int):
     but the device's gaps between consecutive launches. The spacer grows
     until the queueing fits in it."""
     import torch
+    from repro_torch.kernels.trace_probe import format_runs, record_runs
     for fn in launches:
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=_profile_acts()) as prof:
-        for _ in range(iters):
-            for fn in launches:
-                fn()
-        torch.cuda.synchronize()
-    ev = device_events(prof)
-    n = sum(e.count for e in ev)
+    traced = iters
+    for _ in range(3):
+        with device_trace() as prof:
+            for _ in range(traced):
+                for fn in launches:
+                    fn()
+            torch.cuda.synchronize()
+        ev = device_events(prof)
+        n = sum(e.count for e in ev)
+        if n < traced * len(launches):
+            log(f"[trace] kept {n} of {traced * len(launches)} kernel "
+                f"records; launches in host order, {TRACE_SPACERS} spacers "
+                f"first: {format_runs(record_runs(prof))}")
+        if n > 0:
+            break
+        traced *= 4
     if n == 0:
-        fail("the profiler recorded no kernel of a timed launch")
-    recorded = n / (iters * len(launches))
-    ms = sum(e.self_device_time_total for e in ev) / 1e3 / iters / recorded
+        fail("the profiler recorded no kernel of a timed launch in 3 "
+             "traces")
+    recorded = n / (traced * len(launches))
+    ms = sum(e.self_device_time_total for e in ev) / 1e3 / traced / recorded
     cycles = SLEEP_CYCLES
     for _ in range(5):
         e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
@@ -1266,7 +1359,7 @@ def serve_phase(dev, record, counters):
     prompt = serve_mod.draw_prompt(cfg, b, s, 0).to(dev)
     for what in ("prefill", "decode"):
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=_profile_acts()) as prof:
+        with device_trace() as prof:
             t0 = time.perf_counter()
             if what == "prefill":
                 lg, cache = prefill(*weights, prompt)
@@ -1310,6 +1403,528 @@ def serve_phase(dev, record, counters):
     torch.cuda.empty_cache()
     record["serve"] = rec
     return launches
+
+
+# --------------------------------------------------------------------------
+# phases 17-20: the distributed step on ranks sharing the card
+# --------------------------------------------------------------------------
+
+def check_k6(dev, gen, record):
+    """K6 at the full Table-I slab against its plain version (bit for bit)
+    at C = 2 and C = 10, with a dead cluster and ota_on = 0; its time at
+    both beside the byte bound (12 + 4C) B per entry. Returns the timings
+    by C and the largest |got − want| over every ``out`` and ``cnt``."""
+    import torch
+    from repro_torch.kernels.ota_channel import ops as k1
+    from repro_torch.kernels.ota_channel.ref import (
+        ota_mask_count_ref, pass_probability,
+    )
+    n = TABLE_I_PARAMS
+    x = torch.randn(n, generator=gen, device=dev) * 1e-3
+    out = {}
+    err = 0.0
+    for c in (2, 10):
+        bits = torch.randint(-2 ** 31, 2 ** 31, (c, n), generator=gen,
+                             device=dev, dtype=torch.int64).to(torch.int32)
+        sig = torch.linspace(0.5, 2.0, c, device=dev)
+        for cname, kw in (("default", {}),
+                          ("dead_cluster", {"live": [1.0] * (c - 1) + [0.0]}),
+                          ("ota_off", {"ota_on": 0.0}),
+                          ("ota_off_dead", {"ota_on": 0.0,
+                                            "live": [0.0] + [1.0] * (c - 1)})):
+            live = (None if "live" not in kw
+                    else torch.tensor(kw["live"], device=dev))
+            ota_on = kw.get("ota_on", 1.0)
+            for me in (0, c - 1):
+                got = k1.ota_mask_count_apply(x, bits, me, sig, 0.032, ota_on,
+                                              0.37, live_all=live)
+                torch.cuda.synchronize()
+                want = ota_mask_count_ref(x, bits, me, sig, 0.032, ota_on,
+                                          0.37, live_all=live)
+                err = max(err, float((got[0] - want[0]).abs().max()),
+                          float((got[1] - want[1]).abs().max()))
+                if not (torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1])):
+                    fail(f"K6 C={c} {cname} me={me}: out or cnt differs from "
+                         f"its plain version")
+        params = k1.mask_count_params(sig, 0.032, 1.0, 0.37, 0, None, c,
+                                      device=dev)
+        pp = pass_probability(params[:c], params[c])
+        o = torch.empty(n, device=dev)
+        cn = torch.empty(n, device=dev)
+        ms, queued, recorded = kernel_ms(
+            [lambda: k1.launch_mask_count(x, bits, params, pp, o, cn)], 50)
+        plain = device_ms(lambda: ota_mask_count_ref(
+            x, bits, 0, sig, 0.032, 1.0, 0.37), 5)
+        nbytes = (12 + 4 * c) * n
+        out[c] = {"ms": ms, "queued_ms": queued, "recorded": recorded,
+                  "plain_ms": plain,
+                  "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+        log(f"[K6] C={c} n={n}: equal to its plain version in 4 cases x 2 "
+            f"clusters; {ms:.4f} ms (queued {queued:.4f}, records kept "
+            f"{recorded:.0%}), plain {plain:.4f}, byte bound "
+            f"{out[c]['bound_ms']:.4f}")
+    record["k6"] = out
+    record["k6_max_abs_err"] = err
+    return out, err
+
+
+def sfu_ops_per_s(dev) -> float:
+    """The card's transcendental rate: SMs x SFU lanes x the maximum SM
+    clock (``int32_ops_per_s``'s clock)."""
+    return int32_ops_per_s(dev) / INT32_LANES_PER_SM * SFU_LANES_PER_SM
+
+
+def check_k7(dev, gen, record):
+    """K7 (``ops.ota_channel``) at the full Table-I slab against its plain
+    version: masks equal except within MASK_ULPS ulp of H_th, ``out``
+    equal where they agree; its time beside its bound. ``max_abs_err`` is
+    the largest |got − want| over ``out`` and the mask on every entry, so
+    a mask flip near H_th shows in it, beside the count of flips."""
+    import torch
+    from repro_torch import rng
+    from repro_torch.kernels.ota_channel import ops as k1
+    from repro_torch.kernels.ota_channel.ref import (
+        bits_to_gaussian, ota_channel_ref,
+    )
+    n = TABLE_I_PARAMS
+    x = torch.randn(n, generator=gen, device=dev)
+    worst = 0
+    err = 0.0
+    for sigma2, ota_on in ((1.0, 1.0), (0.5, 1.0), (2.0, 1.0), (1.0, 0.0)):
+        key = rng.fold_in(rng.PRNGKey(77), int(sigma2 * 4))
+        got_o, got_m = k1.ota_channel(x, key, sigma2, 0.032, ota_on)
+        torch.cuda.synchronize()
+        want_o, want_m = k1.ota_channel_reference(x, key, sigma2, 0.032,
+                                                  ota_on)
+        agree = got_m == want_m
+        err = max(err, float((got_o - want_o).abs().max()),
+                  float((got_m - want_m).abs().max()))
+        if not bool(agree.all()):
+            bits = k1._padded_bits(key, n, dev)
+            h = bits_to_gaussian(bits, sigma2).double()
+            ulp = float(torch.finfo(torch.float32).eps) * 0.032
+            near = (h * h - 0.032).abs() <= MASK_ULPS * ulp
+            if bool((~agree & ~near).any()):
+                fail(f"K7 sigma2={sigma2} ota_on={ota_on}: masks differ away "
+                     f"from the threshold")
+        worst = max(worst, int((~agree).sum()))
+        if not torch.equal(got_o[agree], want_o[agree]):
+            fail(f"K7 sigma2={sigma2}: out differs where the masks agree")
+        if ota_on == 0.0 and not bool(got_m.all()):
+            fail("K7 with ota_on = 0 blocked an entry")
+    bits = rng.bits(rng.PRNGKey(78), n, device=dev)
+    params = k1.channel_params_row(1.0, 0.032, 1.0, device=dev)
+    o = torch.empty(n, device=dev)
+    m = torch.empty(n, device=dev)
+    ms, queued, recorded = kernel_ms(
+        [lambda: k1.launch_channel(x, bits, params, o, m)], 50)
+    plain = device_ms(lambda: ota_channel_ref(x, bits, 1.0, 0.032, 1.0), 5)
+    nbytes = 16 * n
+    nsfu = 3 * n         # one log, one cos and one sqrt an entry
+    rec = {"ms": ms, "queued_ms": queued, "recorded": recorded,
+           "plain_ms": plain, "mask_mismatches": worst, "max_abs_err": err,
+           "bytes_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+           "sfu_ms": 1e3 * nsfu / sfu_ops_per_s(dev)}
+    rec["bound_ms"] = max(rec["bytes_ms"], rec["sfu_ms"])
+    rec["bound_by"] = ("bytes" if rec["bytes_ms"] >= rec["sfu_ms"]
+                       else "operations")
+    record["k7"] = rec
+    log(f"[K7] n={n}: masks equal in 4 cases (largest mismatch count "
+        f"{worst}, all within {MASK_ULPS} ulp of H_th), out equal where they "
+        f"agree, max abs err {err:.3e} over out and mask; {ms:.4f} ms (queued {queued:.4f}, records kept "
+        f"{recorded:.0%}), plain {plain:.4f}, bound {rec['bound_ms']:.4f} "
+        f"({rec['bound_by']}: bytes {rec['bytes_ms']:.4f}, SFU "
+        f"{rec['sfu_ms']:.4f})")
+    return rec
+
+
+def _dist_setup(mesh):
+    """The full-width model, config and this rank's batch and keys."""
+    import numpy as np
+    from repro_torch import rng
+    from repro_torch.common.config import FLConfig, ModelConfig, TrainConfig
+    from repro_torch.models.model import build_model
+    model = build_model(ModelConfig(family="mlp", compute_dtype="float32"))
+    c, n = mesh.shape["cluster"], mesh.shape["client"]
+    fl = FLConfig(n_clusters=c, n_clients=n)     # σ² = 1, H_th = 0.032, FGN
+    r = np.random.default_rng(2026)
+    x = r.standard_normal((c, n, DIST_BATCH, model.dims[0])).astype(
+        np.float32)
+    y = r.integers(0, DIST_CLASSES, (c, n, DIST_BATCH))
+    i, j = mesh.coords["cluster"], mesh.coords["client"]
+    keys = [rng.fold_in(rng.PRNGKey(3030), s)
+            for s in range(DIST_STEPS + DIST_TIMED_STEPS + 1)]
+    return model, fl, TrainConfig(lr=1e-3), x[i, j], y[i, j], keys
+
+
+def _dist_counters():
+    from repro_torch.kernels.masked_gradnorm import ops as k2
+    from repro_torch.kernels.ota_channel import ops as k1
+    return (k1.mask_count_counter, k1.mask_weight_counter,
+            k1.channel_counter, k1.client_fold_counter, k1.aggregate_counter,
+            k1.fused_counter, k2.counter)
+
+
+def _sync(mesh):
+    import torch
+    import torch.distributed as dist
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+    dist.barrier()
+
+
+def _dist_rank(mesh, modes, timed: bool):
+    """One rank of phases 19-20: ``DIST_STEPS`` counted steps per count
+    mode (and, when ``timed``, the step's time and its split), the slab
+    backward against the oracle, and the packed ω̃ gather."""
+    import torch
+    from repro_torch import rng
+    from repro_torch.common.tree import tree_leaves, tree_map, tree_unflatten
+    from repro_torch.core.channel import channel_params, cluster_channel
+    from repro_torch.core.hota import (
+        OTACtx, make_packed_final_gather, packed_final_key,
+        packed_final_norm,
+    )
+    from repro_torch.core.hota_slab import (
+        make_packed_omega_gather, packed_omega_aggregate_ref,
+        packed_omega_key,
+    )
+    from repro_torch.core.hota_step import make_hota_train_step
+    from repro_torch.models.params import abstract_params, logical_axes
+    from repro_torch.sharding.collectives import MeshStats
+    from repro_torch.sharding.mesh_utils import shard_slices
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    if dev.type == "cpu":
+        torch.set_num_threads(CPU_RANK_THREADS)
+    model, fl, tcfg, x, y, keys = _dist_setup(mesh)
+    counters = _dist_counters()
+    c, n = mesh.shape["cluster"], mesh.shape["client"]
+    cidx, cli = mesh.coords["cluster"], mesh.coords["client"]
+    out = {"device": str(dev), "backend": mesh.backend}
+    for mode in modes:
+        init_fn, step_fn, specs, _ = make_hota_train_step(
+            model, mesh, fl, tcfg, loss_kind="cls", n_out=DIST_CLASSES,
+            count_mode=mode)
+        st = init_fn(0)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        _sync(mesh)
+        for ctr in counters:
+            ctr.reset()
+        metrics = []
+        for s in range(DIST_STEPS):
+            st, m = step_fn(st, x, y, keys[s])
+            metrics.append({k: float(v) for k, v in m.items()})
+        _sync(mesh)
+        rec = {"launches": {ctr.name: ctr.count for ctr in counters},
+               "metrics": metrics,
+               "omega": [l.cpu() for l in tree_leaves(st.omega)],
+               "mu": st.opt.mu.cpu(), "p": st.p.cpu()}
+        if dev.type == "cuda":
+            rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        if timed:
+            times = []
+            for s in range(DIST_TIMED_STEPS):
+                _sync(mesh)
+                t0 = time.perf_counter()
+                st, _ = step_fn(st, x, y, keys[DIST_STEPS + s])
+                _sync(mesh)
+                times.append((time.perf_counter() - t0) * 1e3)
+            mesh.stats = MeshStats()
+            _sync(mesh)
+            t0 = time.perf_counter()
+            st, _ = step_fn(st, x, y, keys[-1])
+            _sync(mesh)
+            rec["stats_step_ms"] = (time.perf_counter() - t0) * 1e3
+            rec["stats"] = {"seconds": mesh.stats.seconds,
+                            "calls": mesh.stats.calls,
+                            "bytes": mesh.stats.bytes}
+            mesh.stats = None
+            rec["step_ms"] = times
+        out[mode] = rec
+
+    # the slab backward on shared keys against the single-process oracle
+    specs_o = {"final": model.final_specs(), "trunk": model.trunk_specs()}
+    template = abstract_params(specs_o)
+    axes = tree_leaves(logical_axes(specs_o))
+    chan = channel_params(fl, device=dev, n_clusters=c)
+    gen = torch.Generator().manual_seed(99)
+    g_full = tree_map(lambda l: torch.randn((c, n) + tuple(l.shape),
+                                            generator=gen) * 1e-3, template)
+    p_dev = torch.rand((c, n), generator=gen) + 0.5
+    slab_key = packed_omega_key(rng.PRNGKey(42))
+    out["bwd"] = {}
+    want = None
+    layout = tree_leaves(specs.omega)
+    for mode in modes:
+        gather, packer = make_packed_omega_gather(
+            mesh, ("client", "cluster"), ("cluster",), n, c * n,
+            torch.float32, template, axes, n_clusters=c, count_mode=mode)
+        if want is None:
+            wg = tree_map(lambda l: torch.einsum(
+                "cn,cn...->c...", p_dev, l).to(dev), g_full)
+            want = [w[shard_slices(w.shape, spec, mesh)] for w, spec in
+                    zip(tree_leaves(packed_omega_aggregate_ref(
+                        wg, slab_key, chan, n, packer)), layout)]
+            del wg
+        ctx = OTACtx(p_weight=p_dev[cidx, cli].to(dev), key=slab_key,
+                     sigma2=chan.sigma2, h_th=chan.h_threshold,
+                     noise_std=chan.noise_std, ota_on=chan.ota_on)
+        shard = [torch.zeros(w.shape, device=dev, requires_grad=True)
+                 for w in want]
+        full = gather(tree_unflatten(template, shard), ctx)
+        torch.autograd.backward(
+            tree_leaves(full),
+            [g[cidx, cli].to(dev) for g in tree_leaves(g_full)])
+        errs = [float(((s.grad - w).abs() - 2e-5 * w.abs()).max())
+                for s, w in zip(shard, want)]
+        out["bwd"][mode] = {"excess": max(errs), "max_abs": max(
+            float((s.grad - w).abs().max()) for s, w in zip(shard, want))}
+
+    # the packed ω̃ gather and its masked norm (K7), counted
+    fin_axes = tree_leaves(logical_axes(model.final_specs()))
+    fin_tpl = abstract_params(model.final_specs())
+    gather_f = make_packed_final_gather(
+        mesh, ("client", "cluster"), ("cluster",), n, c * n, torch.float32,
+        fin_axes, template=fin_tpl)
+    chan_c = cluster_channel(chan, cidx)
+    g_fin = tree_map(lambda l: torch.randn((c, n) + tuple(l.shape),
+                                           generator=gen), fin_tpl)
+    g_loc = tree_map(lambda l: l[cidx, cli].to(dev), g_fin)
+    fkey = rng.PRNGKey(4242)
+    ctx = OTACtx(p_weight=p_dev[cidx, cli].to(dev),
+                 key=packed_final_key(fkey), sigma2=chan_c.sigma2,
+                 h_th=chan.h_threshold, noise_std=chan.noise_std,
+                 ota_on=chan.ota_on)
+    fin_layout = tree_leaves(specs.omega["final"])
+    shard = [torch.zeros(l[shard_slices(l.shape, spec, mesh)].shape,
+                         device=dev, requires_grad=True)
+             for l, spec in zip(tree_leaves(fin_tpl), fin_layout)]
+    _sync(mesh)
+    for ctr in counters:
+        ctr.reset()
+    full = gather_f(tree_unflatten(fin_tpl, shard), ctx)
+    torch.autograd.backward(tree_leaves(full), tree_leaves(g_loc))
+    nrm = packed_final_norm(g_loc, fkey, chan_c, cidx)
+    _sync(mesh)
+    out["final"] = {"launches": {ctr.name: ctr.count for ctr in counters},
+                    "ghat": [s.grad.cpu() for s in shard],
+                    "norm": float(nrm)}
+    return out
+
+
+def _gloo_probe_rank(mesh):
+    """One rank of the probe: whether gloo runs ``all_gather_into_tensor``
+    and ``reduce_scatter_tensor`` on CUDA tensors (and right), and, where
+    it does, their median time beside the same call staged through host
+    tensors, at a quarter of the Table-I slab per rank."""
+    import torch
+    import torch.distributed as dist
+    dev, k, n = mesh.device, mesh.size, TABLE_I_PARAMS // 4
+    res = {}
+    cases = {
+        "all_gather": (
+            lambda d: torch.full((n,), float(mesh.rank + 1), device=d),
+            lambda d: torch.empty(k * n, device=d),
+            dist.all_gather_into_tensor,
+            torch.arange(1, k + 1, dtype=torch.float32).repeat_interleave(n)),
+        "reduce_scatter": (
+            lambda d: torch.full((k * n,), float(mesh.rank + 1), device=d),
+            lambda d: torch.empty(n, device=d),
+            dist.reduce_scatter_tensor,
+            torch.full((n,), float(k * (k + 1) // 2))),
+    }
+    for name, (make_src, make_out, call, want) in cases.items():
+        src, out = make_src(dev), make_out(dev)
+        try:
+            call(out, src)
+            torch.cuda.synchronize(dev)
+        except Exception as e:   # the probe's answer, not a phase failure
+            res[name] = {"runs": False,
+                         "error": f"{type(e).__name__}: {e}"[:300]}
+            dist.barrier()
+            continue
+        rec = {"runs": True, "correct": torch.equal(out.cpu(), want)}
+
+        def staged():
+            o = make_out("cpu")
+            call(o, src.cpu())
+            return o.to(dev)
+        for label, fn in (("cuda_ms", lambda: call(out, src)),
+                          ("staged_ms", staged)):
+            times = []
+            for _ in range(5):
+                _sync(mesh)
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize(dev)
+                times.append((time.perf_counter() - t0) * 1e3)
+            rec[label] = statistics.median(times)
+        res[name] = rec
+    return res
+
+
+def gloo_probe_phase(dev, record):
+    """Whether gloo runs all-gather and reduce-scatter on CUDA tensors, on
+    four ranks sharing the card: ``sharding.collectives`` hands them the
+    ranks' CUDA tensors, so this fails unless both run and are right.
+    Records each call's time beside the same call staged through host
+    tensors."""
+    from repro_torch.launch.mesh import pick_backend, run_ranks
+    world = DIST_SHAPE[0] * DIST_SHAPE[1]
+    backend = pick_backend(dev, world)
+    if backend != "gloo":
+        log(f"[gloo probe] backend {backend}: nothing to probe")
+        return
+    res = run_ranks(_gloo_probe_rank, shape=DIST_SHAPE, device="cuda",
+                    timeout_s=120)
+    record["gloo_cuda_probe"] = res
+    for name in ("all_gather", "reduce_scatter"):
+        ranks = [r[name] for r in res]
+        usable = all(r["runs"] and r["correct"] for r in ranks)
+        log(f"[gloo probe] {name} on CUDA tensors under gloo, rank 0: "
+            f"{ranks[0]}")
+        if not usable:
+            fail(f"gloo does not run {name} on CUDA tensors right: {ranks}")
+
+
+def dist_phase(dev, record):
+    """Phases 19-20: the full-width 2 x 2 step on four ranks sharing the
+    card (gloo), in both count modes, against each other and against the
+    same steps on four CPU ranks; the slab backward against the oracle;
+    the packed ω̃ gather. Returns the launches of the counted runs, summed
+    over the ranks."""
+    import torch
+    from repro_torch.launch.mesh import pick_backend, run_ranks
+    torch.cuda.empty_cache()
+    world = DIST_SHAPE[0] * DIST_SHAPE[1]
+    backend = pick_backend(dev, world)
+    t0 = time.perf_counter()
+    gpu = run_ranks(_dist_rank, (("local", "psum"), True), shape=DIST_SHAPE,
+                    device="cuda", timeout_s=600)
+    gpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = run_ranks(_dist_rank, (("psum",), False), shape=DIST_SHAPE,
+                    device="cpu", timeout_s=600)
+    cpu_s = time.perf_counter() - t0
+    log(f"[dist] {world} ranks on {gpu[0]['device']} x{world}, backend "
+        f"{gpu[0]['backend']} (chosen {backend}), every collective on the "
+        f"ranks' CUDA tensors; card ranks {gpu_s:.1f} s, CPU ranks "
+        f"{cpu_s:.1f} s (spawn and set-up included)")
+    rec = {"backend": gpu[0]["backend"], "card_run_s": gpu_s,
+           "cpu_run_s": cpu_s}
+    per = {"local": "ota_mask_count", "psum": "ota_mask_weight"}
+    total = {}
+    for mode in ("local", "psum"):
+        want = {ctr: 0 for ctr in ("ota_mask_count", "ota_mask_weight",
+                                   "ota_channel", "ota_client_fold",
+                                   "ota_aggregate", "ota_aggregate_fused",
+                                   "masked_gradnorm")}
+        want[per[mode]] = DIST_LEAVES * DIST_STEPS
+        for r, res in enumerate(gpu):
+            if res[mode]["launches"] != want:
+                fail(f"dist {mode} rank {r}: launches "
+                     f"{res[mode]['launches']}, expected {want}")
+            for k, v in res[mode]["launches"].items():
+                total[k] = total.get(k, 0) + v
+            for m in res[mode]["metrics"]:
+                if not all(math.isfinite(v) for v in m.values()):
+                    fail(f"dist {mode} rank {r}: non-finite metrics {m}")
+    # the two count modes bit for bit, on every rank
+    for r, res in enumerate(gpu):
+        a, b = res["local"], res["psum"]
+        if a["metrics"] != b["metrics"] or not all(
+                torch.equal(u, v) for u, v in zip(a["omega"], b["omega"])) \
+                or not torch.equal(a["mu"], b["mu"]):
+            fail(f"dist rank {r}: the count modes differ")
+    # the card against the CPU ranks
+    cmp = {}
+    for mode in ("local", "psum"):
+        for r in range(world):
+            for s in range(DIST_STEPS):
+                for k in ("loss", "p_mean", "p_min", "p_max", "gnorm_mean"):
+                    g_v = gpu[r][mode]["metrics"][s][k]
+                    c_v = cpu[r]["psum"]["metrics"][s][k]
+                    if abs(g_v - c_v) > 1e-4 * abs(c_v) + 1e-7:
+                        fail(f"dist {mode} rank {r} step {s} {k}: card "
+                             f"{g_v} vs CPU {c_v}")
+        for r in range(world):
+            g_p, c_p = gpu[r][mode]["p"], cpu[r]["psum"]["p"]
+            if not torch.allclose(g_p, c_p, rtol=1e-4, atol=0.0):
+                fail(f"dist {mode} rank {r}: p on the card {g_p.tolist()} "
+                     f"vs the CPU {c_p.tolist()}")
+        w_g = torch.cat([l.reshape(-1) for res in gpu
+                         for l in res[mode]["omega"]])
+        w_c = torch.cat([l.reshape(-1) for res in cpu
+                         for l in res["psum"]["omega"]])
+        cmp[mode] = {"omega_rel_l2": rel_l2(w_g, w_c),
+                     "mu_rel_l2": rel_l2(
+                         torch.cat([res[mode]["mu"] for res in gpu]),
+                         torch.cat([res["psum"]["mu"] for res in cpu]))}
+        if cmp[mode]["omega_rel_l2"] > 1e-3:
+            fail(f"dist {mode}: card vs CPU {cmp[mode]}")
+    rec["card_vs_cpu"] = cmp
+    bwd = {mode: max(res["bwd"][mode]["max_abs"] for res in gpu)
+           for mode in ("local", "psum")}
+    for mode in ("local", "psum"):
+        if max(res["bwd"][mode]["excess"] for res in gpu) > 1e-6:
+            fail(f"dist slab backward ({mode}) vs packed_omega_aggregate_ref:"
+                 f" max abs err {bwd[mode]:.3e}")
+    rec["bwd_vs_oracle_max_abs"] = bwd
+    # the packed ω̃ gather: K7 once in the backward, once in the norm
+    fin_want = {k: 0 for k in want}
+    fin_want["ota_channel"] = 2
+    g_f = torch.cat([g.reshape(-1) for res in gpu
+                     for g in res["final"]["ghat"]])
+    c_f = torch.cat([g.reshape(-1) for res in cpu
+                     for g in res["final"]["ghat"]])
+    off = int(((g_f - c_f).abs() > 1e-4 * c_f.abs() + 1e-6).sum())
+    for r, res in enumerate(gpu):
+        if res["final"]["launches"] != fin_want:
+            fail(f"packed final gather rank {r}: launches "
+                 f"{res['final']['launches']}, expected {fin_want}")
+        for k, v in res["final"]["launches"].items():
+            total[k] = total.get(k, 0) + v
+        if abs(res["final"]["norm"] - cpu[r]["final"]["norm"]) > \
+                1e-5 * abs(cpu[r]["final"]["norm"]):
+            fail(f"packed final norm rank {r}: card {res['final']['norm']} "
+                 f"vs CPU {cpu[r]['final']['norm']}")
+    rec["final_gather"] = {"ghat_rel_l2": rel_l2(g_f, c_f),
+                           "ghat_entries_off": off,
+                           "entries": g_f.numel()}
+    if rec["final_gather"]["ghat_rel_l2"] > 1e-4 or off > 16:
+        fail(f"packed final gather card vs CPU: {rec['final_gather']}")
+    # timings: rank 0's view of the synchronized step, and its split
+    for mode in ("local", "psum"):
+        g0 = gpu[0][mode]
+        st = {k: g0["stats"]["seconds"].get(k, 0.0) * 1e3
+              for k in ("collective", "draw")}
+        rec[mode] = {
+            "step_ms": g0["step_ms"],
+            "step_ms_median": statistics.median(g0["step_ms"]),
+            "stats_step_ms": g0["stats_step_ms"],
+            "collective_ms": st["collective"], "draw_ms": st["draw"],
+            "collective_calls": g0["stats"]["calls"].get("collective", 0),
+            "collective_bytes": g0["stats"]["bytes"].get("collective", 0),
+            "rest_ms": g0["stats_step_ms"] - st["collective"] - st["draw"],
+            "peak_bytes_per_rank": [res[mode]["peak_bytes"] for res in gpu]}
+        log(f"[dist {mode}] step median {rec[mode]['step_ms_median']:.2f} ms "
+            f"(all {['%.2f' % t for t in g0['step_ms']]}); a timed step "
+            f"{g0['stats_step_ms']:.2f} ms: collectives "
+            f"{st['collective']:.2f} ms in {rec[mode]['collective_calls']} "
+            f"calls ({rec[mode]['collective_bytes'] / 1e6:.1f} MB, "
+            f"{100 * st['collective'] / g0['stats_step_ms']:.1f} %), stream "
+            f"draws {st['draw']:.2f} ms, the rest {rec[mode]['rest_ms']:.2f} "
+            f"ms; peak bytes per rank {rec[mode]['peak_bytes_per_rank']}")
+    log(f"[dist] launches per rank: local {gpu[0]['local']['launches']}, "
+        f"psum {gpu[0]['psum']['launches']}; card vs CPU {cmp}; slab "
+        f"backward vs oracle {bwd}; packed final gather "
+        f"{rec['final_gather']}")
+    record["dist"] = rec
+    return total
 
 
 def sc2_config():
@@ -1621,7 +2236,7 @@ def main() -> None:
     rounds_p = [(batcher.next_stacked(), rng.fold_in(key0, 900 + r))
                 for r in range(TRACED_ROUNDS)]
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=_profile_acts()) as prof:
+    with device_trace() as prof:
         t0 = time.perf_counter()
         for (xb_p, yb_p), k_p in rounds_p:
             st_t, _ = sim.step(st_t, xb_p, yb_p, k_p)
@@ -1701,8 +2316,7 @@ def main() -> None:
             def one():
                 holder[0], _ = bank.step(holder[0], *b_r, k_r)
             if r == TIMED_BANK_ROUNDS:
-                acts = _profile_acts()
-                with torch.profiler.profile(activities=acts) as prof:
+                with device_trace() as prof:
                     traced = host_ms(one)
             else:
                 times.append(host_ms(one))
@@ -1765,6 +2379,17 @@ def main() -> None:
     got = serve_phase(dev, record, counters + (k8.counter,))
     for k_name, v in got.items():
         total[k_name] = total.get(k_name, 0) + v
+
+    # --- 17-18. K6 and K7 against their plain versions ----------------------
+    gen_d = torch.Generator(device=dev).manual_seed(17)
+    k6, k6_err = check_k6(dev, gen_d, record)
+    k7 = check_k7(dev, gen_d, record)
+
+    # --- 19-20. gloo on CUDA tensors, the distributed step, the ω̃ gather ---
+    gloo_probe_phase(dev, record)
+    got = dist_phase(dev, record)
+    for k_name, v in got.items():
+        total[k_name] = total.get(k_name, 0) + v
     if "jax" in sys.modules or "repro" in sys.modules:
         fail("the JAX package was imported")
 
@@ -1819,6 +2444,22 @@ def main() -> None:
          "ms": k8_rec["ms"], "plain_ms": k8_rec["plain_ms"],
          "bound_ms": k8_rec["bound_ms"], "bound_by": k8_rec["bound_by"],
          "library_ms": k8_rec["sdpa_window_mask_ms"]},
+        {"name": "ota_mask_count", "route": "cuda",
+         "source": "src/repro_torch/kernels/ota_channel/csrc/"
+                   "ota_mask_count.cu",
+         "replaces": "src/repro/kernels/ota_channel/kernel.py:208",
+         "launches": total["ota_mask_count"], "max_abs_err": k6_err,
+         "ms": k6[2]["ms"], "plain_ms": k6[2]["plain_ms"],
+         "bound_ms": k6[2]["bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "ota_channel", "route": "cuda",
+         "source": "src/repro_torch/kernels/ota_channel/csrc/ota_channel.cu",
+         "replaces": "src/repro/kernels/ota_channel/kernel.py:451",
+         "launches": total["ota_channel"], "max_abs_err": k7["max_abs_err"],
+         "mask_mismatches": k7["mask_mismatches"],
+         "ms": k7["ms"], "plain_ms": k7["plain_ms"],
+         "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"],
+         "library_ms": None},
     ]
     record["launches_main_path"] = total
     record.update(card=card, kind=kind)

@@ -1,5 +1,5 @@
 """Carry a JAX-package ``SimState``, a ``ScenarioBank``'s banked state,
-or an LM's parameters across into the port.
+a distributed ``HotaState`` or an LM's parameters across into the port.
 
 The caller turns the reference state into numpy first
 (``jax.tree.map(np.asarray, state)``); this module reads only those
@@ -12,7 +12,8 @@ numpy leaves, in the reference's field order, and never imports JAX::
     fgn      = FGNState(step, mu, nu)          (step (C,), moments (C, N))
 
 Fields beyond ``step`` (the fault-injection copies) must be None: the
-port's simulator does not carry faults yet. A bank's state is the same
+port's simulator does not carry faults yet. A distributed ``HotaState``
+(``hota_state_from_numpy``) is global; each rank takes its piece. A bank's state is the same
 structure with a leading (S,) axis on every leaf.
 
 An LM's parameters (``init_params`` of the reference's ``trunk_specs``,
@@ -28,6 +29,7 @@ import torch
 
 from repro_torch.common.tree import state_map
 from repro_torch.core.fedgradnorm import FGNState
+from repro_torch.core.hota_step import HotaState, shard_state
 from repro_torch.core.sim import SimState
 from repro_torch.optim.adam import AdamState, SlabAdamState
 
@@ -94,3 +96,34 @@ def bank_state_from_numpy(states, device="cpu") -> SimState:
         raise ValueError(f"expected one leading scenario axis on every "
                          f"leaf, found leading shapes {sorted(sizes)}")
     return out
+
+
+def hota_state_from_numpy(state, mesh, rank: int, device, specs):
+    """Rank ``rank``'s piece of a reference distributed ``HotaState``
+    (turned into numpy), laid out by ``specs``, the port step's
+    ``state_specs``: FSDP leaves cut on their "embed" dim over
+    ("client", "cluster"), each client's head, ``p``, ``fgn_mu``,
+    ``fgn_nu`` and ``f0`` its own (a leading dim of 1), and the slab Adam
+    moments the rank's local slab (the reference's global moment is the
+    shard-major concatenation of the local slabs). The fault-injection
+    fields must be None."""
+    fields = tuple(state)
+    if len(fields) < 10 or any(f is not None for f in fields[10:]):
+        raise ValueError("expected a fault-free reference HotaState (omega, "
+                         "opt, heads, head_opt, p, fgn_mu, fgn_nu, fgn_t, "
+                         "f0, step)")
+    omega, opt, heads, head_opt, p, mu, nu, fgn_t, f0, step = fields[:10]
+    i32, f32 = torch.int32, torch.float32
+    glob = HotaState(
+        omega=_tree(omega, "cpu"),
+        opt=SlabAdamState(step=_tensor(opt[0], "cpu", i32),
+                          mu=_tensor(opt[1], "cpu", f32),
+                          nu=_tensor(opt[2], "cpu", f32)),
+        heads=_tree(heads, "cpu"),
+        head_opt=AdamState(step=_tensor(head_opt[0], "cpu", i32),
+                           mu=_tree(head_opt[1], "cpu"),
+                           nu=_tree(head_opt[2], "cpu")),
+        p=_tensor(p, "cpu", f32), fgn_mu=_tensor(mu, "cpu", f32),
+        fgn_nu=_tensor(nu, "cpu", f32), fgn_t=_tensor(fgn_t, "cpu", i32),
+        f0=_tensor(f0, "cpu", f32), step=_tensor(step, "cpu", i32))
+    return shard_state(glob, specs, mesh, rank=rank, device=device)

@@ -6,7 +6,8 @@ tensors, never Python values, and every branch on them goes through
 ``torch.where``, so one code path serves every scenario and nothing waits
 for the host. A scenario bank stacks S of them along a leading (S,) axis
 (``stack_channel_params``) and hands scenario s its row
-(``scenario_channel``).
+(``scenario_channel``); a cluster of the distributed step reads its own
+σ² (``cluster_channel``).
 
 * ``sigma2``      — (C,) per-cluster channel variance σ_l² (Sec. III-A)
 * ``h_threshold`` — () H_th of eq. (7)
@@ -16,7 +17,7 @@ for the host. A scenario bank stacks S of them along a leading (S,) axis
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -31,9 +32,12 @@ class ChannelParams(NamedTuple):
     fgn_on: torch.Tensor       # () 1.0 | 0.0
 
 
-def channel_params(fl: FLConfig, device="cpu") -> ChannelParams:
-    """The channel knobs of a static ``FLConfig`` as float32 tensors."""
-    c = fl.n_clusters
+def channel_params(fl: FLConfig, device="cpu",
+                   n_clusters: Optional[int] = None) -> ChannelParams:
+    """The channel knobs of a static ``FLConfig`` as float32 tensors, for
+    ``n_clusters`` clusters (default ``fl.n_clusters``; the distributed
+    step passes its mesh's cluster count)."""
+    c = fl.n_clusters if n_clusters is None else n_clusters
 
     def f32(x):
         return torch.tensor(x, dtype=torch.float32, device=device)
@@ -57,3 +61,8 @@ def stack_channel_params(chans: Sequence[ChannelParams]) -> ChannelParams:
 def scenario_channel(bank: ChannelParams, s: int) -> ChannelParams:
     """Scenario ``s``'s knobs: row ``s`` of every field of a stacked bank."""
     return ChannelParams(*[field[s] for field in bank])
+
+
+def cluster_channel(chan: ChannelParams, cluster: int) -> ChannelParams:
+    """One cluster's view: σ² narrowed from (C,) to that cluster's ()."""
+    return chan._replace(sigma2=chan.sigma2[cluster])

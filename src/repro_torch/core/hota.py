@@ -1,0 +1,262 @@
+"""HOTA-FedGradNorm, distributed: the packed ω̃ gather (DESIGN.md §3.1).
+
+Port of the parts of ``repro.core.hota`` that the slab-native distributed
+step runs. The paper's two-level aggregation rides the FSDP parameter
+gather as a custom backward (``torch.autograd.Function``, the port's
+``jax.custom_vjp``):
+
+    forward : shard --all-gather over ("client", "cluster")--> full param
+              (= PS -> IS -> client broadcast, Alg. 1 lines 3-6)
+    backward: per-client full grad
+              --weighted psum over "client"-->        x^(l) at the IS (eq. 3)
+              --masked psum over ("pod", "cluster")-> MAC superposition (eq. 8)
+              + AWGN, / (|M|·N)                       PS estimate     (eq. 10)
+              --slice own shard-->                    FSDP reduce-scatter
+
+Each process of the mesh is one (cluster, client) position, so its
+cluster index is a plain integer (``cluster_index``), not a traced one.
+
+``make_packed_final_gather`` packs ω̃'s whole gradient into one slab
+and masks it with the per-cluster gain-threshold kernel K7
+(``_packed_mask_apply``); ``packed_final_norm`` reads the same masks for
+eq. 6. The per-leaf oracle of the reference (``make_ota_gather``,
+``full_transmission_mask``, ``make_param_hook``, ...) is not ported yet
+(ROADMAP Queue 1, item 13): the step refuses ``use_pallas_ota=False``.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch import rng
+from repro_torch.common.flatpack import packer_for
+from repro_torch.common.tree import (
+    tree_flatten_with_path, tree_leaves, tree_unflatten,
+)
+from repro_torch.core.channel import ChannelParams
+from repro_torch.core.ota import HOTA_MASK_SALT
+from repro_torch.kernels.ota_channel.ops import _ota_channel_impl
+from repro_torch.sharding import collectives as col
+from repro_torch.sharding.mesh_utils import Mesh
+
+CLIENT_AXIS = "client"
+
+KLASS_SALT = {
+    "embed": 1, "layers": 2, "final": 3, "mamba": 4,
+    "shared_attn": 5, "shared_mlp": 6, "mlstm": 7, "slstm": 8,
+}
+
+PACKED_FINAL_FOLD = 0x7FFF00F1   # reserved fold — disjoint from leaf indices
+
+
+def _strip_layer(axes: tuple) -> tuple:
+    return tuple(a for a in axes if a != "layer")
+
+
+def _fsdp_axis(axes: tuple) -> int:
+    stripped = _strip_layer(axes)
+    return stripped.index("embed") if "embed" in stripped else -1
+
+
+class OTACtx(NamedTuple):
+    """What the OTA backward reads besides the gradient."""
+    p_weight: Any            # this client's FedGradNorm weight p_k^(l,i)
+    key: torch.Tensor        # the channel key (a (2,) threefry key)
+    sigma2: Any              # σ²: this cluster's (), or every cluster's (C,)
+    h_th: Any                # threshold H_th
+    noise_std: Any           # AWGN std
+    ota_on: Any              # 1.0 = fading MAC; 0.0 = error-free baseline
+    live: Optional[Any] = None    # (C,) cluster participation flags
+    n_eff: Optional[Any] = None   # () effective N of eq. 10
+
+
+def fold_tags(key, klass: str, tags, leaf_idx: int) -> torch.Tensor:
+    k = rng.fold_in(key, KLASS_SALT[klass])
+    for t in tags:
+        k = rng.fold_in(k, t)
+    return rng.fold_in(k, leaf_idx)
+
+
+def cluster_index(mesh: Mesh, cluster_axes: Tuple[str, ...]) -> int:
+    """This rank's cluster, mixed radix over the cluster axes."""
+    return mesh.axis_index(cluster_axes)
+
+
+class _CustomGather(torch.autograd.Function):
+    """A gather whose backward is given: ``forward(fwd, bwd, *leaves)``
+    returns ``fwd(leaves)``, and the leaves' gradients are
+    ``bwd(output grads)``."""
+
+    @staticmethod
+    def forward(fctx, fwd: Callable, bwd: Callable, *leaves):
+        fctx.bwd = bwd
+        fctx.like = [(l.shape, l.dtype, l.device) for l in leaves]
+        return tuple(fwd(list(leaves)))
+
+    @staticmethod
+    def backward(fctx, *grads):
+        return (None, None) + tuple(fctx.bwd(list(grads)))
+
+
+def custom_gather(shard_tree, fwd: Callable, bwd: Callable, full_like):
+    """Apply a ``_CustomGather`` to a tree of shards: ``fwd`` maps the
+    shard leaves to the full leaves, ``bwd`` the full leaves' gradients
+    (zeros for an unused leaf, shaped like ``full_like``'s leaves) to the
+    shards'."""
+    leaves = tree_leaves(shard_tree)
+    full_shapes = [tuple(l.shape) for l in tree_leaves(full_like)]
+
+    def bwd_filled(grads):
+        out = [torch.zeros(s, dtype=torch.float32, device=leaves[0].device)
+               if g is None else g for g, s in zip(grads, full_shapes)]
+        return bwd(out)
+    full = _CustomGather.apply(fwd, bwd_filled, *leaves)
+    return tree_unflatten(shard_tree, list(full))
+
+
+def gather_leaf(leaf: torch.Tensor, ax: int, mesh: Mesh, data_axes,
+                compute_dtype) -> torch.Tensor:
+    """One leaf's FSDP all-gather (``ax`` >= 0) or its replicated copy,
+    in the compute dtype."""
+    if ax >= 0:
+        return col.all_gather(leaf.detach(), mesh, data_axes,
+                              ax).to(compute_dtype)
+    return leaf.detach().to(compute_dtype, copy=True)
+
+
+def shard_of(full: torch.Tensor, ax: int, index: int,
+             n_shards: int) -> torch.Tensor:
+    """Piece ``index`` of ``n_shards`` along dim ``ax``."""
+    sz = full.shape[ax] // n_shards
+    return full.narrow(ax, index * sz, sz)
+
+
+# --------------------------------------------------------------------------
+# flat-packed final-subtree gather (ω̃ as ONE slab through the OTA MAC)
+# --------------------------------------------------------------------------
+
+def packed_final_key(base_key) -> torch.Tensor:
+    """The single channel key of the packed ω̃ slab."""
+    return rng.fold_in(rng.fold_in(base_key, KLASS_SALT["final"]),
+                       PACKED_FINAL_FOLD)
+
+
+def _packed_mask_apply(x_slab: torch.Tensor, key, sigma2, h_th, ota_on,
+                       cluster: int):
+    """This cluster's bits -> Box-Muller gain -> threshold -> apply on a
+    (P,) slab (K7): (masked x, mask), both (P,) float32. The words are
+    ``bits(fold_in(key, cluster), P)``; the gather backward and the FGN
+    norm call it with the same key, so eq. 5 sees the transmission's
+    masks."""
+    bits = rng.bits(rng.fold_in(key, cluster), x_slab.shape[-1],
+                    device=x_slab.device)
+    return _ota_channel_impl(x_slab, bits, sigma2, h_th, ota_on)
+
+
+def make_packed_final_gather(mesh: Mesh, data_axes: Tuple[str, ...],
+                             cluster_axes: Tuple[str, ...],
+                             n_clients: int, n_shards: int, compute_dtype,
+                             axes_list: List[tuple], template=None):
+    """Custom-backward gather for the WHOLE final subtree.
+
+    forward : per-leaf all-gather of the FSDP shards
+    backward: pack full-size cotangents -> (P,) slab; weighted psum over
+              "client" (LAN, eq. 3); K7 mask+apply; masked psum over
+              clusters (MAC, eq. 8) + AWGN; guarded |M|·N estimate
+              (eq. 10); unpack; slice each leaf's own FSDP shard.
+
+    Returns ``gather_final(shard_tree, ctx)``. ``ctx.sigma2`` is this
+    cluster's σ². ``template`` (full-size ω̃ shapes, e.g.
+    ``abstract_params(model.final_specs())``) makes a mismatched tree an
+    error that names the leaf. The AWGN is ``rng.normal`` (erfinv), which
+    matches ``jax.random.normal`` to float32 rounding, not bit for bit."""
+    fsdp = [_fsdp_axis(a) for a in axes_list]
+    tpl_paths = (None if template is None else
+                 [p for p, _ in tree_flatten_with_path(template)])
+    me = mesh.axis_index(data_axes)
+    cidx = cluster_index(mesh, cluster_axes)
+
+    def _check(tree, what):
+        paths = [p for p, _ in tree_flatten_with_path(tree)]
+        if tpl_paths is not None and paths != tpl_paths:
+            raise ValueError(f"{what}: leaves {['/'.join(p) for p in paths]}"
+                             f" do not mirror model.final_specs() "
+                             f"{['/'.join(p) for p in tpl_paths]}")
+        if len(paths) != len(fsdp):
+            raise ValueError(f"{what}: got {len(paths)} leaves but this "
+                             f"gather was built over {len(fsdp)} ω̃ leaves")
+
+    def gather_final(shard_tree, ctx: OTACtx):
+        _check(shard_tree, "parameter tree (packed final gather)")
+        like = tree_unflatten(shard_tree, [None] * len(fsdp))
+
+        def fwd(leaves):
+            return [gather_leaf(l, ax, mesh, data_axes, compute_dtype)
+                    for l, ax in zip(leaves, fsdp)]
+
+        def bwd(grads):
+            g_tree = tree_unflatten(like, [g.to(torch.float32)
+                                           for g in grads])
+            packer = packer_for(g_tree, tail=None)
+            g_slab = packer.pack(g_tree)                   # (P,) full-size
+            x = col.psum(ctx.p_weight * g_slab, mesh, CLIENT_AXIS)
+            xm, mask = _packed_mask_apply(x, ctx.key, ctx.sigma2, ctx.h_th,
+                                          ctx.ota_on, cidx)
+            y = col.psum(xm, mesh, cluster_axes)
+            cnt = col.psum(mask, mesh, cluster_axes)
+            z = (rng.normal(rng.fold_in(ctx.key, HOTA_MASK_SALT),
+                            g_slab.shape, device=g_slab.device)
+                 * ctx.noise_std * ctx.ota_on)
+            ghat = torch.where(cnt > 0, (y + z) / (torch.clamp(cnt, min=1.0)
+                                                   * n_clients),
+                               torch.zeros_like(y))
+            out = tree_leaves(packer.unpack(ghat))
+            return [shard_of(l, ax, me, n_shards) if ax >= 0 else l
+                    for l, ax in zip(out, fsdp)]
+
+        return custom_gather(shard_tree, fwd, bwd, _full_shapes(
+            shard_tree, fsdp, n_shards))
+
+    return gather_final
+
+
+def _full_shapes(shard_tree, fsdp, n_shards):
+    """Meta stand-ins of the full leaves of a shard tree."""
+    out = []
+    for l, ax in zip(tree_leaves(shard_tree), fsdp):
+        shape = list(l.shape)
+        if ax >= 0:
+            shape[ax] *= n_shards
+        out.append(torch.empty(shape, dtype=torch.float32, device="meta"))
+    return tree_unflatten(shard_tree, out)
+
+
+def packed_final_norm(g_final, base_key, chan_c: ChannelParams,
+                      cluster: int) -> torch.Tensor:
+    """n_i = ‖M ∘ ∇_{ω̃}F_i‖ (eq. 6) on the packed slab: the SAME flat mask
+    draw the packed gather backward applies (one K7 launch)."""
+    g32 = tree_unflatten(g_final, [g.to(torch.float32)
+                                   for g in tree_leaves(g_final)])
+    packer = packer_for(g32, tail=None)
+    masked, _ = _packed_mask_apply(
+        packer.pack(g32), packed_final_key(base_key), chan_c.sigma2,
+        chan_c.h_threshold, chan_c.ota_on, cluster)
+    return torch.sqrt(torch.sum(torch.square(masked)))
+
+
+def _mesh_data_axes(mesh: Mesh) -> Tuple[str, ...]:
+    """FSDP axes in CLIENT-major order (scatter-region alignment)."""
+    if "client" not in mesh.axis_names or "cluster" not in mesh.axis_names:
+        raise ValueError(f"the FL mesh needs 'cluster' and 'client' axes, "
+                         f"got {mesh.axis_names}")
+    return ("client", "cluster")
+
+
+def _mesh_cluster_axes(mesh: Mesh) -> Tuple[str, ...]:
+    return tuple(a for a in mesh.axis_names if a in ("pod", "cluster"))
+
+
+def _mesh_client_axes(mesh: Mesh) -> Tuple[str, ...]:
+    return tuple(a for a in mesh.axis_names
+                 if a in ("pod", "cluster", "client"))

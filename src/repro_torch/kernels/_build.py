@@ -56,6 +56,10 @@ SIGNATURES = {
                           _I64, _I32, _I32, _I32, _I32, _PTR],
     "ota_aggregate_fused_f32": [_PTR, _I64, _U32, _U32, _U32, _U32, _PTR,
                                 _PTR, _PTR, _I64, _I32, _I32, _I32, _PTR],
+    "ota_mask_count_f32": [_PTR, _PTR, _I64, _PTR, _PTR, _PTR, _PTR, _I64,
+                           _I32, _I32, _I32, _PTR],
+    "ota_channel_f32": [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I32, _I32,
+                        _PTR],
     "threefry_chunk_u32": [_PTR, _I32, _U32, _I32, _PTR, _PTR],
     "flash_attention_bf16": [_PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32,
                              _I32, _I32, _F32, _PTR],

@@ -1,6 +1,7 @@
 """Wrappers of the OTA channel kernels: K1 (client fold), K3 and K4 (slab
-estimate from supplied or in-kernel stream words) and K5 (mask and
-weighted apply).
+estimate from supplied or in-kernel stream words), K5 (mask and
+weighted apply), K6 (mask, weighted apply and |M| count over every
+cluster's stream) and K7 (gain-threshold mask and apply).
 
 Ports of ``repro.kernels.ota_channel.ops``:
 
@@ -15,6 +16,12 @@ Ports of ``repro.kernels.ota_channel.ops``:
 * ``ota_aggregate``: the (P,) estimate of a whole (C, P) weighted slab from
   its supplied gain and noise words, one K3 launch
   (``csrc/ota_aggregate.cu``);
+* ``ota_mask_count_apply``: (M_me ∘ (w·x), Σ_l M_l) for one leaf from
+  every cluster's stream slice (``csrc/ota_mask_count.cu``), the
+  distributed step's collective-free count;
+* ``_ota_channel_impl``, ``ota_channel`` and ``ota_channel_reference``:
+  (M ∘ x, M) under the Box-Muller gain law on a flat slab
+  (``csrc/ota_channel.cu``), the packed ω̃ gather of the distributed step;
 * ``_ota_aggregate_fused_impl``: the packed engine's per-section schedule,
   one launch per non-empty section: K4 (``csrc/ota_aggregate_fused.cu``)
   draws the section's words in the kernel from its two keys, or, with the
@@ -31,14 +38,17 @@ from repro_torch import rng
 from repro_torch.kernels import _build
 from repro_torch.kernels.ota_channel.ref import (
     CHUNK, ota_aggregate_client_ref, ota_aggregate_fused_ref,
-    ota_aggregate_slab_ref, ota_mask_weight_ref, ota_stream_fold_ref,
-    pass_probability,
+    ota_aggregate_slab_ref, ota_channel_ref, ota_mask_count_ref,
+    ota_mask_weight_ref, ota_stream_fold_ref, pass_probability,
 )
+from repro_torch.kernels.slab import LANE, slab_rows
 
 client_fold_counter = _build.LaunchCounter("ota_client_fold")
 mask_weight_counter = _build.LaunchCounter("ota_mask_weight")
 aggregate_counter = _build.LaunchCounter("ota_aggregate")
 fused_counter = _build.LaunchCounter("ota_aggregate_fused")
+mask_count_counter = _build.LaunchCounter("ota_mask_count")
+channel_counter = _build.LaunchCounter("ota_channel")
 
 BLOCK = 256
 BLOCKS_PER_SM = 8
@@ -439,3 +449,177 @@ def _ota_aggregate_fused_impl(wg: torch.Tensor, section_keys,
                              params, p_pass, n_clients, out[cols])
         off += length
     return out
+
+
+# --------------------------------------------------------------------------
+# K6: mask, weighted apply and |M| count over every cluster's stream
+# --------------------------------------------------------------------------
+
+def mask_count_params(sigma2_all, h_th, ota_on, w, me, live_all,
+                      n_clusters: int, device=None) -> torch.Tensor:
+    """K6's params row, laid out as the reference's (1, 2C+4) block:
+    [σ²_0..σ²_{C-1}, H_th, ota_on, w, me, live_0..live_{C-1}]."""
+    live_v = (torch.ones(n_clusters, dtype=torch.float32, device=device)
+              if live_all is None else
+              torch.as_tensor(live_all, dtype=torch.float32,
+                              device=device).reshape(n_clusters))
+    return torch.cat([
+        torch.as_tensor(sigma2_all, dtype=torch.float32,
+                        device=device).reshape(n_clusters),
+        _scalar(h_th, device), _scalar(ota_on, device), _scalar(w, device),
+        _scalar(float(me), device), live_v])
+
+
+def launch_mask_count(x: torch.Tensor, bits: torch.Tensor,
+                      params: torch.Tensor, p_pass: torch.Tensor,
+                      out: torch.Tensor, cnt: torch.Tensor):
+    """Launch K6 on prepared CUDA operands: ``x`` (n,) contiguous float32,
+    ``bits`` (C, n) int32 with unit stride along n (rows may be strided),
+    the ``mask_count_params`` row, ``p_pass`` (C,), and ``out``/``cnt``
+    (n,) float32. Checks what the kernel assumes and raises otherwise."""
+    n_clusters, n = bits.shape
+    dev = x.device
+    if (x.dtype != torch.float32 or not x.is_contiguous()
+            or x.numel() != n):
+        raise ValueError(f"x must be a contiguous float32 CUDA tensor of "
+                         f"{n} entries")
+    _check_rows("bits", bits, (n_clusters, n), torch.int32, dev)
+    for name, t, size in (("params", params, 2 * n_clusters + 4),
+                          ("p_pass", p_pass, n_clusters), ("out", out, n),
+                          ("cnt", cnt, n)):
+        if (t.dtype != torch.float32 or t.device != dev
+                or not t.is_contiguous() or t.numel() != size):
+            raise ValueError(f"{name} must be a contiguous float32 CUDA "
+                             f"tensor of {size} elements")
+    if 8 * n_clusters > _SMEM_LIMIT:
+        raise ValueError(f"C={n_clusters} clusters do not fit the shared "
+                         f"memory of one block")
+    if n == 0:
+        return out, cnt
+    grid = max(1, min(-(-n // BLOCK), BLOCKS_PER_SM * _build.sm_count(dev)))
+    err = _build.library().ota_mask_count_f32(
+        x.data_ptr(), bits.data_ptr(), bits.stride(0), params.data_ptr(),
+        p_pass.data_ptr(), out.data_ptr(), cnt.data_ptr(), n, n_clusters,
+        grid, BLOCK, _build.current_stream_handle(dev))
+    _build.check(err, "ota_mask_count")
+    mask_count_counter.count += 1
+    return out, cnt
+
+
+def ota_mask_count_apply(x: torch.Tensor, bits_all: torch.Tensor, me: int,
+                         sigma2_all, h_th, ota_on, weight, live_all=None):
+    """(M_me ∘ (w·x), Σ_l M_l) shaped like ``x``, both float32, for ONE
+    leaf of the distributed step's backward.
+
+    ``bits_all`` is the (C, n) int32 stack of EVERY cluster's stream slice
+    for the leaf (a column slice of the (C, section) streams is fine: rows
+    may be strided). The masks are pure functions of the streams, so the
+    |M| count needs no collective. ``me`` is this device's cluster index;
+    ``sigma2_all`` and ``live_all`` are (C,), None meaning all live."""
+    n_clusters = bits_all.shape[0]
+    n = x.numel()
+    if tuple(bits_all.shape) != (n_clusters, n):
+        raise ValueError(f"bits {tuple(bits_all.shape)} do not match a leaf "
+                         f"of {n} entries")
+    if not 0 <= int(me) < n_clusters:
+        raise ValueError(f"cluster {me} is not one of {n_clusters}")
+    flat = x.reshape(-1)
+    if x.device.type == "cpu":
+        out, cnt = ota_mask_count_ref(flat, bits_all, me, sigma2_all, h_th,
+                                      ota_on, weight, live_all=live_all)
+        return out.reshape(x.shape), cnt.reshape(x.shape)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    dev = x.device
+    params = mask_count_params(sigma2_all, h_th, ota_on, weight, me,
+                               live_all, n_clusters, device=dev)
+    # the same torch call the plain version makes, on the same device
+    p_pass = pass_probability(params[:n_clusters], params[n_clusters])
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    cnt = torch.empty(n, dtype=torch.float32, device=dev)
+    launch_mask_count(flat.to(torch.float32).contiguous(), bits_all, params,
+                      p_pass, out, cnt)
+    return out.reshape(x.shape), cnt.reshape(x.shape)
+
+
+# --------------------------------------------------------------------------
+# K7: the gain-threshold mask and apply
+# --------------------------------------------------------------------------
+
+def channel_params_row(sigma2, h_th, ota_on, device=None) -> torch.Tensor:
+    """K7's params row, laid out as the reference's (1, 3) block:
+    [σ², H_th, ota_on]."""
+    return torch.cat([_scalar(v, device) for v in (sigma2, h_th, ota_on)])
+
+
+def launch_channel(x: torch.Tensor, bits: torch.Tensor,
+                   params: torch.Tensor, out: torch.Tensor,
+                   mask: torch.Tensor):
+    """Launch K7 on prepared CUDA operands: ``x``, ``bits`` (int32),
+    ``out`` and ``mask`` contiguous (n,) tensors, float32 but ``bits``,
+    and the ``channel_params_row``. Checks what the kernel assumes and
+    raises otherwise."""
+    n = x.numel()
+    dev = x.device
+    for name, t, dtype, size in (("x", x, torch.float32, n),
+                                 ("bits", bits, torch.int32, n),
+                                 ("params", params, torch.float32, 3),
+                                 ("out", out, torch.float32, n),
+                                 ("mask", mask, torch.float32, n)):
+        if (t.dtype != dtype or t.device != dev or not t.is_contiguous()
+                or t.numel() != size):
+            raise ValueError(f"{name} must be a contiguous {dtype} CUDA "
+                             f"tensor of {size} elements")
+    if n == 0:
+        return out, mask
+    grid = max(1, min(-(-n // BLOCK), BLOCKS_PER_SM * _build.sm_count(dev)))
+    err = _build.library().ota_channel_f32(
+        x.data_ptr(), bits.data_ptr(), params.data_ptr(), out.data_ptr(),
+        mask.data_ptr(), n, grid, BLOCK, _build.current_stream_handle(dev))
+    _build.check(err, "ota_channel")
+    channel_counter.count += 1
+    return out, mask
+
+
+def _ota_channel_impl(x: torch.Tensor, bits: torch.Tensor, sigma2, h_th,
+                      ota_on):
+    """(M ∘ x, M) shaped like the float32 ``x`` under the gain law, from
+    same-shape int32 ``bits``: the single home of the (1, 3) params
+    layout (the packed ω̃ gather of ``repro_torch.core.hota`` calls it)."""
+    if tuple(bits.shape) != tuple(x.shape):
+        raise ValueError(f"bits {tuple(bits.shape)} do not match x "
+                         f"{tuple(x.shape)}")
+    if x.device.type == "cpu":
+        out, mask, _ = ota_channel_ref(x, bits, sigma2, h_th, ota_on)
+        return out, mask
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"K7 takes float32, got {x.dtype}")
+    dev = x.device
+    params = channel_params_row(sigma2, h_th, ota_on, device=dev)
+    out = torch.empty_like(x)
+    mask = torch.empty_like(x)
+    launch_channel(x.contiguous().reshape(-1), bits.contiguous().reshape(-1),
+                   params, out.reshape(-1), mask.reshape(-1))
+    return out, mask
+
+
+def _padded_bits(key, n: int, device) -> torch.Tensor:
+    """The first ``n`` words of ``jax.random.bits(key, slab.shape)`` for
+    the (rows, 128) slab the reference pads an n-entry tensor to."""
+    return rng.bits(key, slab_rows(n) * LANE, device=device)[:n]
+
+
+def ota_channel(x: torch.Tensor, key, sigma2, h_th, ota_on=1.0):
+    """Channel mask and apply on any-shape float32 ``x`` under ``key``'s
+    words: (M ∘ x, M) shaped like x, through K7 on the card."""
+    bits = _padded_bits(key, x.numel(), x.device).reshape(x.shape)
+    return _ota_channel_impl(x, bits, sigma2, h_th, ota_on)
+
+
+def ota_channel_reference(x: torch.Tensor, key, sigma2, h_th, ota_on=1.0):
+    """``ota_channel`` through the plain version, on x's device."""
+    bits = _padded_bits(key, x.numel(), x.device).reshape(x.shape)
+    out, mask, _ = ota_channel_ref(x, bits, sigma2, h_th, ota_on)
+    return out, mask

@@ -10,7 +10,11 @@ round-to-nearest like ``bits.astype(f32)``.
     ĝ(j)  = y(j) / (|M(j)| · N_eff), 0 where |M(j)| = 0   (eq. 10, guarded)
 
 These are the CPU path of the kernel wrappers and the yardstick the CUDA
-kernels are held against on the card.
+kernels are held against on the card. Two laws draw the eq.-7 mask:
+``bits_to_mask`` thresholds the raw uniform word against
+P(|H|² ≥ H_th) (the slab engines, K1, K3-K6), and ``ota_channel_ref``
+thresholds a Box-Muller gain, h² ≥ H_th (K7, the packed ω̃ gather of
+the distributed step).
 
 The chunk-quantized stream (DESIGN.md §4) lives here too, since K4's
 plain version draws it: chunk j of a key's stream is ``bits(fold_in(key,
@@ -98,6 +102,35 @@ def ota_mask_weight_ref(x: torch.Tensor, bits: torch.Tensor, sigma2, h_th,
     m = bits_to_mask(bits, sigma2, h_th, ota_on, p_pass=p_pass)
     wx = _f32(w, x) * x.to(torch.float32)
     return torch.where(m, wx, torch.zeros_like(wx)), m.to(torch.float32)
+
+
+def ota_mask_count_ref(x: torch.Tensor, bits_all: torch.Tensor, me: int,
+                       sigma2_all, h_th, ota_on, w, live_all=None):
+    """K6's plain version: (M_me ∘ (w·x), Σ_l M_l) over float32 ``x`` of n
+    entries and the (C, n) int32 words of EVERY cluster's stream, with
+    M_l = (u_l < p_pass_l ∨ ota_on < 0.5) ∧ live_l > 0.5 and ``me`` this
+    device's cluster. ``sigma2_all`` and ``live_all`` are (C,)."""
+    c = bits_all.shape[0]
+    sig = torch.as_tensor(sigma2_all, dtype=torch.float32).reshape(c, 1)
+    masks = bits_to_mask(bits_all, sig, h_th, ota_on)
+    if live_all is not None:
+        lv = torch.as_tensor(live_all, dtype=torch.float32).reshape(c, 1)
+        masks = torch.logical_and(masks, lv.to(masks.device) > 0.5)
+    cnt = torch.sum(masks.to(torch.float32), dim=0)
+    wx = _f32(w, x) * x.to(torch.float32)
+    out = torch.where(masks[int(me)], wx, torch.zeros_like(wx))
+    return out, cnt
+
+
+def ota_channel_ref(x: torch.Tensor, bits: torch.Tensor, sigma2, h_th,
+                    ota_on=1.0):
+    """K7's plain version: the Box-Muller gain h ~ N(0, σ²) of each word,
+    M = h² ≥ H_th ∨ ota_on < 0.5, and (M ∘ x, M, h) with M in x's dtype;
+    ``bits`` has x's shape."""
+    h = bits_to_gaussian(bits, sigma2)
+    mask = torch.logical_or(h * h >= _f32(h_th, h), _f32(ota_on, h) < 0.5)
+    out = torch.where(mask, x, torch.zeros_like(x))
+    return out, mask.to(x.dtype), h
 
 
 def ota_stream_fold_ref(g: torch.Tensor, p_c: torch.Tensor,

@@ -15,3 +15,10 @@ ROW_QUANTUM = LANE * SUBLANE   # smallest lane-aligned flat section (1024)
 def round_up(n: int, m: int) -> int:
     """Smallest multiple of ``m`` that is >= ``n`` (0 stays 0)."""
     return -(-n // m) * m
+
+
+def slab_rows(n: int) -> int:
+    """Rows of the (rows, LANE) slab that holds ``n`` flat entries (>= 8):
+    the reference draws a padded slab's words for an arbitrary-shape
+    tensor, so the port draws as many to get the same stream."""
+    return max(SUBLANE, round_up(-(-n // LANE), SUBLANE))

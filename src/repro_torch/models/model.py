@@ -56,23 +56,26 @@ class Model:
         if self.is_lm:
             return T.dense_trunk_specs(self.cfg)
         d = self.dims
-        return {f"fc{i}": {"w": ParamSpec((d[i], d[i + 1])),
-                           "b": ParamSpec((d[i + 1],), "zeros")}
+        return {f"fc{i}": {"w": ParamSpec((d[i], d[i + 1]),
+                                          axes=("embed", "mlp")),
+                           "b": ParamSpec((d[i + 1],), "zeros",
+                                          axes=("mlp",))}
                 for i in range(len(d) - 2)}   # all but the last FC
 
     def final_specs(self):
         if self.is_lm:
             return T.final_specs(self.cfg)
         d = self.dims
-        return {"w": ParamSpec((d[-2], d[-1])),
-                "b": ParamSpec((d[-1],), "zeros")}
+        return {"w": ParamSpec((d[-2], d[-1]), axes=("embed", "mlp")),
+                "b": ParamSpec((d[-1],), "zeros", axes=("mlp",))}
 
     def head_specs(self, n_out=None):
         if self.is_lm:
             return {"w": ParamSpec((self.cfg.d_model,
                                     n_out or self.cfg.vocab_size))}
-        return {"w": ParamSpec((self.dims[-1], n_out)),
-                "b": ParamSpec((n_out,), "zeros")}
+        return {"w": ParamSpec((self.dims[-1], n_out),
+                               axes=("embed", "vocab")),
+                "b": ParamSpec((n_out,), "zeros", axes=("vocab",))}
 
     def backbone_specs(self):
         return {"trunk": self.trunk_specs(), "final": self.final_specs()}
@@ -110,7 +113,7 @@ class Model:
 
     # ---------------- LM serving ----------------
     def init_cache(self, batch: int, cache_len: int, dtype=torch.bfloat16,
-                   device="cpu"):
+                   device="cuda"):
         if not self.is_lm:
             raise ValueError("the mlp family has no cache")
         return T.init_dense_cache(self.cfg, batch, cache_len, dtype, device)

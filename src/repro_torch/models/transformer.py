@@ -26,6 +26,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from repro_torch.common.config import ModelConfig
+from repro_torch.common.device import resolve_device
 from repro_torch.common.tree import tree_leaves, tree_map
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamSpec
@@ -287,8 +288,10 @@ def dense_trunk_apply(params, tokens_or_embeds, cfg: ModelConfig, *,
 # --------------------------------------------------------------------------
 
 def init_dense_cache(cfg: ModelConfig, batch: int, cache_len: int,
-                     dtype=torch.bfloat16, device="cpu"):
-    """Empty stacked cache for decode from scratch."""
+                     dtype=torch.bfloat16, device="cuda"):
+    """Empty stacked cache for decode from scratch, on the card unless the
+    caller asks for the CPU."""
+    device = resolve_device(device)
     kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
 
     def one(lead, window):

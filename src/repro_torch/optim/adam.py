@@ -34,8 +34,10 @@ def adam_init(params, batch_shape=()) -> AdamState:
 
 
 def adam_update(grads, state: AdamState, params, lr, b1: float = 0.9,
-                b2: float = 0.999, eps: float = 1e-8):
-    """One Adam step on trees (or on single tensors). Returns
+                b2: float = 0.999, eps: float = 1e-8,
+                weight_decay: float = 0.0):
+    """One Adam step on trees (or on single tensors), with decoupled
+    weight decay added to the step when ``weight_decay`` is set. Returns
     (new_params, new_state)."""
     step = state.step + 1
     t = step.to(torch.float32)
@@ -60,6 +62,8 @@ def adam_update(grads, state: AdamState, params, lr, b1: float = 0.9,
         mhat = m / per_leaf(bc1, m)
         vhat = v / per_leaf(bc2, v)
         delta = mhat / (torch.sqrt(vhat) + eps)
+        if weight_decay:
+            delta = delta + weight_decay * p.to(torch.float32)
         return (p.to(torch.float32) - lr * delta).to(p.dtype)
 
     return tree_map(upd, params, mu, nu), AdamState(step=step, mu=mu, nu=nu)
@@ -98,7 +102,8 @@ def slab_adam_init(params) -> SlabAdamState:
 
 
 def slab_adam_update(grads, state: SlabAdamState, params, lr,
-                     b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                     b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                     weight_decay: float = 0.0):
     """One Adam step on the slab view: ``grads``/``params`` are trees
     or flat (L,) slabs; the moments never leave the slab. Same math as
     ``adam_update``."""
@@ -106,7 +111,7 @@ def slab_adam_update(grads, state: SlabAdamState, params, lr,
     p_slab = params if torch.is_tensor(params) else tree_to_slab(params)
     new_p, inner = adam_update(g_slab, AdamState(state.step, state.mu,
                                                  state.nu),
-                               p_slab, lr, b1, b2, eps)
+                               p_slab, lr, b1, b2, eps, weight_decay)
     new_state = SlabAdamState(step=inner.step, mu=inner.mu, nu=inner.nu)
     if torch.is_tensor(params):
         return new_p, new_state

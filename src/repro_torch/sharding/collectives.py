@@ -1,0 +1,131 @@
+"""Collectives over the named axes of a ``Mesh``: the port's ``lax.psum``,
+``pmean``, ``pmax``, ``psum_scatter(tiled=True)`` and
+``all_gather(tiled=True)``, written on ``torch.distributed``
+(``lax.axis_index`` is ``Mesh.axis_index``).
+
+Each reduces over the process group of the mesh slice along the named
+axes. Where several axes are named, a piece's place follows the axes'
+order (major to minor), not the ranks' order, as in JAX: an all-gather
+over ("client", "cluster") is client-major.
+
+Every collective takes the rank's tensors where they lie: NCCL (one card
+per rank) and gloo (ranks sharing a card, or on the CPU) both run
+all-reduce, all-gather and reduce-scatter on CUDA tensors, gloo through
+its own host buffers (``chip_smoke.py`` checks that gloo does).
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.sharding.mesh_utils import Mesh, _names
+
+
+class MeshStats:
+    """Wall seconds, calls and bytes of a rank's timed work, by kind:
+    "collective" (every collective here) and "draw" (the stream draws of
+    the slab backward, ``core.hota_slab``)."""
+
+    def __init__(self):
+        self.seconds: Dict[str, float] = {}
+        self.calls: Dict[str, int] = {}
+        self.bytes: Dict[str, int] = {}
+
+
+def timed(mesh: Mesh, kind: str, nbytes: int, fn):
+    """``fn()``, timed into ``mesh.stats`` under ``kind`` when the mesh
+    has stats (a device synchronize on each side, so the time is the
+    work's own); with no stats, just ``fn()``."""
+    st = mesh.stats
+    if st is None:
+        return fn()
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+    t0 = time.perf_counter()
+    out = fn()
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+    st.seconds[kind] = st.seconds.get(kind, 0.0) + time.perf_counter() - t0
+    st.calls[kind] = st.calls.get(kind, 0) + 1
+    st.bytes[kind] = st.bytes.get(kind, 0) + nbytes
+    return out
+
+
+def psum(x: torch.Tensor, mesh: Mesh, axes, op=None) -> torch.Tensor:
+    """Sum of ``x`` over the ranks along ``axes``: reduces the contiguous
+    tensor ``x`` in place and returns it."""
+    if not _names(axes) or mesh.axis_size(axes) == 1:
+        return x
+    if not x.is_contiguous():
+        raise ValueError("psum reduces in place: pass a contiguous tensor")
+    group, _ = mesh.group(axes)
+    op = dist.ReduceOp.SUM if op is None else op
+    timed(mesh, "collective", x.numel() * x.element_size(),
+           lambda: dist.all_reduce(x, op=op, group=group))
+    return x
+
+
+def pmean(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
+    return psum(x, mesh, axes) / mesh.axis_size(axes)
+
+
+def pmax(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
+    return psum(x, mesh, axes, op=dist.ReduceOp.MAX)
+
+
+def _order(mesh: Mesh, axes, members):
+    """Group positions in the axes' order: entry i is the group position
+    of the member whose index along ``axes`` is i."""
+    pos = [0] * len(members)
+    for p, r in enumerate(members):
+        pos[mesh.axis_index(axes, r)] = p
+    return pos
+
+
+def all_gather(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:
+    """``lax.all_gather(x, axes, axis=dim, tiled=True)``: the pieces of
+    every rank along ``axes`` concatenated along ``dim`` in the axes'
+    order."""
+    if not _names(axes) or mesh.axis_size(axes) == 1:
+        return x
+    group, members = mesh.group(axes)
+    k = len(members)
+    src = x.contiguous().reshape(-1)
+    buf = torch.empty(k * src.numel(), dtype=src.dtype, device=src.device)
+    timed(mesh, "collective", buf.numel() * buf.element_size(),
+           lambda: dist.all_gather_into_tensor(buf, src, group=group))
+    pieces = buf.reshape((k,) + tuple(x.shape))[_order(mesh, axes, members)]
+    shape = list(x.shape)
+    shape[dim] *= k
+    return pieces.movedim(0, dim).reshape(shape)
+
+
+def reduce_scatter(x: torch.Tensor, mesh: Mesh, axes,
+                   dim: int) -> torch.Tensor:
+    """``lax.psum_scatter(x, axes, scatter_dimension=dim, tiled=True)``:
+    the sum over the ranks along ``axes``, of which this rank keeps the
+    piece along ``dim`` at its index along ``axes``."""
+    if not _names(axes) or mesh.axis_size(axes) == 1:
+        return x
+    group, members = mesh.group(axes)
+    k = len(members)
+    shape = list(x.shape)
+    if shape[dim] % k:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"into {k} pieces")
+    shape[dim] //= k
+    pieces = x.movedim(dim, 0).reshape((k, shape[dim]) + tuple(
+        s for d, s in enumerate(x.shape) if d != dim))
+    # group position p receives the piece at its member's axes index
+    idx = [mesh.axis_index(axes, r) for r in members]
+    if idx != list(range(k)):
+        pieces = pieces[idx]
+    src = pieces.contiguous().reshape(-1)
+    out = torch.empty(src.numel() // k, dtype=src.dtype, device=src.device)
+    timed(mesh, "collective", src.numel() * src.element_size(),
+           lambda: dist.reduce_scatter_tensor(out, src, group=group))
+    moved = (shape[dim],) + tuple(s for d, s in enumerate(shape) if d != dim)
+    return out.reshape(moved).movedim(0, dim)

@@ -155,14 +155,17 @@ def test_kernel_sources_and_build_without_nvcc(monkeypatch, tmp_path):
     names = sorted(s.name for s in _build.sources())
     assert names == ["flash_attention.cu", "masked_gradnorm.cu",
                      "ota_aggregate.cu", "ota_aggregate_fused.cu",
-                     "ota_client_fold.cu", "ota_mask_weight.cu"]
+                     "ota_channel.cu", "ota_client_fold.cu",
+                     "ota_mask_count.cu", "ota_mask_weight.cu"]
     assert sorted(h.name for h in _build.headers()) == [
         "ota_estimate.cuh", "threefry.cuh"]
     for src in _build.sources():
         text = src.read_text()
         assert "cudaGetLastError" in text and "Replaces the TPU kernel" in text
-    # K3 and K4 share the per-entry estimate; K4 includes the generator
-    for name in ("ota_aggregate.cu", "ota_aggregate_fused.cu"):
+    # K3 and K4 share the per-entry estimate (K7 its Box-Muller draw); K4
+    # includes the generator
+    for name in ("ota_aggregate.cu", "ota_aggregate_fused.cu",
+                 "ota_channel.cu"):
         text = next(s for s in _build.sources() if s.name == name).read_text()
         assert '#include "ota_estimate.cuh"' in text
     fused = next(s for s in _build.sources()
@@ -170,7 +173,8 @@ def test_kernel_sources_and_build_without_nvcc(monkeypatch, tmp_path):
     assert '#include "threefry.cuh"' in fused
     for entry in ("ota_aggregate_f32", "ota_aggregate_fused_f32",
                   "threefry_chunk_u32", "flash_attention_bf16",
-                  "flash_attention_f32"):
+                  "flash_attention_f32", "ota_mask_count_f32",
+                  "ota_channel_f32"):
         assert entry in _build.SIGNATURES
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

@@ -197,6 +197,18 @@ def test_causality(arch):
     assert not np.array_equal(a[:, -1].numpy(), b[:, -1].numpy())
 
 
+def test_init_cache_is_on_the_card_by_default():
+    """An empty cache lands on the card unless the CPU is asked for; with
+    no card, the default raises instead of quietly building on the CPU."""
+    model = build_model(configs.get_smoke_config("starcoder2_3b"))
+    if torch.cuda.is_available():
+        assert model.init_cache(B, 9)["k"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            model.init_cache(B, 9)
+    assert model.init_cache(B, 9, device="cpu")["k"].device.type == "cpu"
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_init_cache_matches_jax(arch):
     """An empty cache has the reference's leaves, shapes and dtypes, and a
@@ -204,7 +216,7 @@ def test_init_cache_matches_jax(arch):
     ref, model, backbone, head = _port(arch)
     jm = jax_build_model(jax_smoke_config(arch).replace(attn_impl="pallas"))
     want = _np(jm.init_cache(B, 9, jnp.float32))
-    got = model.init_cache(B, 9, torch.float32)
+    got = model.init_cache(B, 9, torch.float32, device="cpu")
     _check_cache(got, want, "init")
     tok = ref["tokens"][:, :1]
     pos = np.zeros((B,), np.int32)
