@@ -12,12 +12,16 @@ imports only ``repro_torch`` (never ``jax`` or the JAX package) and runs:
    and a ragged bias leaf, in the default, ``ota_on=0``, dead-cluster and
    N_eff cases (rtol 1e-5, atol 1e-6: FMA contraction moves the last bit);
 4. K2 ``masked_gradnorm`` against its plain version at (C=10, N=3,
-   P̃=131328) (rtol 1e-5: summation order);
+   P̃=131328) and at ragged (C, T, P) (P = 1, P not a multiple of 4, one
+   row) (rtol 1e-5: summation order), and two launches equal bit for bit
+   (its rows are split over blocks and the partials added in a fixed
+   order);
 5. the main path: ``paper_mlp_setup`` at the paper's full width (Table-I
    MLP, C=10 clusters, N=3 clients, batch 24; the dataset cut to
    ``N_POINTS`` points for host-side set-up time) for ``ROUNDS`` rounds,
    with every launch counter set to 0 just before and read just after
-   (10 K1 launches and 1 K2 launch per round), finite losses, and one
+   (10 K1 launches and 1 K2 launch per round; every stream word drawn on
+   the card, none by the plain draw), finite losses, and one
    round on the card held against the same round on the CPU with the
    plain versions (loss/p/grad_norms rtol 1e-4; ω and the PS Adam moment
    (0.1·ĝ) by relative L2 error 1e-3, since a first Adam step maps
@@ -29,7 +33,8 @@ imports only ``repro_torch`` (never ``jax`` or the JAX package) and runs:
    around calls queued behind a spacer kernel: no host launch gaps, but
    the device's gaps between launches) beside their
    bounds, their plain versions and K2's ``torch.linalg.vector_norm``
-   yardstick (``torch.profiler`` kernel events) and their back-to-back
+   yardstick (``torch.profiler`` kernel events), K2's one-block-per-row
+   design that its split rows replaced, and their back-to-back
    launch time (CUDA events); the
    threefry stream draw and the client update; and the device-time
    breakdown of ``TRACED_ROUNDS`` traced rounds;
@@ -47,20 +52,26 @@ imports only ``repro_torch`` (never ``jax`` or the JAX package) and runs:
    scenarios for ``BANK_ROUNDS`` rounds on each engine, counters set to 0
    just before and read just after each engine's run (per scenario round:
    K5 C x 10 leaves = 100 on the two streaming engines, 0 elsewhere; K1 10
-   on client-folded and sectioned, 0 on the streaming engines; K2 1),
+   on client-folded and sectioned, 0 on the streaming engines; K2 1; the
+   stream draws on the card, none plain),
    finite metrics, and the engines' banks against the client-folded bank
    (loss/p rtol 1e-4, ω relative L2 1e-3); then per engine the median
    bank round over ``TIMED_BANK_ROUNDS`` rounds (host clock), one traced
    bank round, and K5's device time per scenario round at the round's
    shapes beside its bound and its plain version;
-10. K3 ``ota_aggregate`` (supplied words) and K4 ``ota_aggregate_fused``
-   (threefry2x32 in the kernel) against their plain versions on the card,
-   in both ``jax_threefry_partitionable`` layouts, at trunk fc2.w width
+10. the stream draws (``csrc/threefry_stream.cu``) against the plain
+   draws word for word in both ``jax_threefry_partitionable`` layouts:
+   (C, 2) and (S, C, 2) key tables, chunk ranges from j0 > 0, ranges
+   starting inside a chunk, the first P = 3,938,304 words, and the flat
+   form at n = 1, CHUNK - 1, CHUNK + 1 and P; their time for one round's
+   words and for one slab's flat words beside their INT32 bound and the
+   plain draw. Then K3 ``ota_aggregate`` (supplied words) and K4
+   ``ota_aggregate_fused`` (threefry2x32 in the kernel) against their
+   plain versions on the card, in both layouts, at trunk fc2.w width
    (2,097,152 entries), the fc2 section (2,099,200: a partial last chunk)
    and a small odd width, in the default, ``ota_on=0``, σ²=0.05 and
    all-blocked cases (rtol 1e-5, atol 1e-6; all-blocked exactly 0); K3
-   equal to K4 bit for bit on the same words; the device generator's
-   words equal to ``rng.bits`` word for word;
+   equal to K4 bit for bit on the same words;
 11. the packed path at full width (3,938,304 entries, C=10, N=3) on one
    round's gradients, counters set to 0 just before and read just after:
    ``ota_aggregate_packed`` fused (one K4 launch per section) equal to
@@ -90,12 +101,15 @@ imports only ``repro_torch`` (never ``jax`` or the JAX package) and runs:
 14. K8 ``flash_attention`` against its plain version on the card: small
    shapes in float32 (rtol/atol 2e-5, the reference's own test) and
    bfloat16 (2e-2) covering D 64/128/240, 1/2/12 query heads per KV head,
-   no window and windows under a key tile, ragged S; then StarCoder2-3B's
+   no window and windows under a key tile, ragged S, S = 8193 with no
+   window at D 64 and 128 (bfloat16 at D 64 and 128 runs the Hopper
+   kernel, TMA + wgmma; D 240 the mma.sync one); then StarCoder2-3B's
    layer at the serve's B=4 (S=8192, 24 heads over 2, D=128, window 4096,
    bfloat16), each batch element against the plain version (a 6.4 GB
    score matrix each) within 2e-2 and every (s, h) row within relative
    L2 ``K8_ROW_LIMIT``. On those inputs, its time per launch beside its
-   bound (tensor core operations), the plain version's (one batch element
+   bound (tensor core operations), the mma.sync design it replaced at this
+   shape (timed in turns with it), the plain version's (one batch element
    at a time) and ``scaled_dot_product_attention`` with ``enable_gqa``
    (the window as a boolean mask, and causal only) as the library
    yardstick;
@@ -151,10 +165,14 @@ imports only ``repro_torch`` (never ``jax`` or the JAX package) and runs:
    masks may flip within a few ulp of H_th between the two devices' log
    and cos), the masked norms rtol 1e-5.
 
+Every counted run also counts the stream draws: the card's two draw
+kernels and the plain draw, which must stay at 0 on the card.
+
 Any failure exits non-zero. The line before last is the card's name and
 power limit, the one before it the kernels' JSON (K1, K2, K5, K3, K4, K8,
-K6 and K7; each kernel's ``launches`` sums its counts over the main-path
-runs of phases 5, 9, 11, 12, 13, 16, 19 and 20, over all ranks); the last
+K6, K7 and the two stream draws; each kernel's ``launches`` sums its
+counts over the main-path runs of phases 5, 9, 11, 12, 13, 16, 19 and 20,
+over all ranks, and a kernel never launched there fails the run); the last
 line is
 ``{"ok": true, "device": {...}}``. An earlier ``[record]`` line holds every
 number measured, as JSON.
@@ -189,8 +207,8 @@ F32_FLOPS_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
 INT32_LANES_PER_SM = 64       # Hopper: INT32 units per SM (x SMs x clock)
 # INT32-pipe instructions of one threefry2x32 as nvcc builds it for
 # sm_90a: 20 rotates (SHF), 21 xors (LOP3) and 7 three-input adds (IADD3),
-# from the SASS of threefry_chunk_kernel (4 hashes: 80 SHF, 85 LOP3, 27
-# IADD3; ``python -m repro_torch.kernels.sass_mix threefry_chunk``). The
+# from the SASS of a one-chunk generator that ran 4 hashes (80 SHF, 85
+# LOP3, 27 IADD3; ``python -m repro_torch.kernels.sass_mix threefry``). The
 # hash's other adds issue as IMAD, which Hopper runs on the FMA pipe.
 HASH_INT_OPS = 48
 HASH_LOGIC_OPS = 41     # the floor: rotates and xors alone
@@ -225,6 +243,10 @@ DIST_STEPS = 3                # counted steps per count mode
 DIST_TIMED_STEPS = 5          # timed steps per count mode
 DIST_LEAVES = 10              # K6 (or K5) launches per rank per step
 CPU_RANK_THREADS = 2          # intra-op threads of each CPU rank
+
+# the stream draws (phase 10): the card's kernel and the plain draw
+DRAW_NAMES = ("threefry_chunked", "threefry_flat", "stream_draw_plain")
+DRAW_TOTAL = {}               # device draws over the main-path runs
 
 
 def _profile_acts():
@@ -388,6 +410,30 @@ def kernel_ms(launches, iters: int):
          f"longer than the largest spacer kernel")
 
 
+def draw_counters():
+    """The stream draws' counters: the card's two kernels and the plain
+    draw (``ref.plain_draw_counter``)."""
+    from repro_torch.kernels.ota_channel import ops, ref
+    return (ops.stream_counter, ops.bits_counter, ref.plain_draw_counter)
+
+
+def take_draws(where: str, launches: dict, draws_words: bool = True):
+    """Move the stream-draw counts out of a run's launch counts and check
+    them: a run on the card draws no word with the plain draw, and one that
+    draws channel words (``draws_words``) draws them on the card. Adds the
+    device draws to ``DRAW_TOTAL``; returns the draw counts."""
+    d = {k: launches.pop(k) for k in DRAW_NAMES if k in launches}
+    if d.get("stream_draw_plain", 0):
+        fail(f"{where}: {d['stream_draw_plain']} plain stream draws on the "
+             f"card")
+    if draws_words and not d.get("threefry_chunked", 0) + d.get(
+            "threefry_flat", 0):
+        fail(f"{where}: no stream word drawn on the card")
+    for k in DRAW_NAMES[:2]:
+        DRAW_TOTAL[k] = DRAW_TOTAL.get(k, 0) + d.get(k, 0)
+    return d
+
+
 def host_ms(fn) -> float:
     """Host wall time of one call that ends in a device synchronize."""
     import torch
@@ -516,11 +562,12 @@ def bank_runs(sims, specs, batches, keys, counters):
     the same initial state, counters set to 0 just before each run and
     read just after. Returns {engine: (bank, states, history, launches)}."""
     import torch
+    from repro_torch import rng
     from repro_torch.core.sweep import ScenarioBank
     out = {}
     for name, esim in sims.items():
         bank = ScenarioBank(esim, specs)
-        states = bank.init(0)
+        states = bank.init(rng.PRNGKey(0))
         torch.cuda.synchronize()
         for ctr in counters:
             ctr.reset()
@@ -606,13 +653,13 @@ def k4_hashes(lens, c: int, partitionable: bool) -> int:
 
 
 def check_k34(dev, c, record):
-    """Phase 10: the device generator, K3 and K4 against their plain
-    versions and K3 against K4, in both threefry layouts."""
+    """Phase 10: K3 and K4 against their plain versions and K3 against
+    K4, in both threefry layouts."""
     import torch
     from repro_torch import rng
     from repro_torch.kernels.ota_channel import ops
     from repro_torch.kernels.ota_channel.ref import (
-        CHUNK, chunked_stream, ota_aggregate_fused_ref, ota_aggregate_slab_ref,
+        chunked_stream, ota_aggregate_fused_ref, ota_aggregate_slab_ref,
     )
     gen = torch.Generator(device=dev).manual_seed(10)
     sig = torch.linspace(0.25, 2.5, c, device=dev)
@@ -625,16 +672,6 @@ def check_k34(dev, c, record):
     try:
         for part in (True, False):
             rng.set_threefry_partitionable(part)
-            keys = rng.fold_in(rng.PRNGKey(7).unsqueeze(0), torch.arange(3))
-            for j in (0, 5, 16):
-                got = ops.threefry_chunk(keys, j, dev)
-                want = rng.bits(rng.fold_in(keys, j), CHUNK, device=dev)
-                if not torch.equal(got, want):
-                    fail(f"device threefry (partitionable={part}) chunk {j}: "
-                         f"{int((got != want).sum())} words differ from "
-                         f"rng.bits")
-            log(f"[threefry] partitionable={part}: device words equal "
-                f"rng.bits for 3 keys x chunks 0, 5, 16")
             for n in K34_WIDTHS:
                 # a column slice of a wider slab, as the packed path reads
                 wg = torch.randn((c, n + 1024), generator=gen,
@@ -669,6 +706,126 @@ def check_k34(dev, c, record):
         rng.set_threefry_partitionable(prev)
     record["k34_check"] = errs
     return errs["k3"], errs["k4"]
+
+
+def check_draws(dev, c, packer, chan_key, record):
+    """Phase 10: the card's stream draws against the plain draws, word for
+    word in both threefry layouts, then their time for one round's words
+    (the chunk-quantized kernel) and one slab's flat words (K7's gather)
+    beside their INT32 bound and the plain draw."""
+    import torch
+    from repro_torch import rng
+    from repro_torch.core import ota
+    from repro_torch.kernels.ota_channel import ops, ref
+    from repro_torch.kernels.slab import LANE, slab_rows
+    chunk, p_total = ref.CHUNK, sum(sec.length for sec in packer.sections)
+    prev = rng.threefry_partitionable()
+    words, err = 0, 0
+    try:
+        for part in (True, False):
+            rng.set_threefry_partitionable(part)
+            keys = rng.fold_in(rng.PRNGKey(7).unsqueeze(0), torch.arange(c))
+            table = keys.reshape(-1, 2, 2)      # an (S, C) key table
+            cases = []
+            for j0, j1 in ((0, 0), (3, 5), (29, 30)):
+                cases.append((f"(C, 2) keys, chunks {j0}..{j1}",
+                              functools.partial(ops.chunk_stream, keys, j0,
+                                                j1, dev),
+                              functools.partial(ref.chunk_stream, keys, j0,
+                                                j1, dev)))
+            for start, length in ((5, 100), (chunk - 7, 20),
+                                  (2 * chunk + 3, chunk + 5), (0, p_total)):
+                cases.append((f"{tuple(table.shape[:-1])} keys, words "
+                              f"[{start}, {start} + {length})",
+                              functools.partial(ops.stream_range, table,
+                                                start, length, dev),
+                              functools.partial(ref.stream_range, table,
+                                                start, length, dev)))
+            cases.append(("(C, 2) keys, the first P words",
+                          functools.partial(ops.chunked_stream, keys,
+                                            p_total, dev),
+                          functools.partial(ref.chunked_stream, keys,
+                                            p_total, dev)))
+            for n in (1, chunk - 1, chunk + 1, p_total):
+                cases.append((f"flat n={n}",
+                              functools.partial(ops.bits, keys[:3], n, dev),
+                              functools.partial(rng.bits, keys[:3], n,
+                                                device=dev)))
+            for what, got_fn, want_fn in cases:
+                got = got_fn()
+                torch.cuda.synchronize()
+                want = want_fn()
+                if got.shape != want.shape or not torch.equal(got, want):
+                    fail(f"stream draw (partitionable={part}) {what}: "
+                         f"{int((got != want).sum())} words differ from "
+                         f"the plain draw")
+                words += got.numel()
+                err = max(err, int((got.long() - want.long()).abs().max()))
+                del got, want
+            log(f"[draw] partitionable={part}: the card's words equal the "
+                f"plain draw's in {len(cases)} cases (chunk ranges, offsets "
+                f"inside a chunk, flat n = 1, CHUNK - 1, CHUNK + 1, "
+                f"{p_total})")
+    finally:
+        rng.set_threefry_partitionable(prev)
+
+    # one round's words: every section's (C, len) gain and (len,) noise
+    # stream, the launches a client-folded round makes, keys staged first
+    folds = torch.tensor(ota.packed_section_folds(packer), dtype=torch.int64)
+    skeys = rng.fold_in(rng.as_key(chan_key).unsqueeze(0), folds)
+    nkeys = rng.fold_in(ota.noise_key(chan_key).unsqueeze(0), folds)
+    launches, plains, n_words = [], [], 0
+    for sec in packer.sections:
+        gkeys = rng.fold_in(skeys[sec.index].unsqueeze(0), torch.arange(c))
+        for kk in (gkeys, nkeys[sec.index:sec.index + 1]):
+            kd = rng.to_bit_pattern(kk).to(dev)
+            out = torch.empty((kd.shape[0], sec.length), dtype=torch.int32,
+                              device=dev)
+            launches.append(functools.partial(ops.launch_chunked, kd, 0, out))
+            plains.append(functools.partial(ref.chunked_stream, kk,
+                                            sec.length, dev))
+            n_words += kd.shape[0] * sec.length
+    ms, queued, kept = kernel_ms(launches, 20)
+    plain_ms = device_ms(lambda: [f() for f in plains], 2)
+    # one hash per word (partitionable) and one chunk key per block of
+    # 2048 words; 4 bytes written per word
+    hashes = n_words + -(-n_words // 2048)
+    int_rate = int32_ops_per_s(dev)
+    t_ops = hashes * HASH_INT_OPS / int_rate
+    t_bytes = 4 * n_words / HBM_BYTES_PER_S
+    chunked = {"words": n_words, "launches_per_round": len(launches),
+               "ms": ms, "queued_ms": queued, "recorded": kept,
+               "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "max_abs_err": float(err)}
+
+    # one slab's flat words (K7's packed ω̃ gather: the Table-I slab padded
+    # to whole rows)
+    n_flat = slab_rows(TABLE_I_PARAMS) * LANE
+    fkey = rng.fold_in(rng.PRNGKey(78), 1)
+    kd = rng.to_bit_pattern(fkey.reshape(1, 2)).to(dev)
+    out = torch.empty((1, n_flat), dtype=torch.int32, device=dev)
+    fms, fqueued, fkept = kernel_ms(
+        [functools.partial(ops.launch_flat, kd, out)], 50)
+    fplain = device_ms(lambda: rng.bits(fkey, n_flat, device=dev), 3)
+    t_ops = (n_flat + -(-n_flat // 1024)) * HASH_INT_OPS / int_rate
+    t_bytes = 4 * n_flat / HBM_BYTES_PER_S
+    flat = {"words": n_flat, "ms": fms, "queued_ms": fqueued,
+            "recorded": fkept, "plain_ms": fplain,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "max_abs_err": float(err)}
+    if min(ms, plain_ms, fms, fplain) <= 0.0:
+        fail("no device time measured for the stream draws")
+    record["draws"] = {"words_checked": words, "chunked": chunked,
+                       "flat": flat}
+    log(f"[time] stream draw of one round's words ({n_words:,} words, "
+        f"{len(launches)} launches): {ms:.4f} ms device (queued "
+        f"{queued:.4f}, records kept {kept:.0%}), plain draw "
+        f"{plain_ms:.4f} ms, bound {chunked['bound_ms']:.4f} ms "
+        f"({chunked['bound_by']}); flat draw of {n_flat:,} words: "
+        f"{fms:.4f} ms (plain {fplain:.4f}, bound {flat['bound_ms']:.4f})")
+    return chunked, flat
 
 
 def packed_path(sim, state, batch, key, dev, record, counters):
@@ -726,6 +883,7 @@ def packed_path(sim, state, batch, key, dev, record, counters):
     banked = [flat(t) for t in packed_bank()]
     torch.cuda.synchronize()
     launches = {ctr.name: ctr.count for ctr in counters}
+    record["packed_draws"] = take_draws("packed path", launches)
     want = {"ota_client_fold": 0, "masked_gradnorm": 0, "ota_mask_weight": 0,
             "ota_aggregate": n_sec + BANK_S, "ota_aggregate_fused": n_sec}
     if launches != want:
@@ -876,7 +1034,7 @@ def perleaf_phase(sim, batcher, key0, dev, record, counters):
     fl = dataclasses.replace(sim.fl, use_pallas_ota=False)
     n_cls = sim.n_classes.tolist()
     psim = HotaSim(sim.model, fl, sim.tcfg, n_cls, device=dev)
-    st = psim.init(0)
+    st = psim.init(rng.PRNGKey(0))
     batches = [batcher.next_stacked() for _ in range(PERLEAF_ROUNDS + 1)]
     keys = [rng.fold_in(key0, 3000 + r) for r in range(PERLEAF_ROUNDS + 1)]
     torch.cuda.synchronize()
@@ -888,7 +1046,9 @@ def perleaf_phase(sim, batcher, key0, dev, record, counters):
         losses.append(m["loss"])
     torch.cuda.synchronize()
     launches = {ctr.name: ctr.count for ctr in counters}
-    want = {ctr.name: 0 for ctr in counters}
+    record["perleaf_draws"] = take_draws("per-leaf round", launches,
+                                         draws_words=False)
+    want = {ctr.name: 0 for ctr in counters if ctr.name not in DRAW_NAMES}
     want["masked_gradnorm"] = PERLEAF_ROUNDS
     if launches != want:
         fail(f"per-leaf launches {launches}, expected {want}")
@@ -989,7 +1149,7 @@ def tuner_phase(sim, batcher, dev, record, counters):
                                  device=dev), specs)
     cbank = ScenarioBank(HotaSim(sim.model, fl_t, sim.tcfg, n_cls,
                                  device="cpu"), specs)
-    states = tbank.init(0)
+    states = tbank.init(rng.PRNGKey(0))
     x, y = batcher.next_stacked()
     key = rng.PRNGKey(4000)
     st_g, m_g = tbank.step(states, x, y, key)
@@ -1010,7 +1170,7 @@ def tuner_phase(sim, batcher, dev, record, counters):
     per = SWEEP_ROUNDS * len(specs)       # scenario rounds of the sweep
     packer = tbank.sim.packer(tbank.scenario_state(states, 0).omega)
     n_runs = 0 if packer is None else len(packer.leaf_runs())  # K1 each
-    want = {ctr.name: 0 for ctr in counters}
+    want = {ctr.name: 0 for ctr in counters if ctr.name not in DRAW_NAMES}
     want.update(ota_client_fold=n_runs * per, masked_gradnorm=per)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     cache_prev = os.environ.get(layout_tune.CACHE_ENV)
@@ -1038,6 +1198,7 @@ def tuner_phase(sim, batcher, dev, record, counters):
         else:
             os.environ[layout_tune.CACHE_ENV] = cache_prev
         shutil.rmtree(tmp, ignore_errors=True)
+    record["tuned_sweep_draws"] = take_draws("tuned sweep", launches)
     if launches != want:
         fail(f"tuned sweep on {choice.describe()}: launches {launches}, "
              f"expected {want}")
@@ -1142,11 +1303,15 @@ def k8_phase(dev, record):
                                  ).to(dtype) for n in (hh, kv, kv))
 
     # (B, S, H, KV, D, window): D 64/128/240, G 1/2/12, no window and
-    # windows under a 64-key tile, ragged S
+    # windows under a key tile, ragged S, and S = 8193 (one row past a
+    # 128-row tile) with no window at D 64 and 128. In bfloat16, D 64 and
+    # 128 run the Hopper kernel (TMA + wgmma), D 240 the mma.sync one;
+    # float32 runs the FMA kernel (ops.kernel_for)
     cases = [(2, 256, 4, 4, 64, None), (2, 256, 4, 2, 128, 64),
              (1, 300, 24, 2, 128, 5), (1, 129, 4, 2, 240, 17),
              (2, 77, 12, 1, 64, None), (1, 1, 24, 2, 128, None),
-             (1, 1000, 8, 4, 240, 100)]
+             (1, 1000, 8, 4, 240, 100), (1, 8193, 4, 2, 64, None),
+             (1, 8193, 4, 2, 128, None)]
     tols = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     checks = {}
     for dtype, tol in tols.items():
@@ -1155,7 +1320,10 @@ def k8_phase(dev, record):
             got = k8.flash_attention(q, k, v, window=case[5])
             torch.cuda.synchronize()
             want = flash_attention_ref(q, k, v, window=case[5])
-            k8_compare(f"{case} {str(dtype)[6:]}", got, want, tol, checks)
+            name = (f"{case} {str(dtype)[6:]} "
+                    f"{k8.kernel_for(dtype, case[4])}")
+            k8_compare(name, got, want, tol, checks)
+            del q, k, v, got, want
     log(f"[K8] small shapes, float32 within 2e-5, bfloat16 within 2e-2 "
         f"and rows within relative L2 {K8_ROW_LIMIT:g}: {json.dumps(checks)}")
 
@@ -1184,8 +1352,19 @@ def k8_phase(dev, record):
     # back-to-back launches: a launch lasts milliseconds, so the events'
     # microseconds do not count, and the profiler's records (kernel_ms)
     # can all be dropped for so few. B=1 readings slice element 0.
+    # The mma.sync design this shape ran on before the Hopper kernel is
+    # timed in the same run, in turns: new, old, old, new.
     out = torch.empty_like(q)
-    ms = cuda_ms(lambda: k8.launch(q, k, v, out, w), 5, warmup=1)
+
+    def new():
+        k8.launch(q, k, v, out, w)
+
+    def old():
+        k8.launch(q, k, v, out, w, kernel="mma_sync")
+    turns = [cuda_ms(new, 5, warmup=1), cuda_ms(old, 5, warmup=1),
+             cuda_ms(old, 5, warmup=1), cuda_ms(new, 5, warmup=1)]
+    ms = (turns[0] + turns[3]) / 2
+    ms_mma_sync = (turns[1] + turns[2]) / 2
     plain_ms = cuda_ms(plain, 2, warmup=1)
     bound, bound_by, flops, nbytes = k8_bound(b, s, h, n_kv, d, w, 2)
     torch.cuda.empty_cache()
@@ -1207,6 +1386,7 @@ def k8_phase(dev, record):
     rec = {"small": checks, "full": full, "max_abs_err_full": full_err,
            "max_row_rel_l2_full": full_row, "batch": b,
            "ms": ms, "bound_ms": bound, "bound_by": bound_by,
+           "ms_turns_new_old_old_new": turns, "ms_mma_sync": ms_mma_sync,
            "flops": flops, "bytes": nbytes, "tflops_per_s": flops / ms / 1e9,
            "plain_ms": plain_ms, "sdpa_window_mask_ms": lib,
            "sdpa_causal_ms": causal, "ms_b1": ms_b1, "bound_ms_b1": bound_b1,
@@ -1215,7 +1395,9 @@ def k8_phase(dev, record):
     lib_txt = "out of memory" if lib is None else f"{lib:.4f}"
     log(f"[time] K8 (B={b}, S={s}, H={h}, KV={n_kv}, D={d}, W={w}, bf16): "
         f"{ms:.4f} ms per launch, {flops / ms / 1e9:.1f} TFLOP/s, bound "
-        f"{bound:.4f} ms ({bound_by}); plain version {plain_ms:.4f} "
+        f"{bound:.4f} ms ({bound_by}); the mma.sync design it replaced "
+        f"{ms_mma_sync:.4f} (turns new/old/old/new "
+        f"{['%.4f' % t for t in turns]}); plain version {plain_ms:.4f} "
         f"({b} calls at B=1); SDPA causal-only {causal:.4f}, SDPA with the "
         f"window mask {lib_txt}. At B=1: K8 {ms_b1:.4f}, bound "
         f"{bound_b1:.4f}, SDPA window mask {lib_b1:.4f}, causal-only "
@@ -1327,7 +1509,8 @@ def serve_phase(dev, record, counters):
     res = run()
     torch.cuda.synchronize()
     launches = {ctr.name: ctr.count for ctr in counters}
-    want = {ctr.name: 0 for ctr in counters}
+    take_draws("serve", launches, draws_words=False)
+    want = {ctr.name: 0 for ctr in counters if ctr.name not in DRAW_NAMES}
     want["flash_attention"] = cfg.n_layers
     if launches != want:
         fail(f"serve launches {launches}, expected {want} (one prefill, "
@@ -1563,7 +1746,7 @@ def _dist_counters():
     from repro_torch.kernels.ota_channel import ops as k1
     return (k1.mask_count_counter, k1.mask_weight_counter,
             k1.channel_counter, k1.client_fold_counter, k1.aggregate_counter,
-            k1.fused_counter, k2.counter)
+            k1.fused_counter, k2.counter) + draw_counters()
 
 
 def _sync(mesh):
@@ -1608,7 +1791,7 @@ def _dist_rank(mesh, modes, timed: bool):
         init_fn, step_fn, specs, _ = make_hota_train_step(
             model, mesh, fl, tcfg, loss_kind="cls", n_out=DIST_CLASSES,
             count_mode=mode)
-        st = init_fn(0)
+        st = init_fn(rng.PRNGKey(0))
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         _sync(mesh)
@@ -1825,6 +2008,8 @@ def dist_phase(dev, record):
                                    "masked_gradnorm")}
         want[per[mode]] = DIST_LEAVES * DIST_STEPS
         for r, res in enumerate(gpu):
+            res[mode]["draws"] = take_draws(f"dist {mode} rank {r}",
+                                            res[mode]["launches"])
             if res[mode]["launches"] != want:
                 fail(f"dist {mode} rank {r}: launches "
                      f"{res[mode]['launches']}, expected {want}")
@@ -1833,6 +2018,9 @@ def dist_phase(dev, record):
             for m in res[mode]["metrics"]:
                 if not all(math.isfinite(v) for v in m.values()):
                     fail(f"dist {mode} rank {r}: non-finite metrics {m}")
+    rec["draws_per_rank_per_step"] = {
+        mode: {k: v / DIST_STEPS for k, v in gpu[0][mode]["draws"].items()}
+        for mode in ("local", "psum")}
     # the two count modes bit for bit, on every rank
     for r, res in enumerate(gpu):
         a, b = res["local"], res["psum"]
@@ -1883,6 +2071,9 @@ def dist_phase(dev, record):
                      for g in res["final"]["ghat"]])
     off = int(((g_f - c_f).abs() > 1e-4 * c_f.abs() + 1e-6).sum())
     for r, res in enumerate(gpu):
+        res["final"]["draws"] = take_draws(f"packed final gather rank {r}",
+                                           res["final"]["launches"])
+        rec["final_gather_draws_per_rank"] = res["final"]["draws"]
         if res["final"]["launches"] != fin_want:
             fail(f"packed final gather rank {r}: launches "
                  f"{res['final']['launches']}, expected {fin_want}")
@@ -1992,7 +2183,7 @@ def main() -> None:
     c, n_cl = fl.n_clusters, fl.n_clients
     sim, batcher = paper_mlp_setup(fl, batch=24, n_points=N_POINTS, seed=0,
                                    device=dev)
-    state = sim.init(0)
+    state = sim.init(rng.PRNGKey(0))
     packer = sim.packer(state.omega)
     runs = packer.leaf_runs()
     key0 = rng.PRNGKey(2024)
@@ -2044,10 +2235,27 @@ def main() -> None:
     gm = torch.randn((c, n_cl, p_tail), generator=gen, device=dev) * 1e-2
     mm = (torch.rand((c, p_tail), generator=gen, device=dev) < 0.86).float()
     got = k2.masked_gradnorm(gm, mm)
+    again = k2.masked_gradnorm(gm, mm)
     torch.cuda.synchronize()
     k2_err = check_close("K2", got, masked_gradnorm_ref(gm, mm), atol=0.0)
+    if not torch.equal(got, again):
+        fail("K2: two launches on the same inputs differ")
+    # ragged rows: P = 1, P not a multiple of 4 (scalar loads), one row
+    for shape in ((1, 1, 1), (3, 2, 1001), (1, 1, 4099), (2, 3, 7)):
+        g_r = torch.randn(shape, generator=gen, device=dev)
+        m_r = (torch.rand((shape[0], shape[2]), generator=gen, device=dev)
+               < 0.7).float()
+        got_r = k2.masked_gradnorm(g_r, m_r)
+        torch.cuda.synchronize()
+        k2_err = max(k2_err, check_close(f"K2 {shape}", got_r,
+                                         masked_gradnorm_ref(g_r, m_r),
+                                         atol=0.0))
     record["k2_max_abs_err"] = k2_err
-    log(f"[K2] (C={c}, N={n_cl}, P={p_tail}): max abs err {k2_err:.3e}")
+    record["k2_splits"] = k2.splits(c * n_cl, p_tail, _build.sm_count(dev))
+    log(f"[K2] (C={c}, N={n_cl}, P={p_tail}) split {record['k2_splits']} "
+        f"ways, and ragged (C, T, P) = (1, 1, 1), (3, 2, 1001), (1, 1, "
+        f"4099), (2, 3, 7): max abs err {k2_err:.3e} (rtol {RTOL}); two "
+        f"launches equal bit for bit")
 
     # --- 7. K5 against its plain version ------------------------------------
     k5_err = check_k5(dev, runs, names, gbits, chan, gen)
@@ -2057,7 +2265,7 @@ def main() -> None:
     batches = [batcher.next_stacked() for _ in range(ROUNDS + 1)]
     keys = [rng.fold_in(key0, r) for r in range(ROUNDS + 1)]
     counters = (k1.client_fold_counter, k2.counter, k1.mask_weight_counter,
-                k1.aggregate_counter, k1.fused_counter)
+                k1.aggregate_counter, k1.fused_counter) + draw_counters()
     for ctr in counters:
         ctr.reset()
     losses = []
@@ -2067,6 +2275,8 @@ def main() -> None:
         losses.append(m["loss"])
     torch.cuda.synchronize()
     launches = {ctr.name: ctr.count for ctr in counters}
+    draws = take_draws("paper round", launches)
+    record["draws_per_round"] = {k: v / ROUNDS for k, v in draws.items()}
     want = {"ota_client_fold": len(runs) * ROUNDS,
             "masked_gradnorm": ROUNDS, "ota_mask_weight": 0,
             "ota_aggregate": 0, "ota_aggregate_fused": 0}
@@ -2077,7 +2287,8 @@ def main() -> None:
         fail("non-finite loss on the main path")
     record["launches"] = launches
     record["round_loss_mean"] = [float(l.mean()) for l in losses]
-    log(f"[path] {ROUNDS} rounds, launches {launches}, mean loss per round "
+    log(f"[path] {ROUNDS} rounds, launches {launches}, stream draws per "
+        f"round {record['draws_per_round']}, mean loss per round "
         f"{record['round_loss_mean']}")
 
     # the same round on the CPU with the plain versions
@@ -2202,6 +2413,12 @@ def main() -> None:
     k2_ms, record["k2_queued_ms"], record["k2_recorded"] = kernel_ms(
         [lambda: k2.launch(gm, mm, out2)], 100)
     record["k2_launch_ms"] = cuda_ms(lambda: k2.launch(gm, mm, out2), 100)
+    # the design it replaced (one block per row), in the same run, and the
+    # new one again after it
+    record["k2_rowblock_ms"], _, _ = kernel_ms(
+        [lambda: k2._launch_rowblock(gm, mm, out2)], 100)
+    record["k2_ms_again"], _, _ = kernel_ms(
+        [lambda: k2.launch(gm, mm, out2)], 100)
     k2_plain = device_ms(lambda: masked_gradnorm_ref(gm, mm), 20)
     k2_lib = device_ms(lambda: torch.linalg.vector_norm(
         gm * mm.unsqueeze(1), dim=-1), 20)
@@ -2223,7 +2440,9 @@ def main() -> None:
         f"device (queued {record['k2_queued_ms']:.4f}, records kept "
         f"{record['k2_recorded']:.0%}, launch "
         f"{record['k2_launch_ms']:.4f}, plain "
-        f"{k2_plain:.4f}, vector_norm {k2_lib:.4f}, bound {k2_bound:.4f})")
+        f"{k2_plain:.4f}, vector_norm {k2_lib:.4f}, bound {k2_bound:.4f}; "
+        f"the one-block-per-row design {record['k2_rowblock_ms']:.4f}, "
+        f"then this one again {record['k2_ms_again']:.4f})")
     for leaf in per_leaf:
         log(f"  K1 {leaf['leaf']:>12} n={leaf['n']:>8}: {leaf['ms']:.4f} ms "
             f"(queued {leaf['queued_ms']:.4f}, launch "
@@ -2278,6 +2497,7 @@ def main() -> None:
                        tree_leaves(banks["client_folded"][1].omega)])
     bank_rec = {}
     for name, (bank, states_b, hist, got) in banks.items():
+        bank_draws = take_draws(f"bank on {name}", got)
         streams = name in streaming_engines
         want = {"ota_client_fold": 0 if streams else len(runs) * per,
                 "masked_gradnorm": per,
@@ -2299,6 +2519,9 @@ def main() -> None:
         cmp["bits_equal"] = (torch.equal(w_b, ref_w) and all(
             torch.equal(hist[m], ref_hist[m]) for m in hist))
         bank_rec[name] = {"launches": got, "vs_client_folded": cmp,
+                          "draws_per_bank_round": {
+                              k: v / BANK_ROUNDS
+                              for k, v in bank_draws.items()},
                           "loss_mean_per_round": hist["loss"].mean(
                               dim=(1, 2, 3)).tolist()}
         log(f"[bank] {name}: {BANK_ROUNDS} rounds x {n_sc} scenarios, "
@@ -2353,7 +2576,8 @@ def main() -> None:
     if min(k5["ms"], k5["plain_ms"]) <= 0.0:
         fail("no device time measured for K5")
 
-    # --- 10. K3 and K4 against their plain versions ------------------------
+    # --- 10. the stream draws, K3 and K4 against their plain versions ------
+    draw_chunked, draw_flat = check_draws(dev, c, packer, chan_key, record)
     k3_err, k4_err = check_k34(dev, c, record)
 
     # --- 11. the packed path at full width ----------------------------------
@@ -2460,8 +2684,31 @@ def main() -> None:
          "ms": k7["ms"], "plain_ms": k7["plain_ms"],
          "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"],
          "library_ms": None},
+        # the stream draws: no TPU kernel, the reference draws with XLA
+        {"name": "threefry_chunked", "route": "cuda",
+         "source": "src/repro_torch/kernels/ota_channel/csrc/"
+                   "threefry_stream.cu",
+         "replaces": "src/repro/core/ota.py:389",
+         "launches": DRAW_TOTAL.get("threefry_chunked", 0),
+         "max_abs_err": draw_chunked["max_abs_err"],
+         "ms": draw_chunked["ms"], "plain_ms": draw_chunked["plain_ms"],
+         "bound_ms": draw_chunked["bound_ms"],
+         "bound_by": draw_chunked["bound_by"], "library_ms": None},
+        {"name": "threefry_flat", "route": "cuda",
+         "source": "src/repro_torch/kernels/ota_channel/csrc/"
+                   "threefry_stream.cu",
+         "replaces": "src/repro/kernels/ota_channel/ops.py:345",
+         "launches": DRAW_TOTAL.get("threefry_flat", 0),
+         "max_abs_err": draw_flat["max_abs_err"],
+         "ms": draw_flat["ms"], "plain_ms": draw_flat["plain_ms"],
+         "bound_ms": draw_flat["bound_ms"],
+         "bound_by": draw_flat["bound_by"], "library_ms": None},
     ]
+    record["draws_main_path"] = dict(DRAW_TOTAL)
     record["launches_main_path"] = total
+    idle = [kn["name"] for kn in kernels if kn["launches"] <= 0]
+    if idle:
+        fail(f"kernels of the path never launched on it: {idle}")
     record.update(card=card, kind=kind)
     log("[record] " + json.dumps(record))
     print(json.dumps({"kernels": kernels}))

@@ -36,7 +36,7 @@ from repro_torch.common.tree import (
 )
 from repro_torch.core.channel import ChannelParams
 from repro_torch.core.ota import HOTA_MASK_SALT
-from repro_torch.kernels.ota_channel.ops import _ota_channel_impl
+from repro_torch.kernels.ota_channel.ops import _ota_channel_impl, bits
 from repro_torch.sharding import collectives as col
 from repro_torch.sharding.mesh_utils import Mesh
 
@@ -149,9 +149,9 @@ def _packed_mask_apply(x_slab: torch.Tensor, key, sigma2, h_th, ota_on,
     ``bits(fold_in(key, cluster), P)``; the gather backward and the FGN
     norm call it with the same key, so eq. 5 sees the transmission's
     masks."""
-    bits = rng.bits(rng.fold_in(key, cluster), x_slab.shape[-1],
-                    device=x_slab.device)
-    return _ota_channel_impl(x_slab, bits, sigma2, h_th, ota_on)
+    words = bits(rng.fold_in(key, cluster), x_slab.shape[-1],
+                 device=x_slab.device)
+    return _ota_channel_impl(x_slab, words, sigma2, h_th, ota_on)
 
 
 def make_packed_final_gather(mesh: Mesh, data_axes: Tuple[str, ...],

@@ -46,11 +46,9 @@ from repro_torch.core.ota import (
     section_noise_key, stream_range_bits,
 )
 from repro_torch.kernels.ota_channel.ops import (
-    ota_mask_count_apply, ota_mask_weight_apply,
+    chunked_stream, ota_mask_count_apply, ota_mask_weight_apply,
 )
-from repro_torch.kernels.ota_channel.ref import (
-    bits_to_gaussian, bits_to_mask, chunked_stream,
-)
+from repro_torch.kernels.ota_channel.ref import bits_to_gaussian, bits_to_mask
 from repro_torch.sharding import collectives as col
 from repro_torch.sharding.mesh_utils import Mesh
 

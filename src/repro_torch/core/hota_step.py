@@ -46,6 +46,7 @@ import torch
 from repro_torch import rng
 from repro_torch.common.config import FLConfig, TrainConfig
 from repro_torch.common.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.core import ota
 from repro_torch.core.channel import (
     ChannelParams, channel_params, cluster_channel,
 )
@@ -93,7 +94,7 @@ class HotaState(NamedTuple):
 
 class StepParts(NamedTuple):
     """The round body and what a harness needs to lay it on a mesh."""
-    init_fn: Callable       # init_fn(seed) -> this rank's HotaState
+    init_fn: Callable       # init_fn(key) -> this rank's HotaState
     step: Callable          # step(state, tokens, labels, key, chan[, fast])
     state_specs: Any        # HotaState of layout tuples
     batch_spec: tuple
@@ -219,13 +220,17 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
     batch_spec = (per_client, per_client)
 
     # ---------------- init ----------------
-    def init_fn(seed: int) -> HotaState:
-        """This rank's piece of a global state drawn from
-        ``torch.Generator(seed)`` on the host, the same on every rank."""
-        gen = torch.Generator().manual_seed(int(seed))
-        omega = {"final": init_params(model.final_specs(), gen),
-                 "trunk": init_params(model.trunk_specs(), gen)}
-        heads = init_params(head_specs, gen, batch_shape=(n_total_clients,))
+    def init_fn(key) -> HotaState:
+        """This rank's piece of the global state of a PRNG key, the
+        reference's ``init_fn(key)``: ``k1, k2 = split(key)``, the trunk
+        from ``k1``, ω̃ from ``fold_in(k1, FINAL_INIT_FOLD)``, one head
+        per client from ``split(k2, n_clients)``. Drawn on the host, the
+        same on every rank."""
+        k1, k2 = rng.split(key)
+        omega = {"final": init_params(model.final_specs(),
+                                      rng.fold_in(k1, ota.FINAL_INIT_FOLD)),
+                 "trunk": init_params(model.trunk_specs(), k1)}
+        heads = init_params(head_specs, rng.split(k2, n_total_clients))
         zc = torch.zeros((n_total_clients,), dtype=torch.float32)
         i32 = torch.zeros((), dtype=torch.int32)
         zeros = lambda t: tree_map(torch.zeros_like, t)   # noqa: E731

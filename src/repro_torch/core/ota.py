@@ -41,11 +41,11 @@ from repro_torch.common.flatpack import TreePacker, check_tree_matches_packer
 from repro_torch.common.tree import tree_leaves, tree_unflatten
 from repro_torch.core.channel import ChannelParams
 from repro_torch.kernels.ota_channel.ops import (
-    _ota_aggregate_fused_impl, ota_client_fold_apply, ota_stream_fold_apply,
+    _ota_aggregate_fused_impl, chunked_stream, ota_client_fold_apply,
+    ota_stream_fold_apply, stream_range,
 )
 from repro_torch.kernels.ota_channel.ref import (
-    CHUNK, CHUNK_ROWS, bits_to_gaussian, bits_to_mask, chunk_stream,
-    chunked_stream,
+    CHUNK, CHUNK_ROWS, bits_to_gaussian, bits_to_mask,
 )
 
 # --------------------------------------------------------------------------
@@ -114,11 +114,9 @@ def packed_section_folds(packer: TreePacker) -> List[int]:
 def stream_range_bits(key, start: int, length: int,
                       device=None) -> torch.Tensor:
     """Words [start, start + length) of ``key``'s chunk-quantized stream;
-    only the chunks that meet the range are drawn."""
-    j0 = start // CHUNK
-    j1 = (start + length - 1) // CHUNK
-    a = start - j0 * CHUNK
-    return chunk_stream(key, j0, j1, device)[..., a:a + length]
+    only the chunks that meet the range are drawn (on the card, only the
+    range's words)."""
+    return stream_range(key, start, length, device)
 
 
 def section_gain_key(slab_key, fold: int, cluster) -> torch.Tensor:

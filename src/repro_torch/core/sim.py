@@ -29,6 +29,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from repro_torch import rng
 from repro_torch.common.config import FLConfig, TrainConfig
 from repro_torch.common.device import resolve_device
 from repro_torch.common.flatpack import TreePacker, packer_for
@@ -116,17 +117,23 @@ class HotaSim:
         self.chan = channel_params(fl, device=self.device)
 
     # ------------------------------------------------------------------
-    def init(self, seed: int) -> SimState:
-        """Fresh state with weights drawn from ``torch.Generator(seed)``."""
+    def init(self, key) -> SimState:
+        """Fresh state from a PRNG key (``rng.PRNGKey(seed)``), on the
+        reference's key schedule: ``k1, k2 = split(key)``; the trunk from
+        ``k1``, ω̃ from ``fold_in(k1, FINAL_INIT_FOLD)``; one head per
+        client from ``split(k2, C·N)``. The weights are the reference's
+        ``init`` at the same key (``models.params``)."""
         fl, dev = self.fl, self.device
-        gen = torch.Generator().manual_seed(int(seed))
         c, n = fl.n_clusters, fl.n_clients
-        omega = {"final": init_params(self.model.final_specs(), gen,
+        k1, k2 = rng.split(key)
+        omega = {"final": init_params(self.model.final_specs(),
+                                      rng.fold_in(k1, ota.FINAL_INIT_FOLD),
                                       device=dev),
-                 "trunk": init_params(self.model.trunk_specs(), gen,
+                 "trunk": init_params(self.model.trunk_specs(), k1,
                                       device=dev)}
-        heads = init_params(self.model.head_specs(self.max_classes), gen,
-                            batch_shape=(c, n), device=dev)
+        head_keys = rng.split(k2, c * n).reshape(c, n, 2)
+        heads = init_params(self.model.head_specs(self.max_classes),
+                            head_keys, device=dev)
         ones = torch.ones((c, n), dtype=torch.float32, device=dev)
         ps_opt = (slab_adam_init(omega) if fl.use_pallas_ota
                   else adam_init(omega))

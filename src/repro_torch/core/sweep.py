@@ -95,7 +95,7 @@ class ScenarioBank:
 
     >>> bank = ScenarioBank(sim, [dict(weighting="equal"),
     ...                           dict(sigma2=(0.05, 1.0)), base_fl])
-    >>> states = bank.init(0)
+    >>> states = bank.init(rng.PRNGKey(0))
     >>> states, m = bank.step(states, xb, yb, rng.PRNGKey(1))
     >>> m["loss"].shape      # (S, C, N)
     """
@@ -107,13 +107,13 @@ class ScenarioBank:
         self.n_scenarios = int(self.chan_bank.ota_on.shape[0])
 
     # ------------------------------------------------------------------
-    def init(self, seed: int) -> SimState:
+    def init(self, key) -> SimState:
         """(S,)-batched initial state: every scenario starts from the SAME
-        state, ``sim.init(seed)`` (common random numbers extend to init)."""
+        state, ``sim.init(key)`` (common random numbers extend to init)."""
         s = self.n_scenarios
         return state_map(
             lambda x: x.unsqueeze(0).repeat((s,) + (1,) * x.dim()),
-            self.sim.init(seed))
+            self.sim.init(key))
 
     def scenario_state(self, states: SimState, s: int) -> SimState:
         """Scenario ``s``'s unbatched state: views of the bank's tensors."""

@@ -128,9 +128,9 @@ def run_sweep(
     whole bank (engines are static; ``HotaSim`` raises by name when a
     flag's prerequisites are off); setting any of them skips the tuner,
     which would otherwise override the explicit choice. The weights start
-    from ``HotaSim.init(seed)``, a ``torch.Generator`` draw, so a sweep
-    starts from other weights than the reference's sweep of the same seed;
-    the data, keys and channel streams are the reference's."""
+    from ``bank.init(rng.PRNGKey(seed))``, as the reference's sweep does,
+    so a sweep of the same seed starts from the reference's weights and
+    sees its data, keys and channel streams."""
     results_dir = results_dir or RESULTS_DIR
     os.makedirs(results_dir, exist_ok=True)
     paths = {n: os.path.join(results_dir, n + ".json") for n in experiments}
@@ -174,7 +174,7 @@ def run_sweep(
         if "sigma2" in sp:
             sp["sigma2"] = tuple(sp["sigma2"])
     bank = ScenarioBank(sim, specs)
-    states = bank.init(seed)
+    states = bank.init(rng.PRNGKey(seed))
 
     losses, ps = [], []
     t0 = time.time()

@@ -48,8 +48,10 @@ _F32 = ctypes.c_float
 SIGNATURES = {
     "ota_client_fold_f32": [_PTR, _PTR, _I64, _PTR, _PTR, _PTR, _PTR, _I64,
                             _I32, _I32, _I32, _I32, _PTR],
-    "masked_gradnorm_f32": [_PTR, _PTR, _PTR, _I64, _I32, _I32, _I32,
-                            _PTR],
+    "masked_gradnorm_f32": [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I32, _I32,
+                            _I32, _PTR],
+    "masked_gradnorm_rowblock_f32": [_PTR, _PTR, _PTR, _I64, _I32, _I32,
+                                     _PTR],
     "ota_mask_weight_f32": [_PTR, _PTR, _I64, _PTR, _PTR, _PTR, _PTR, _I64,
                             _I32, _I32, _I32, _PTR],
     "ota_aggregate_f32": [_PTR, _I64, _PTR, _I64, _PTR, _PTR, _PTR, _PTR,
@@ -60,11 +62,14 @@ SIGNATURES = {
                            _I32, _I32, _I32, _PTR],
     "ota_channel_f32": [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I32, _I32,
                         _PTR],
-    "threefry_chunk_u32": [_PTR, _I32, _U32, _I32, _PTR, _PTR],
+    "threefry_chunked_u32": [_PTR, _I32, _I64, _I64, _I64, _I32, _PTR, _PTR],
+    "threefry_flat_u32": [_PTR, _I32, _I64, _I64, _I32, _PTR, _PTR],
     "flash_attention_bf16": [_PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32,
                              _I32, _I32, _F32, _PTR],
     "flash_attention_f32": [_PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32,
                             _I32, _I32, _F32, _PTR],
+    "flash_attention_bf16_hopper": [_PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32,
+                                    _I32, _I32, _I32, _F32, _PTR],
 }
 
 

@@ -9,6 +9,11 @@ scratch; the reference's wrapper takes ``pos_q``/``pos_kv`` and does not
 read them, this one does not take them). For CPU tensors it
 runs the plain version (``ref.py``); for CUDA tensors it launches
 ``csrc/flash_attention.cu`` once for the whole (B, H, S) or raises.
+
+Which kernel runs is a rule of the shape (``kernel_for``), not a
+fallback: bfloat16 at head dim 64 or 128 takes the Hopper kernel (TMA and
+wgmma); bfloat16 at any other head dim (StableLM's 80, Gemma-3's 240)
+takes the ``mma.sync`` kernel, and float32 the FMA kernel.
 """
 from __future__ import annotations
 
@@ -23,19 +28,39 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 counter = _build.LaunchCounter("flash_attention")
 
 MAX_HEAD_DIM = 256
-_ENTRIES = {torch.bfloat16: "flash_attention_bf16",
-            torch.float32: "flash_attention_f32"}
+HOPPER_HEAD_DIMS = (64, 128)
+_ENTRIES = {"hopper": "flash_attention_bf16_hopper",
+            "mma_sync": "flash_attention_bf16",
+            "fma": "flash_attention_f32"}
+
+
+def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernel ``launch`` runs: "hopper" (TMA + wgmma) for bfloat16 at
+    a head dim of 64 or 128, "mma_sync" for bfloat16 at any other head dim,
+    "fma" for float32."""
+    if dtype == torch.bfloat16:
+        return "hopper" if head_dim in HOPPER_HEAD_DIMS else "mma_sync"
+    if dtype == torch.float32:
+        return "fma"
+    raise ValueError(f"flash_attention takes bfloat16 or float32, got "
+                     f"{dtype}")
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           out: torch.Tensor, window: Optional[int]) -> torch.Tensor:
+           out: torch.Tensor, window: Optional[int],
+           kernel: Optional[str] = None) -> torch.Tensor:
     """Launch the kernel on contiguous CUDA operands of one dtype
-    (bfloat16 or float32): q, out (B, S, H, D); k, v (B, S, KV, D)."""
+    (bfloat16 or float32): q, out (B, S, H, D); k, v (B, S, KV, D).
+    ``kernel`` defaults to ``kernel_for``'s choice; naming "mma_sync" for
+    a Hopper shape is for a run that times the two designs against each
+    other, and that launch is not counted."""
     b, s, h, d = q.shape
     n_kv = k.shape[2]
-    if q.dtype not in _ENTRIES:
-        raise ValueError(f"flash_attention takes bfloat16 or float32, got "
-                         f"{q.dtype}")
+    rule = kernel_for(q.dtype, d)
+    kernel = rule if kernel is None else kernel
+    if kernel != rule and not (kernel == "mma_sync" and rule == "hopper"):
+        raise ValueError(f"kernel {kernel!r} does not take {q.dtype} at head "
+                         f"dim {d}")
     if not 1 <= d <= MAX_HEAD_DIM or n_kv < 1 or h % n_kv:
         raise ValueError(f"head dim {d} (1..{MAX_HEAD_DIM}) and heads "
                          f"{h} over {n_kv} KV heads are not supported")
@@ -48,12 +73,18 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"tensor of shape {shape}")
     if out.numel() == 0:
         return out
-    fn = getattr(_build.library(), _ENTRIES[q.dtype])
+    if kernel == "hopper" and (any(t.data_ptr() % 16 for t in (q, k, v))
+                               or out.data_ptr() % 4):
+        raise ValueError("the Hopper kernel reads q, k, v by TMA from "
+                         "16-byte aligned data and writes out in 4-byte "
+                         "pairs")
+    fn = getattr(_build.library(), _ENTRIES[kernel])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              b, s, h, n_kv, d, 0 if window is None else int(window),
              1.0 / math.sqrt(d), _build.current_stream_handle(q.device))
-    _build.check(err, "flash_attention")
-    counter.count += 1
+    _build.check(err, f"flash_attention ({kernel})")
+    if kernel == rule:
+        counter.count += 1
     return out
 
 

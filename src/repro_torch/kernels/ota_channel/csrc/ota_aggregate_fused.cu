@@ -113,24 +113,6 @@ __global__ void __launch_bounds__(kThreads) ota_aggregate_fused_kernel(
   }
 }
 
-// Test entry of the device generator: chunk `chunk` of each key's stream,
-// out[k] = bits(fold_in(key_k, chunk), CHUNK), through the same fold_in and
-// chunk_pair that K4 runs.
-__global__ void threefry_chunk_kernel(const int32_t* __restrict__ keys,
-                                      uint32_t chunk, int partitionable,
-                                      int32_t* __restrict__ out) {
-  const int k = blockIdx.y;
-  const uint32_t q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= threefry::kHalf) return;
-  uint32_t c0, c1, wa, wb;
-  threefry::fold_in((uint32_t)keys[2 * k], (uint32_t)keys[2 * k + 1], chunk,
-                    c0, c1);
-  threefry::chunk_pair(c0, c1, q, partitionable != 0, true, wa, wb);
-  int32_t* row = out + (int64_t)k * threefry::kChunk;
-  row[q] = (int32_t)wa;
-  row[q + threefry::kHalf] = (int32_t)wb;
-}
-
 }  // namespace
 
 extern "C" int ota_aggregate_fused_f32(
@@ -144,14 +126,5 @@ extern "C" int ota_aggregate_fused_f32(
   ota_aggregate_fused_kernel<<<(unsigned)grid, kThreads, smem, stream>>>(
       wg, wg_stride, gk0, gk1, nk0, nk1, params, p_pass, out, n, n_clusters,
       n_clients, partitionable);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int threefry_chunk_u32(const int32_t* keys, int n_keys,
-                                  uint32_t chunk, int partitionable,
-                                  int32_t* out, cudaStream_t stream) {
-  const dim3 grid(threefry::kHalf / kThreads, (unsigned)n_keys);
-  threefry_chunk_kernel<<<grid, kThreads, 0, stream>>>(keys, chunk,
-                                                       partitionable, out);
   return (int)cudaGetLastError();
 }

@@ -87,4 +87,33 @@ __device__ __forceinline__ void chunk_pair(uint32_t k0, uint32_t k1,
   }
 }
 
+// Words q and q + half of bits(key, len) for any len, half = ceil(len / 2)
+// (a chunk is the case len = kChunk, half = kHalf). In the original layout
+// the counter iota is zero-padded to even length, so the pair of the last
+// q of an odd len hashes (q, 0). need_a / need_b say which words the caller
+// keeps; the partitionable layout hashes only those.
+__device__ __forceinline__ void stream_pair(uint32_t k0, uint32_t k1,
+                                            uint32_t q, uint32_t half,
+                                            uint32_t len, bool partitionable,
+                                            bool need_a, bool need_b,
+                                            uint32_t& wa, uint32_t& wb) {
+  uint32_t y0, y1;
+  wa = 0u;
+  wb = 0u;
+  if (partitionable) {
+    if (need_a) {
+      hash(k0, k1, 0u, q, y0, y1);
+      wa = y0 ^ y1;
+    }
+    if (need_b) {
+      hash(k0, k1, 0u, q + half, y0, y1);
+      wb = y0 ^ y1;
+    }
+  } else {
+    hash(k0, k1, q, q + half < len ? q + half : 0u, y0, y1);
+    wa = y0;
+    wb = y1;
+  }
+}
+
 }  // namespace threefry

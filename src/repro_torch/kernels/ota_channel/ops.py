@@ -25,10 +25,14 @@ Ports of ``repro.kernels.ota_channel.ops``:
 * ``_ota_aggregate_fused_impl``: the packed engine's per-section schedule,
   one launch per non-empty section: K4 (``csrc/ota_aggregate_fused.cu``)
   draws the section's words in the kernel from its two keys, or, with the
-  words supplied, K3 reads them.
+  words supplied, K3 reads them;
+* ``chunk_stream``, ``chunked_stream``, ``stream_range`` and ``bits``: the
+  channel's threefry words (chunk-quantized or flat), drawn on the card by
+  one launch of ``csrc/threefry_stream.cu`` for a whole key table. Every
+  engine draws its words through these.
 
-For CPU tensors each runs its plain version (``ref``); for CUDA tensors it
-launches its kernel or raises.
+For CPU tensors (or a draw on the host) each runs its plain version
+(``ref``); for CUDA tensors it launches its kernel or raises.
 """
 from __future__ import annotations
 
@@ -41,6 +45,12 @@ from repro_torch.kernels.ota_channel.ref import (
     ota_aggregate_slab_ref, ota_channel_ref, ota_mask_count_ref,
     ota_mask_weight_ref, ota_stream_fold_ref, pass_probability,
 )
+from repro_torch.kernels.ota_channel.ref import bits as ref_bits
+from repro_torch.kernels.ota_channel.ref import chunk_stream as ref_chunk_stream
+from repro_torch.kernels.ota_channel.ref import (
+    chunked_stream as ref_chunked_stream,
+)
+from repro_torch.kernels.ota_channel.ref import stream_range as ref_stream_range
 from repro_torch.kernels.slab import LANE, slab_rows
 
 client_fold_counter = _build.LaunchCounter("ota_client_fold")
@@ -49,6 +59,8 @@ aggregate_counter = _build.LaunchCounter("ota_aggregate")
 fused_counter = _build.LaunchCounter("ota_aggregate_fused")
 mask_count_counter = _build.LaunchCounter("ota_mask_count")
 channel_counter = _build.LaunchCounter("ota_channel")
+stream_counter = _build.LaunchCounter("threefry_chunked")
+bits_counter = _build.LaunchCounter("threefry_flat")
 
 BLOCK = 256
 BLOCKS_PER_SM = 8
@@ -349,23 +361,128 @@ def launch_aggregate_fused(wg: torch.Tensor, keys, params: torch.Tensor,
     return out
 
 
-def threefry_chunk(keys, chunk: int, device) -> torch.Tensor:
-    """Chunk ``chunk`` of each key's stream drawn by K4's device generator:
-    (K, CHUNK) int32 words of ``bits(fold_in(key_k, chunk), CHUNK)`` in the
-    layout in force. A test entry: it holds the device threefry word for
-    word against ``rng.bits``; no simulator path calls it."""
+# --------------------------------------------------------------------------
+# the stream words: drawn on the card by csrc/threefry_stream.cu
+# --------------------------------------------------------------------------
+
+def _draw_device(device):
+    """None for the host (the plain draw), else the CUDA device to draw on;
+    raises on any other device."""
+    if device is None:
+        return None
     dev = torch.device(device)
+    if dev.type == "cpu":
+        return None
     if dev.type != "cuda":
-        raise ValueError("threefry_chunk runs the device generator: pass a "
-                         "CUDA device")
-    k = rng.to_bit_pattern(rng.as_key(keys).reshape(-1, 2)).to(dev)
-    out = torch.empty((k.shape[0], CHUNK), dtype=torch.int32, device=dev)
-    err = _build.library().threefry_chunk_u32(
-        k.data_ptr(), k.shape[0], int(chunk),
-        int(rng.threefry_partitionable()), out.data_ptr(),
-        _build.current_stream_handle(dev))
-    _build.check(err, "threefry_chunk")
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _key_table(keys, dev):
+    """(lead shape, (K, 2) int32 bit patterns on ``dev``) of a key table."""
+    keys = rng.as_key(keys)
+    lead = tuple(keys.shape[:-1])
+    return lead, rng.to_bit_pattern(keys.reshape(-1, 2)).to(dev)
+
+
+def launch_chunked(keys: torch.Tensor, start: int, out: torch.Tensor):
+    """Launch the chunk-quantized draw on prepared CUDA operands: ``keys``
+    (K, 2) int32 bit patterns, ``out`` (K, length) int32 with unit stride
+    along the words (rows may be strided), words [start, start + length)
+    of each key's stream in the layout in force."""
+    n_keys, length = out.shape
+    _check_draw(keys, out, n_keys)
+    if start < 0:
+        raise ValueError(f"range [{start}, {start} + {length}) of a stream")
+    if n_keys and length:
+        err = _build.library().threefry_chunked_u32(
+            keys.data_ptr(), n_keys, int(start), int(length), out.stride(0),
+            int(rng.threefry_partitionable()), out.data_ptr(),
+            _build.current_stream_handle(out.device))
+        _build.check(err, "threefry_chunked")
+        stream_counter.count += 1
     return out
+
+
+def launch_flat(keys: torch.Tensor, out: torch.Tensor):
+    """Launch the flat draw on prepared CUDA operands: ``keys`` (K, 2)
+    int32 bit patterns, ``out`` (K, n) int32 as above: ``bits(key, n)``
+    in the layout in force."""
+    n_keys, n = out.shape
+    _check_draw(keys, out, n_keys)
+    if n >= rng.MASK32:
+        raise ValueError(f"bits: n={n} needs the blocked draw of 2**32 words")
+    if n_keys and n:
+        err = _build.library().threefry_flat_u32(
+            keys.data_ptr(), n_keys, int(n), out.stride(0),
+            int(rng.threefry_partitionable()), out.data_ptr(),
+            _build.current_stream_handle(out.device))
+        _build.check(err, "threefry_flat")
+        bits_counter.count += 1
+    return out
+
+
+def _check_draw(keys: torch.Tensor, out: torch.Tensor, n_keys: int) -> None:
+    if (keys.dtype != torch.int32 or keys.device != out.device
+            or tuple(keys.shape) != (n_keys, 2) or not keys.is_contiguous()):
+        raise ValueError(f"keys must be a contiguous ({n_keys}, 2) int32 "
+                         f"CUDA tensor")
+    _check_rows("out", out, tuple(out.shape), torch.int32, out.device)
+    if n_keys > 65535:
+        raise ValueError(f"{n_keys} keys: one launch draws at most 65535")
+
+
+def launch_stream(keys, start: int, length: int, device) -> torch.Tensor:
+    """Words [start, start + length) of each (..., 2) key's chunk-quantized
+    stream, drawn on the CUDA ``device`` in one launch: (..., length)
+    int32 bit patterns."""
+    dev = torch.device(device)
+    lead, k = _key_table(keys, dev)
+    out = torch.empty((k.shape[0], length), dtype=torch.int32, device=dev)
+    return launch_chunked(k, start, out).reshape(lead + (length,))
+
+
+def launch_bits(keys, n: int, device) -> torch.Tensor:
+    """``jax.random.bits(key, (n,))`` for each (..., 2) key, drawn on the
+    CUDA ``device`` in one launch: (..., n) int32."""
+    dev = torch.device(device)
+    lead, k = _key_table(keys, dev)
+    out = torch.empty((k.shape[0], n), dtype=torch.int32, device=dev)
+    return launch_flat(k, out).reshape(lead + (n,))
+
+
+def stream_range(keys, start: int, length: int, device=None) -> torch.Tensor:
+    """Words [start, start + length) of each (..., 2) key's chunk-quantized
+    stream on ``device``: the card's kernel there, the plain draw on the
+    host (None or "cpu")."""
+    dev = _draw_device(device)
+    if dev is None:
+        return ref_stream_range(keys, start, length, device)
+    return launch_stream(keys, start, length, dev)
+
+
+def chunk_stream(keys, j0: int, j1: int, device=None) -> torch.Tensor:
+    """Chunks j0..j1 (inclusive) of each key's stream, end to end."""
+    dev = _draw_device(device)
+    if dev is None:
+        return ref_chunk_stream(keys, j0, j1, device)
+    return launch_stream(keys, j0 * CHUNK, (j1 - j0 + 1) * CHUNK, dev)
+
+
+def chunked_stream(keys, length: int, device=None) -> torch.Tensor:
+    """The first ``length`` words of each key's chunk-quantized stream."""
+    dev = _draw_device(device)
+    if dev is None:
+        return ref_chunked_stream(keys, length, device)
+    return launch_stream(keys, 0, length, dev)
+
+
+def bits(keys, n: int, device=None) -> torch.Tensor:
+    """``jax.random.bits(key, (n,))`` for each key of a (..., 2) table."""
+    dev = _draw_device(device)
+    if dev is None:
+        return ref_bits(keys, n, device)
+    return launch_bits(keys, n, dev)
 
 
 def _slab_p_pass(params: torch.Tensor, n_clusters: int) -> torch.Tensor:
@@ -608,7 +725,7 @@ def _ota_channel_impl(x: torch.Tensor, bits: torch.Tensor, sigma2, h_th,
 def _padded_bits(key, n: int, device) -> torch.Tensor:
     """The first ``n`` words of ``jax.random.bits(key, slab.shape)`` for
     the (rows, 128) slab the reference pads an n-entry tensor to."""
-    return rng.bits(key, slab_rows(n) * LANE, device=device)[:n]
+    return bits(key, slab_rows(n) * LANE, device=device)[:n]
 
 
 def ota_channel(x: torch.Tensor, key, sigma2, h_th, ota_on=1.0):

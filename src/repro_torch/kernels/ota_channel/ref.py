@@ -19,19 +19,25 @@ the distributed step).
 The chunk-quantized stream (DESIGN.md §4) lives here too, since K4's
 plain version draws it: chunk j of a key's stream is ``bits(fold_in(key,
 j), CHUNK)`` and a partial last chunk is truncated, so any range of the
-stream can be drawn on its own.
+stream can be drawn on its own. These draws (``chunk_stream`` and what
+calls it, and the flat ``bits``) are the plain versions of the card's
+stream kernel (``csrc/threefry_stream.cu``); ``plain_draw_counter`` counts
+each call, so a run on the card can show that its paths drew none.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import rng
+from repro_torch.kernels import _build
 from repro_torch.kernels.slab import LANE
 
 CHUNK_ROWS = 1024
 CHUNK = CHUNK_ROWS * LANE        # the stream quantum (entries per chunk)
 TWO_PI = 6.283185307179586
 _TWO_PI_F32 = torch.tensor(TWO_PI, dtype=torch.float32)
+
+plain_draw_counter = _build.LaunchCounter("stream_draw_plain")
 
 
 def _u32(bits: torch.Tensor) -> torch.Tensor:
@@ -46,6 +52,7 @@ def _f32(x, like: torch.Tensor) -> torch.Tensor:
 def chunk_stream(keys, j0: int, j1: int, device=None) -> torch.Tensor:
     """Chunks j0..j1 (inclusive) of each (..., 2) key's stream, laid end
     to end: (..., (j1 - j0 + 1) * CHUNK) int32 bit patterns."""
+    plain_draw_counter.count += 1
     keys = rng.as_key(keys)
     j = torch.arange(j0, j1 + 1, dtype=torch.int64)
     chunk_keys = rng.fold_in(keys.unsqueeze(-2), j)     # (..., n_chunks, 2)
@@ -57,6 +64,22 @@ def chunked_stream(keys, length: int, device=None) -> torch.Tensor:
     """(..., length) words of each key's chunk-quantized stream."""
     n_chunks = -(-length // CHUNK)
     return chunk_stream(keys, 0, n_chunks - 1, device)[..., :length]
+
+
+def stream_range(keys, start: int, length: int, device=None) -> torch.Tensor:
+    """Words [start, start + length) of each key's chunk-quantized stream;
+    only the chunks that meet the range are drawn."""
+    j0 = start // CHUNK
+    j1 = (start + length - 1) // CHUNK
+    a = start - j0 * CHUNK
+    return chunk_stream(keys, j0, j1, device)[..., a:a + length]
+
+
+def bits(key, n: int, device=None) -> torch.Tensor:
+    """``rng.bits``, counted as a plain draw: (..., n) int32 words of
+    ``jax.random.bits(key, (n,))`` for every key of a (..., 2) table."""
+    plain_draw_counter.count += 1
+    return rng.bits(key, n, device=device)
 
 
 def bits_to_gaussian(bits: torch.Tensor, sigma2) -> torch.Tensor:

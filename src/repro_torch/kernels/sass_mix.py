@@ -8,7 +8,8 @@ prints, for every kernel whose mangled name holds one of the NAMEs (all
 kernels without arguments), its opcode counts from ``cuobjdump -sass`` of
 the built library. This is where the INT32-pipe operation count of a
 threefry2x32 hash in ``chip_smoke.py`` (K4's bound) comes from: the SHF,
-LOP3 and IADD3 of ``threefry_chunk_kernel``, which runs four hashes.
+LOP3 and IADD3 of the threefry2x32 hashes in ``threefry_chunked_kernel``
+(``sass_mix threefry``).
 """
 from __future__ import annotations
 

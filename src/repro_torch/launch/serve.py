@@ -11,9 +11,11 @@ as the reference does)::
 
 ``main()`` serves the reduced (smoke) config, as the reference does;
 ``serve(cfg, ...)`` takes any dense config, the full-size one included.
-Weights are drawn from ``--seed`` on the serving device (a card-side
-generator: 12.7 GB of float32 for StarCoder2-3B never touch the host);
-the prompt is drawn on the host, so it is the same on every device.
+Weights and prompt follow the reference's keys: ``split(PRNGKey(seed),
+4)`` gives the trunk, final, head and prompt keys, the weights are
+``init_params`` of the first three (drawn on the serving device: 12.7 GB
+of float32 for StarCoder2-3B never touch the host) and the prompt is
+``randint(k_prompt, (batch, prefill_len), 0, vocab)``, drawn on the host.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch import rng
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import resolve_device
 from repro_torch.configs import ALIASES, get_smoke_config
@@ -47,20 +50,29 @@ def serving_model(cfg: ModelConfig) -> Model:
     return build_model(cfg.replace(attn_impl="pallas"))
 
 
+def serve_keys(seed: int) -> torch.Tensor:
+    """The reference's (trunk, final, head, prompt) keys of ``seed``."""
+    return rng.split(rng.PRNGKey(seed), 4)
+
+
 def init_weights(model: Model, seed: int, device):
-    """(backbone, head) float32 weights drawn from ``seed`` on ``device``."""
+    """(backbone, head) float32 weights of ``seed`` on ``device``, the
+    reference's ``init_params`` at the same keys."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    backbone = {"trunk": init_params(model.trunk_specs(), gen, device=dev),
-                "final": init_params(model.final_specs(), gen, device=dev)}
-    return backbone, init_params(model.head_specs(), gen, device=dev)
+    k_trunk, k_final, k_head, _ = serve_keys(seed)
+    backbone = {"trunk": init_params(model.trunk_specs(), k_trunk,
+                                     device=dev),
+                "final": init_params(model.final_specs(), k_final,
+                                     device=dev)}
+    return backbone, init_params(model.head_specs(), k_head, device=dev)
 
 
 def draw_prompt(cfg: ModelConfig, batch: int, prefill_len: int,
                 seed: int) -> torch.Tensor:
-    gen = torch.Generator().manual_seed(seed)
-    return torch.randint(0, cfg.vocab_size, (batch, prefill_len),
-                         generator=gen, dtype=torch.int64)
+    """The reference's prompt of ``seed``: (batch, prefill_len) int64 token
+    ids of ``randint(k_prompt, ..., 0, vocab)`` (int32 values)."""
+    return rng.randint(serve_keys(seed)[3], (batch, prefill_len), 0,
+                       cfg.vocab_size).to(torch.int64)
 
 
 def _sync(dev: torch.device) -> None:

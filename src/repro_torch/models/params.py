@@ -2,12 +2,15 @@
 
 Port of ``repro.models.params`` for the shapes the port builds: a spec
 tree (nested dicts of ``ParamSpec``) gives the parameter shapes and how
-each leaf is initialized. Draws come from an explicit ``torch.Generator``
-and are scaled like the reference (1/√fan_in, or 1.0 for an ``embed``
-table); they are not the reference's numbers (``jax.random.normal`` goes
-through erfinv), so tests pass weights across instead of redrawing them.
-A generator on the card draws there: a 3.2 B-parameter model's 12.7 GB
-of float32 never passes through host memory.
+each leaf is initialized. ``init_params(specs, key)`` follows the
+reference's key schedule: one ``rng.split`` of the key per leaf (in
+``jax.tree`` order), and a normal leaf is ``rng.normal`` of its key
+scaled like the reference (1/√fan_in, or 1.0 for an ``embed`` table), so
+a seeded run starts from the reference's weights (within 5.7e-6
+relative: ``erfinv`` differs from XLA's in the last place; zeros and ones
+are exact). On the card the words are drawn there by the stream kernel
+(``kernels.ota_channel.ops.bits``): a 3.2 B-parameter model's 12.7 GB of
+float32 never passes through host memory.
 
 A spec may carry the leaf's logical axes (``axes``, keyword-only): the
 distributed step shards a leaf over the FL data axes along its ``embed``
@@ -22,7 +25,13 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import rng
 from repro_torch.common.tree import tree_leaves, tree_unflatten
+from repro_torch.kernels.ota_channel.ops import bits
+
+# entries of a normal leaf turned from words into floats at a time (the
+# float64 fused multiply-add of ``rng.uniform`` needs 48 bytes per entry)
+_NORMAL_SLICE = 1 << 26
 
 
 @dataclass(frozen=True)
@@ -46,15 +55,33 @@ def _fan_in(shape: Tuple[int, ...]) -> int:
     return math.prod(shape[:-1])
 
 
-def init_params(specs, generator: torch.Generator, batch_shape=(),
-                device="cpu"):
-    """Materialize a spec tree as float32 tensors of shape
-    ``batch_shape + spec.shape``. Draws run on the generator's device (the
-    host for a CPU generator) and then move to ``device``, so a CPU
-    generator's seed gives the same weights on every device."""
+def _normal(key, shape, device) -> torch.Tensor:
+    """``rng.normal(key, shape)`` for each key of a (..., 2) table, its
+    words drawn on ``device`` (the card's stream kernel there) and turned
+    into floats a slice at a time."""
+    n = math.prod(shape)
+    words = bits(key, n, device=device)
+    out = torch.empty(words.shape, dtype=torch.float32, device=words.device)
+    flat_w, flat_o = words.reshape(-1), out.reshape(-1)
+    for a in range(0, flat_w.numel(), _NORMAL_SLICE):
+        sl = slice(a, a + _NORMAL_SLICE)
+        flat_o[sl] = rng.normal_from_words(flat_w[sl])
+    return out.reshape(words.shape[:-1] + tuple(shape))
+
+
+def init_params(specs, key, device="cpu"):
+    """Materialize a spec tree as float32 tensors, as the reference's
+    ``init_params(specs, key)``: ``rng.split(key, L)`` gives one key per
+    leaf. ``key`` may be a (..., 2) table: each leaf is then
+    ``key.shape[:-1] + spec.shape``, one draw per key (the reference's
+    vmap over per-client keys)."""
+    key = rng.as_key(key)
+    batch = tuple(key.shape[:-1])
+    leaves = tree_leaves(specs)
+    keys = rng.split(key, max(len(leaves), 1))          # (..., L, 2)
     out = []
-    for spec in tree_leaves(specs):
-        shape = tuple(batch_shape) + tuple(spec.shape)
+    for i, spec in enumerate(leaves):
+        shape = batch + tuple(spec.shape)
         if spec.init == "zeros":
             arr = torch.zeros(shape, dtype=torch.float32, device=device)
         elif spec.init == "ones":
@@ -66,9 +93,7 @@ def init_params(specs, generator: torch.Generator, batch_shape=(),
                 std = 1.0
             else:
                 std = 1.0 / math.sqrt(max(_fan_in(spec.shape), 1))
-            arr = torch.randn(shape, generator=generator,
-                              dtype=torch.float32, device=generator.device)
-            arr = arr.mul_(std).to(device)
+            arr = _normal(keys[..., i, :], spec.shape, device).mul_(std)
         out.append(arr)
     return tree_unflatten(specs, out)
 

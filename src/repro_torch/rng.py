@@ -7,8 +7,12 @@ schedule exactly rather than using ``torch.Generator``:
 * ``PRNGKey(seed)``  — ``jax.random.PRNGKey`` with 64-bit mode off: the
   seed's low 32 bits, ``(0, seed & 0xFFFFFFFF)``;
 * ``fold_in(key, data)`` — ``threefry2x32(key, (0, data))``, both words;
-* ``bits(key, n)`` — ``jax.random.bits(key, (n,), uint32)`` under either
-  value of ``jax_threefry_partitionable``.
+* ``split(key, num)`` — ``jax.random.split``;
+* ``bits(key, n)`` — ``jax.random.bits(key, (n,), uint32)``;
+* ``randint(key, shape, minval, maxval)`` — ``jax.random.randint`` (int32);
+* ``uniform`` bit for bit, and ``normal`` to float32 rounding;
+
+each under either value of ``jax_threefry_partitionable``.
 
 Representation. torch covers uint32 only partly, so a uint32 word lives in
 an int64 tensor holding a value in [0, 2**32) and every add is masked back
@@ -114,6 +118,25 @@ def fold_in(key, data) -> torch.Tensor:
     return torch.from_numpy(np.stack([y0, y1], axis=-1).astype(np.int64))
 
 
+def split(key, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` for every key of a (..., 2) table:
+    (..., num, 2). Partitionable layout: new key i is both words of
+    threefry2x32(key, (0, i)). Original layout: the 2·num words of
+    ``bits(key, 2·num)`` taken in pairs. Computed on the host in numpy
+    uint32."""
+    k = as_key(key).numpy().astype(np.uint32)
+    k0, k1 = k[..., 0, None], k[..., 1, None]
+    i = np.arange(num, dtype=np.uint32)
+    if threefry_partitionable():
+        y0, y1 = threefry2x32(k0, k1, np.zeros_like(i), i)
+        out = np.stack([y0, y1], axis=-1)
+    else:
+        y0, y1 = threefry2x32(k0, k1, i, i + np.uint32(num))
+        flat = np.concatenate([y0, y1], axis=-1)
+        out = flat.reshape(flat.shape[:-1] + (num, 2))
+    return torch.from_numpy(out.astype(np.int64))
+
+
 def to_bit_pattern(words: torch.Tensor) -> torch.Tensor:
     """uint32-valued int64 -> int32 holding the same bit pattern."""
     words = words - ((words >> 31) << 32)
@@ -180,21 +203,71 @@ def _fma_f32(a: torch.Tensor, b: torch.Tensor,
     return torch.where(fix, other, out)
 
 
-def uniform(key, shape, minval=0.0, maxval=1.0, device=None) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32, minval, maxval)``, bit for
-    bit: the top 23 bits of each word become the mantissa of a float in
-    [1, 2), which is scaled by (maxval − minval) and shifted by minval in
-    one fused multiply-add (as XLA computes it) and clamped below at
-    ``minval``. Broadcasts over leading key dimensions."""
-    w = _shaped_bits(key, shape, device)
+_INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def randint(key, shape, minval, maxval, device=None) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` with its default
+    int32 dtype, bit for bit, for every key of a (..., 2) table: (...,
+    *shape) int32. JAX's construction: ``k1, k2 = split(key)``, two words
+    per value (``bits(k1)``, ``bits(k2)``) combined modulo the span
+    without rejection, all in uint32; minval and maxval (broadcast to
+    ``shape``) are clipped to int32 first."""
+    shape = tuple(int(d) for d in shape)
+    k = split(key, 2)
+    hi = _shaped_bits(k[..., 0, :], shape, device)
+    lo = _shaped_bits(k[..., 1, :], shape, device)
+    lo_v = torch.as_tensor(minval, dtype=torch.int64, device=hi.device)
+    hi_v = torch.as_tensor(maxval, dtype=torch.int64, device=hi.device)
+    out_of_range = hi_v > _INT32_MAX
+    lo_v = lo_v.clamp(_INT32_MIN, _INT32_MAX)
+    hi_v = hi_v.clamp(_INT32_MIN, _INT32_MAX)
+    span = (hi_v - lo_v) & MASK32
+    span = torch.where(hi_v <= lo_v, torch.ones_like(span), span)
+    span = torch.where(out_of_range & (hi_v > lo_v), (span + 1) & MASK32,
+                       span)
+
+    def rem(x, y):   # XLA's unsigned remainder: x % 0 is x
+        return torch.where(y == 0, x, x % torch.where(y == 0, 1, y))
+
+    mult = rem(torch.full_like(span, 1 << 16), span)
+    mult = rem((mult * mult) & MASK32, span)
+    offset = ((rem(hi, span) * mult) & MASK32) + rem(lo, span)
+    offset = rem(offset & MASK32, span)
+    out = (lo_v + offset) & MASK32
+    return to_bit_pattern(out)
+
+
+def uniform_from_words(w: torch.Tensor, minval=0.0,
+                       maxval=1.0) -> torch.Tensor:
+    """``uniform``'s float32 values from its uint32 words (any int tensor
+    holding their bit patterns)."""
+    w = w.to(torch.int64) & MASK32
     f = to_bit_pattern((w >> 9) | 0x3F800000).view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=f.device)
     return torch.maximum(lo, _fma_f32(f, hi - lo, lo))
 
 
+def uniform(key, shape, minval=0.0, maxval=1.0, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``, bit for
+    bit: the top 23 bits of each word become the mantissa of a float in
+    [1, 2), which is scaled by (maxval − minval) and shifted by minval in
+    one fused multiply-add (as XLA computes it) and clamped below at
+    ``minval``. Broadcasts over leading key dimensions."""
+    return uniform_from_words(_shaped_bits(key, shape, device), minval,
+                              maxval)
+
+
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2_F32 = float(np.float32(np.sqrt(2.0)))
+
+
+def normal_from_words(w: torch.Tensor) -> torch.Tensor:
+    """``normal``'s float32 values from its uint32 words."""
+    u = uniform_from_words(w, _NORMAL_LO, 1.0)
+    return torch.special.erfinv(u) * torch.tensor(
+        _SQRT2_F32, dtype=torch.float32, device=u.device)
 
 
 def normal(key, shape, device=None) -> torch.Tensor:
@@ -203,6 +276,4 @@ def normal(key, shape, device=None) -> torch.Tensor:
     JAX's; ``torch.special.erfinv`` and XLA's ``erf_inv`` differ in the
     last place, so the result matches to float32 rounding, not bit for
     bit. Broadcasts over leading key dimensions."""
-    u = uniform(key, shape, _NORMAL_LO, 1.0, device=device)
-    return torch.special.erfinv(u) * torch.tensor(
-        _SQRT2_F32, dtype=torch.float32, device=u.device)
+    return normal_from_words(_shaped_bits(key, shape, device))

@@ -441,7 +441,7 @@ def test_dist_matches_sim(runs):
     fl = FLConfig(n_clusters=C, n_clients=N, weighting="equal", ota=False,
                   tau_h=1)
     sim = HotaSim(model, fl, TrainConfig(lr=LR), [MAXC] * N, device="cpu")
-    st = sim.init(0)
+    st = sim.init(rng.PRNGKey(0))
     st = st._replace(
         omega=tree_map(torch.from_numpy, inp["omega"]),
         heads=tree_map(lambda h: torch.from_numpy(np.broadcast_to(

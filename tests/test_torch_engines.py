@@ -356,7 +356,7 @@ def test_sim_runs_each_engine(gate):
     out = []
     for kw in (gate, base):
         sim = _sim(**kw)
-        new, m = sim.step(sim.init(0), xb, yb, rng.PRNGKey(3))
+        new, m = sim.step(sim.init(rng.PRNGKey(0)), xb, yb, rng.PRNGKey(3))
         out.append((new.ps_opt.mu, m))
     (mu, m), (mu0, m0) = out
     assert torch.isfinite(mu).all() and m["loss"].shape == (C, N)
@@ -371,7 +371,7 @@ def test_sim_runs_each_engine(gate):
 
 def test_step_streams_are_checked():
     sim = _sim()
-    st = sim.init(0)
+    st = sim.init(rng.PRNGKey(0))
     r = np.random.default_rng(1)
     xb = r.normal(size=(C, N, 4, DIMS[0])).astype(np.float32)
     yb = r.integers(0, 6, size=(C, N, 4)).astype(np.int32)

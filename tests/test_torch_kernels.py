@@ -156,12 +156,17 @@ def test_kernel_sources_and_build_without_nvcc(monkeypatch, tmp_path):
     assert names == ["flash_attention.cu", "masked_gradnorm.cu",
                      "ota_aggregate.cu", "ota_aggregate_fused.cu",
                      "ota_channel.cu", "ota_client_fold.cu",
-                     "ota_mask_count.cu", "ota_mask_weight.cu"]
+                     "ota_mask_count.cu", "ota_mask_weight.cu",
+                     "threefry_stream.cu"]
     assert sorted(h.name for h in _build.headers()) == [
-        "ota_estimate.cuh", "threefry.cuh"]
+        "hopper.cuh", "ota_estimate.cuh", "threefry.cuh"]
     for src in _build.sources():
         text = src.read_text()
-        assert "cudaGetLastError" in text and "Replaces the TPU kernel" in text
+        assert "cudaGetLastError" in text
+        # every source ports a TPU kernel but the stream draw, which the
+        # reference leaves to XLA
+        assert ("Replaces the TPU kernel" in text) != (
+            src.name == "threefry_stream.cu")
     # K3 and K4 share the per-entry estimate (K7 its Box-Muller draw); K4
     # includes the generator
     for name in ("ota_aggregate.cu", "ota_aggregate_fused.cu",
@@ -171,10 +176,18 @@ def test_kernel_sources_and_build_without_nvcc(monkeypatch, tmp_path):
     fused = next(s for s in _build.sources()
                  if s.name == "ota_aggregate_fused.cu").read_text()
     assert '#include "threefry.cuh"' in fused
+    stream = next(s for s in _build.sources()
+                  if s.name == "threefry_stream.cu").read_text()
+    assert '#include "threefry.cuh"' in stream
+    flash = next(s for s in _build.sources()
+                 if s.name == "flash_attention.cu").read_text()
+    assert '#include "hopper.cuh"' in flash
     for entry in ("ota_aggregate_f32", "ota_aggregate_fused_f32",
-                  "threefry_chunk_u32", "flash_attention_bf16",
+                  "threefry_chunked_u32", "threefry_flat_u32",
+                  "flash_attention_bf16", "flash_attention_bf16_hopper",
                   "flash_attention_f32", "ota_mask_count_f32",
-                  "ota_channel_f32"):
+                  "ota_channel_f32", "masked_gradnorm_f32",
+                  "masked_gradnorm_rowblock_f32"):
         assert entry in _build.SIGNATURES
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

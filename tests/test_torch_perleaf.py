@@ -211,7 +211,7 @@ def test_perleaf_state_converts_with_tree_adam(perleaf_pair):
     _, jstate, sim, state, _ = perleaf_pair
     assert isinstance(state.ps_opt, AdamState)
     _close(state.ps_opt.mu, jstate.ps_opt.mu, 0, 0)
-    fresh = sim.init(0)
+    fresh = sim.init(rng.PRNGKey(0))
     assert isinstance(fresh.ps_opt, AdamState)
     assert not sim.draws_streams_at_once and sim.packer(fresh.omega) is None
     with pytest.raises(ValueError, match="per-leaf"):
@@ -253,7 +253,7 @@ def test_sim_packed_equals_per_leaf_when_ota_off():
     for packed in (True, False):
         sim = HotaSim(model, dataclasses.replace(base, use_pallas_ota=packed),
                       TrainConfig(lr=3e-4), [4, 4], device="cpu")
-        outs.append(sim.step(sim.init(0), x, y, rng.PRNGKey(9)))
+        outs.append(sim.step(sim.init(rng.PRNGKey(0)), x, y, rng.PRNGKey(9)))
     (st_p, m_p), (st_l, m_l) = outs
     for field in ("omega", "heads", "p", "head_opt", "fgn", "f0", "step"):
         for u, v in zip(_flat(getattr(st_p, field)),
@@ -281,9 +281,9 @@ def test_scenario_bank_runs_the_per_leaf_engine():
     r = np.random.default_rng(2)
     x = r.normal(size=(C, N, B, DIMS[0])).astype(np.float32)
     y = r.integers(0, 2, size=(C, N, B))
-    states, m = bank.step(bank.init(0), x, y, rng.PRNGKey(4))
+    states, m = bank.step(bank.init(rng.PRNGKey(0)), x, y, rng.PRNGKey(4))
     assert m["loss"].shape == (2, C, N)
-    one, _ = sim.step_with_channel(sim.init(0), x, y, rng.PRNGKey(4),
+    one, _ = sim.step_with_channel(sim.init(rng.PRNGKey(0)), x, y, rng.PRNGKey(4),
                                    scenario_channel(bank.chan_bank, 1))
     for a, b in zip(tree_leaves(one.omega),
                     tree_leaves(bank.scenario_state(states, 1).omega)):

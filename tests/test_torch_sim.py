@@ -212,9 +212,9 @@ def test_port_init_runs_a_round():
     sim = HotaSim(build_model(ModelConfig(family="mlp"), DIMS),
                   FLConfig(n_clusters=C, n_clients=N), TrainConfig(), N_CLS,
                   device="cpu")
-    state = sim.init(0)
+    state = sim.init(rng.PRNGKey(0))
     assert state.heads["w"].shape == (C, N, DIMS[-1], max(N_CLS))
-    assert torch.equal(sim.init(0).omega["trunk"]["fc1"]["w"],
+    assert torch.equal(sim.init(rng.PRNGKey(0)).omega["trunk"]["fc1"]["w"],
                        state.omega["trunk"]["fc1"]["w"])
     r = np.random.default_rng(0)
     xb = r.normal(size=(C, N, B, DIMS[0])).astype(np.float32)

@@ -148,7 +148,7 @@ def test_harsh_bank_matches_jax_under_the_ulp_rule():
     jp = np.asarray(jref.pass_probability(jchan.sigma2, jchan.h_threshold))
     assert np.all(np.abs(tp - jp) <= np.spacing(jp))
     sim = _sims()[1]
-    omega = sim.init(0).omega
+    omega = sim.init(rng.PRNGKey(0)).omega
     pk = sim.packer(omega)
     jpk = jpacker_for(jax.tree.map(lambda t: t.numpy(), omega),
                       tail="final", sections="toplevel")
@@ -180,7 +180,7 @@ def test_bank_equals_sequential_single_scenario_runs():
     specs = list(HARSH.values())
     _, sim = _sims()
     bank = ScenarioBank(sim, specs)
-    states = bank.init(0)
+    states = bank.init(rng.PRNGKey(0))
     batches = _batches(2)
     keys = [rng.PRNGKey(20 + r) for r in range(2)]
     states, hist = bank.run(states, batches, keys)
@@ -188,7 +188,7 @@ def test_bank_equals_sequential_single_scenario_runs():
     for s, spec in enumerate(specs):
         one = HotaSim(sim.model, FLConfig(n_clusters=C, n_clients=N, **spec),
                       sim.tcfg, N_CLS, device="cpu")
-        st = one.init(0)
+        st = one.init(rng.PRNGKey(0))
         for r, ((xb, yb), key) in enumerate(zip(batches, keys)):
             st, m = one.step(st, xb, yb, key)
             for name in m:
@@ -215,7 +215,7 @@ def test_bank_runs_on_each_engine(engine):
                       FLConfig(n_clusters=C, n_clients=N, **kw),
                       TrainConfig(lr=3e-4), N_CLS, device="cpu")
         bank = ScenarioBank(sim, specs)
-        out.append(bank.run(bank.init(0), batches, keys))
+        out.append(bank.run(bank.init(rng.PRNGKey(0)), batches, keys))
     (st, hist), (st0, hist0) = out
     if engine.get("ota_streaming"):
         np.testing.assert_allclose(st.ps_opt.mu.numpy(),
@@ -245,7 +245,7 @@ def test_bank_refusals():
     assert bank.n_scenarios == 2
     assert float(bank.chan_bank.noise_std[1]) == 0.5
     with pytest.raises(ValueError, match="no batches"):
-        bank.run(bank.init(0), [], [])
+        bank.run(bank.init(rng.PRNGKey(0)), [], [])
 
 
 def test_run_sweep_smoke(monkeypatch, tmp_path):
