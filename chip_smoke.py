@@ -163,7 +163,33 @@ imports only ``repro_torch`` (never ``jax`` or the JAX package) and runs:
    and read just after (2 K7 launches per rank), ĝ against the CPU ranks'
    (relative L2 1e-4, at most 16 entries off by more than rtol 1e-4: K7's
    masks may flip within a few ulp of H_th between the two devices' log
-   and cos), the masked norms rtol 1e-5.
+   and cos), the masked norms rtol 1e-5;
+21. the faulted paper round at full width (``FAULT_RATES``: dropout 0.25,
+   blackout 0.1, stragglers 0.25, staleness 2), ``FAULT_ROUNDS`` rounds
+   counted (10 K1 and 1 K2 per round, the participation drawn by 2
+   ``threefry_flat`` launches per round, 0 plain draws); one card round
+   against the CPU round (metrics rtol 1e-4, ω, its stale copy and ĝ
+   relative L2 1e-3); blackout 1 and ``spike_norm`` 1e-30 rounds the
+   identity bit for bit on the card; traced rounds at dropout 0, 0.25,
+   0.5 and blackout 1 (``FAULT_TRACE_PASSES`` passes taking the rates in
+   turn): their device launches, equal in every trace, and their
+   device-busy time; K2 on the faulted round's inputs and K5 with
+   ``live_c`` 0 and 1 against their plain versions (their fault-mode
+   errors); ``experiments.faults_bench.fault_rows`` (faults off, dropout
+   0, 0.25, 0.5, blackout: medians of 10 rounds, the rows interleaved);
+22. a Fig. 4-width fault bank (S=4: dropout 0, 0.25, 0.5, blackout 1) on
+   the client-folded and streaming engines, ``FAULT_BANK_ROUNDS`` rounds
+   counted (K1 10 or K5 100 per scenario round, K2 1), per-scenario
+   ``skipped`` and ``n_participants``, each scenario against its own
+   ``HotaSim`` rounds (rtol 1e-4, ω relative L2 1e-3), the median bank
+   round and one traced bank round;
+23. the client-folded fault bank saved, restored onto the card and run
+   one more round: equal bit for bit to the uninterrupted round;
+24. the faulted distributed step (phase 19's mesh and ``FAULT_RATES``) in
+   both count modes, counted as phase 19 (and the participation drawn
+   on the card), the modes bit for bit, a blackout step the identity on
+   every rank, both against four CPU ranks (metrics rtol 1e-4, ω and the
+   stale copy relative L2 1e-3), and the step's split beside phase 19's.
 
 Every counted run also counts the stream draws: the card's two draw
 kernels and the plain draw, which must stay at 0 on the card.
@@ -171,8 +197,9 @@ kernels and the plain draw, which must stay at 0 on the card.
 Any failure exits non-zero. The line before last is the card's name and
 power limit, the one before it the kernels' JSON (K1, K2, K5, K3, K4, K8,
 K6, K7 and the two stream draws; each kernel's ``launches`` sums its
-counts over the main-path runs of phases 5, 9, 11, 12, 13, 16, 19 and 20,
-over all ranks, and a kernel never launched there fails the run); the last
+counts over the main-path runs of phases 5, 9, 11, 12, 13, 16, 19, 20,
+21, 22 and 24, over all ranks, and a kernel never launched there fails
+the run; K1, K2, K5 and K6 also carry their fault-mode error); the last
 line is
 ``{"ok": true, "device": {...}}``. An earlier ``[record]`` line holds every
 number measured, as JSON.
@@ -243,6 +270,19 @@ DIST_STEPS = 3                # counted steps per count mode
 DIST_TIMED_STEPS = 5          # timed steps per count mode
 DIST_LEAVES = 10              # K6 (or K5) launches per rank per step
 CPU_RANK_THREADS = 2          # intra-op threads of each CPU rank
+
+# phases 21-24: fault injection (paper round, bank, distributed step)
+FAULT_RATES = dict(faults=True, dropout_rate=0.25, blackout_rate=0.1,
+                   straggler_rate=0.25, staleness_rounds=2)
+FAULT_ROUNDS = 3              # counted faulted rounds
+FAULT_TRACE_RATES = {"dropout_0": dict(dropout_rate=0.0),
+                     "dropout_0.25": dict(dropout_rate=0.25),
+                     "dropout_0.5": dict(dropout_rate=0.5),
+                     "blackout_1": dict(blackout_rate=1.0)}
+FAULT_TRACE_PASSES = 3        # traced rounds per rate, the rates in turn
+FAULT_BANK = [dict(dropout_rate=0.0), dict(dropout_rate=0.25),
+              dict(dropout_rate=0.5), dict(blackout_rate=1.0)]
+FAULT_BANK_ROUNDS = 2         # counted fault-bank rounds per engine
 
 # the stream draws (phase 10): the card's kernel and the plain draw
 DRAW_NAMES = ("threefry_chunked", "threefry_flat", "stream_draw_plain")
@@ -464,6 +504,8 @@ def rel_l2(got, want) -> float:
 
 def to_cpu(x):
     """A copy of a state (tensors, dicts, named tuples) on the host."""
+    if x is None:             # a fault field of an unfaulted state
+        return None
     if isinstance(x, dict):
         return {k: to_cpu(v) for k, v in x.items()}
     if isinstance(x, tuple):
@@ -1605,7 +1647,7 @@ def check_k6(dev, gen, record):
     n = TABLE_I_PARAMS
     x = torch.randn(n, generator=gen, device=dev) * 1e-3
     out = {}
-    err = 0.0
+    err = fault_err = 0.0
     for c in (2, 10):
         bits = torch.randint(-2 ** 31, 2 ** 31, (c, n), generator=gen,
                              device=dev, dtype=torch.int64).to(torch.int32)
@@ -1624,8 +1666,11 @@ def check_k6(dev, gen, record):
                 torch.cuda.synchronize()
                 want = ota_mask_count_ref(x, bits, me, sig, 0.032, ota_on,
                                           0.37, live_all=live)
-                err = max(err, float((got[0] - want[0]).abs().max()),
-                          float((got[1] - want[1]).abs().max()))
+                e = max(float((got[0] - want[0]).abs().max()),
+                        float((got[1] - want[1]).abs().max()))
+                err = max(err, e)
+                if live is not None:     # the fault mode
+                    fault_err = max(fault_err, e)
                 if not (torch.equal(got[0], want[0])
                         and torch.equal(got[1], want[1])):
                     fail(f"K6 C={c} {cname} me={me}: out or cnt differs from "
@@ -1648,7 +1693,7 @@ def check_k6(dev, gen, record):
             f"{recorded:.0%}), plain {plain:.4f}, byte bound "
             f"{out[c]['bound_ms']:.4f}")
     record["k6"] = out
-    record["k6_max_abs_err"] = err
+    record.update(k6_max_abs_err=err, k6_fault_max_abs_err=fault_err)
     return out, err
 
 
@@ -2118,6 +2163,523 @@ def dist_phase(dev, record):
     return total
 
 
+# --------------------------------------------------------------------------
+# phases 21-24: fault injection, the fault bank, checkpoints, the faulted
+# distributed step
+# --------------------------------------------------------------------------
+
+def _state_pairs(a, b):
+    """(leaf of a, leaf of b) over two states of one structure."""
+    from repro_torch.common.tree import state_map
+    pairs = []
+    state_map(lambda u, v: pairs.append((u, v)), a, b)
+    return pairs
+
+
+def _same_but_step(a, b) -> bool:
+    """Every leaf of two states equal bit for bit, ``step`` aside."""
+    import torch
+    pairs = _state_pairs(a._replace(step=None), b._replace(step=None))
+    return bool(pairs) and all(torch.equal(u, v) for u, v in pairs)
+
+
+def _leaf_cat(tree):
+    import torch
+    from repro_torch.common.tree import tree_leaves
+    return torch.cat([l.reshape(-1).cpu() for l in tree_leaves(tree)])
+
+
+def _trace_round(fn):
+    """({device kernel name: launches}, device-busy ms) of one traced
+    call of ``fn``: the busy time is the sum of its device records."""
+    import torch
+    with device_trace() as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    return ({e.key: e.count for e in events},
+            sum(e.self_device_time_total for e in events) / 1e3)
+
+
+def faults_phase(sim, batcher, key0, dev, record, counters):
+    """Phase 21: the faulted paper round at full width. Returns the
+    launches of its counted run and the fault-mode errors of K2 and K5."""
+    import dataclasses
+    import torch
+    from repro_torch import rng
+    from repro_torch.core import ota
+    from repro_torch.core.channel import fault_params
+    from repro_torch.core.sim import HotaSim
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.experiments.faults_bench import fault_rows
+    from repro_torch.kernels.masked_gradnorm import ops as k2
+    from repro_torch.kernels.masked_gradnorm.ref import masked_gradnorm_ref
+    from repro_torch.kernels.ota_channel.ops import ota_stream_fold_apply
+    from repro_torch.kernels.ota_channel.ref import ota_stream_fold_ref
+    fl = dataclasses.replace(sim.fl, **FAULT_RATES)
+    c, n = fl.n_clusters, fl.n_clients
+    n_cls = sim.n_classes.tolist()
+    fsim = HotaSim(sim.model, fl, sim.tcfg, n_cls, device=dev)
+    st = fsim.init(rng.PRNGKey(0))
+    n_leaves = len(fsim.packer(st.omega).leaf_runs())
+    batches = [batcher.next_stacked() for _ in range(FAULT_ROUNDS + 1)]
+    keys = [rng.fold_in(key0, 3000 + r) for r in range(FAULT_ROUNDS + 1)]
+    rec = {"rates": FAULT_RATES}
+    torch.cuda.synchronize()
+    for ctr in counters:
+        ctr.reset()
+    metrics = []
+    for r in range(FAULT_ROUNDS):
+        st, m = fsim.step(st, *batches[r], keys[r])
+        metrics.append(m)
+    torch.cuda.synchronize()
+    launches = {ctr.name: ctr.count for ctr in counters}
+    draws = take_draws("faulted round", launches)
+    want = {k: 0 for k in launches}
+    want.update(ota_client_fold=n_leaves * FAULT_ROUNDS,
+                masked_gradnorm=FAULT_ROUNDS)
+    if launches != want:
+        fail(f"faulted round: launches {launches}, expected {want}")
+    if draws.get("threefry_flat", 0) != 2 * FAULT_ROUNDS:
+        fail(f"faulted round: {draws.get('threefry_flat', 0)} flat draws, "
+             f"expected 2 per round (the participation draw)")
+    if not all(bool(torch.isfinite(v).all()) for m in metrics
+               for v in m.values()):
+        fail("faulted round: non-finite metrics")
+    parts = [ota.draw_participation(k, fsim.faults, c, n, dev)
+             for k in keys]
+    rec.update(launches=launches, draws_per_round={
+        k: v / FAULT_ROUNDS for k, v in draws.items()},
+        skipped=[float(m["skipped"]) for m in metrics],
+        n_participants=[float(m["n_participants"]) for m in metrics],
+        stragglers=[float(p.stale.sum()) for p in parts],
+        dead_clusters=[c - float(p.n_live) for p in parts])
+    log(f"[faults] {FAULT_ROUNDS} faulted rounds {FAULT_RATES}: launches "
+        f"{launches}, draws per round {rec['draws_per_round']}; per round "
+        f"participants {rec['n_participants']}, stragglers "
+        f"{rec['stragglers']}, dead clusters {rec['dead_clusters']}, "
+        f"skipped {rec['skipped']}")
+
+    # the card round against the CPU round
+    cpu_sim = HotaSim(sim.model, fl, sim.tcfg, n_cls, device="cpu")
+    new_g, m_g = fsim.step(st, *batches[-1], keys[-1])
+    new_c, m_c = cpu_sim.step(to_cpu(st), *batches[-1], keys[-1])
+    cmp = {name: check_close(f"faulted round {name}", m_g[name].cpu(),
+                             m_c[name], rtol=1e-4, atol=1e-6)
+           for name in ("loss", "p", "grad_norms", "fgrad", "skipped",
+                        "n_participants")}
+    cmp["omega_rel_l2"] = rel_l2(_leaf_cat(new_g.omega), _leaf_cat(new_c.omega))
+    cmp["stale_rel_l2"] = rel_l2(_leaf_cat(new_g.omega_stale),
+                                 _leaf_cat(new_c.omega_stale))
+    cmp["ghat_rel_l2"] = rel_l2(new_g.ps_opt.mu.cpu(), new_c.ps_opt.mu)
+    if max(cmp["omega_rel_l2"], cmp["stale_rel_l2"], cmp["ghat_rel_l2"]) \
+            > 1e-3:
+        fail(f"faulted card round vs CPU round: {cmp}")
+    rec["card_vs_cpu"] = cmp
+    log(f"[faults] card round vs CPU round: {cmp}")
+
+    # identity rounds on the card: no participant, and a tripped guard
+    ident = {}
+    for name, knob in (("blackout", dict(blackout_rate=1.0)),
+                       ("spike", dict(spike_norm=1e-30))):
+        fp = fault_params(dataclasses.replace(fl, **knob), device=dev)
+        after, m_i = fsim.step(new_g, *batches[0], keys[0], faults=fp)
+        torch.cuda.synchronize()
+        ident[name] = (_same_but_step(after, new_g)
+                       and float(m_i["skipped"]) == 1.0
+                       and int(after.step) == int(new_g.step) + 1)
+        if not ident[name]:
+            fail(f"faulted round: the {name} round is not the identity")
+    rec["identity_bit_exact"] = ident
+
+    # device launches and busy time of one traced round at each rate:
+    # each rate warmed once, then traced in FAULT_TRACE_PASSES passes
+    # that take the rates in turn; every trace must hold the same launches
+    fps = {name: fault_params(dataclasses.replace(fl, **knob), device=dev)
+           for name, knob in FAULT_TRACE_RATES.items()}
+    for fp in fps.values():
+        fsim.step(new_g, *batches[0], keys[0], faults=fp)
+    traces = {name: [] for name in fps}
+    for _ in range(FAULT_TRACE_PASSES):
+        for name, fp in fps.items():
+            traces[name].append(_trace_round(
+                lambda: fsim.step(new_g, *batches[0], keys[0], faults=fp)))
+    launches_per = {name: [sum(cnt.values()) for cnt, _ in t]
+                    for name, t in traces.items()}
+    busy = {name: [ms for _, ms in t] for name, t in traces.items()}
+    rec.update(traced_device_launches=launches_per, traced_busy_ms=busy,
+               traced_busy_ms_median={k: statistics.median(v)
+                                      for k, v in busy.items()})
+    first = traces[next(iter(traces))][0][0]
+    if any(cnt != first for t in traces.values() for cnt, _ in t):
+        fail(f"faulted round: device launches depend on the rates: "
+             f"{launches_per}")
+
+    # K2 and K5 in fault mode: the faulted round's own inputs
+    x_t = torch.as_tensor(batches[0][0]).to(dev)
+    y_t = torch.as_tensor(batches[0][1]).to(device=dev, dtype=torch.int64)
+    part = parts[0]
+    _, _, g, _ = fsim._client_update(new_g.omega, new_g.heads,
+                                     new_g.head_opt, x_t, y_t,
+                                     omega_stale=new_g.omega_stale,
+                                     stale=part.stale)
+    packer = fsim.packer(new_g.omega)
+    ck = ota.sim_channel_key(keys[0])
+    masks = ota.final_layer_masks_packed(ck, fsim.chan, packer)
+    gm = torch.cat([l.reshape(c, n, -1) for l in tree_leaves(g["final"])],
+                   dim=-1)
+    mm = torch.cat([m.reshape(c, -1).float() for m in tree_leaves(masks)],
+                   dim=-1)
+    k2_err = check_close("K2 faulted round", k2.masked_gradnorm(gm, mm),
+                         masked_gradnorm_ref(gm, mm), atol=0.0)
+    w_tx = new_g.p * part.part
+    folds = ota.packed_section_folds(packer)
+    run = max(packer.leaf_runs(), key=lambda r_: r_.size)
+    leaf = tree_leaves(g)[run.leaf]
+    k5_err = 0.0
+    for cl in (0, c - 1):
+        bits = ota.stream_range_bits(
+            ota.section_gain_key(ck, folds[run.section], cl), run.offset,
+            run.size, dev)
+        for live in (0.0, 1.0):
+            lv = torch.tensor(live, device=dev)
+            args = (w_tx[cl], bits, fsim.chan.sigma2[cl],
+                    fsim.chan.h_threshold, fsim.chan.ota_on)
+            got = ota_stream_fold_apply(leaf[cl], *args, live_c=lv)
+            want_k5 = ota_stream_fold_ref(leaf[cl].reshape(n, -1), *args,
+                                          live_c=lv)
+            k5_err = max(k5_err, check_close(
+                f"K5 faulted live={live}", got[0].reshape(-1), want_k5[0]))
+            if not torch.equal(got[1].reshape(-1), want_k5[1]):
+                fail(f"K5 faulted live={live}: masks differ")
+    rec.update(k2_fault_max_abs_err=k2_err, k5_fault_max_abs_err=k5_err)
+
+    # fault_rows: the round's time against the rates
+    rows = fault_rows(device=dev)
+    rec["fault_rows"] = rows
+    base = rows[0]["round_ms_median"]
+    for row in rows:
+        log(f"[faults time] {row['name']}: median "
+            f"{row['round_ms_median']:.2f} ms ({row['round_ms_median'] / base - 1:+.1%} "
+            f"vs faults off); participants {row.get('n_participants')}, "
+            f"skipped {row.get('skipped')}")
+    log(f"[faults] identity rounds bit for bit {ident}; traced device "
+        f"launches per rate {launches_per}; device-busy ms per traced round "
+        f"{busy}; K2 fault-mode "
+        f"max abs err {k2_err:.3e}, K5 {k5_err:.3e}")
+    record["faults"] = rec
+    return launches, k2_err, k5_err
+
+
+def fault_bank_phase(sim, batcher, dev, record, counters):
+    """Phases 22-23: a Fig. 4-width fault bank (S=4: dropout 0, 0.25, 0.5
+    and blackout 1) on the client-folded and streaming engines, counted,
+    against per-scenario ``HotaSim`` rounds and timed; then save, restore
+    and one more round, bit for bit. Returns the counted launches."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch import rng
+    from repro_torch.core.channel import scenario_faults
+    from repro_torch.core.sim import HotaSim
+    from repro_torch.core.sweep import ScenarioBank
+    fl = dataclasses.replace(sim.fl, faults=True)
+    n_cls = sim.n_classes.tolist()
+    c = fl.n_clusters
+    s_n = len(FAULT_BANK)
+    batches = [batcher.next_stacked() for _ in range(FAULT_BANK_ROUNDS)]
+    keys = [rng.fold_in(rng.PRNGKey(77), r) for r in range(FAULT_BANK_ROUNDS)]
+    total, rec = {}, {}
+    for name in ("client_folded", "streaming"):
+        esim = HotaSim(sim.model, dataclasses.replace(fl, **ENGINES[name]),
+                       sim.tcfg, n_cls, device=dev)
+        bank = ScenarioBank(esim, FAULT_BANK)
+        states0 = bank.init(rng.PRNGKey(0))
+        n_leaves = len(esim.packer(states0.omega).leaf_runs())
+        torch.cuda.synchronize()
+        for ctr in counters:
+            ctr.reset()
+        states, hist = bank.run(states0, batches, keys)
+        torch.cuda.synchronize()
+        launches = {ctr.name: ctr.count for ctr in counters}
+        draws = take_draws(f"fault bank on {name}", launches)
+        per = s_n * FAULT_BANK_ROUNDS
+        want = {k: 0 for k in launches}
+        want["masked_gradnorm"] = per
+        if name == "streaming":
+            want["ota_mask_weight"] = c * n_leaves * per
+        else:
+            want["ota_client_fold"] = n_leaves * per
+        if launches != want:
+            fail(f"fault bank on {name}: launches {launches}, expected "
+                 f"{want}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        skipped = hist["skipped"][-1].tolist()
+        n_part = hist["n_participants"][-1].tolist()
+        if skipped != [0.0, 0.0, 0.0, 1.0] or n_part[0] != c * fl.n_clients \
+                or n_part[3] != 0.0 or not n_part[0] > n_part[2]:
+            fail(f"fault bank on {name}: skipped {skipped}, participants "
+                 f"{n_part}")
+        # each scenario against its own HotaSim rounds
+        cmp = {"bits_equal": True}
+        for s in range(s_n):
+            st_s = esim.init(rng.PRNGKey(0))
+            for r in range(FAULT_BANK_ROUNDS):
+                st_s, m_s = esim.step(st_s, *batches[r], keys[r],
+                                      faults=scenario_faults(
+                                          bank.fault_bank, s))
+                for k in ("loss", "p", "skipped", "n_participants"):
+                    check_close(f"fault bank {name} s={s} {k}",
+                                hist[k][r, s], m_s[k], rtol=1e-4,
+                                atol=1e-6)
+                    cmp["bits_equal"] &= torch.equal(hist[k][r, s], m_s[k])
+            w_b = _leaf_cat(bank.scenario_state(states, s).omega)
+            w_s = _leaf_cat(st_s.omega)
+            cmp[f"omega_rel_l2_s{s}"] = rel_l2(w_b, w_s)
+            cmp["bits_equal"] &= torch.equal(w_b, w_s)
+            if cmp[f"omega_rel_l2_s{s}"] > 1e-3:
+                fail(f"fault bank on {name} s={s} vs HotaSim: {cmp}")
+        # the median bank round and one traced bank round
+        holder = [states]
+        times = []
+        for r in range(TIMED_BANK_ROUNDS + 1):
+            b_r = batcher.next_stacked()
+            k_r = rng.fold_in(rng.PRNGKey(78), r)
+
+            def one():
+                holder[0], _ = bank.step(holder[0], *b_r, k_r)
+            if r == TIMED_BANK_ROUNDS:
+                with device_trace() as prof:
+                    traced = host_ms(one)
+            else:
+                times.append(host_ms(one))
+        ev = [(e.self_device_time_total / 1e3, e.count)
+              for e in device_events(prof)]
+        rec[name] = {"launches": launches, "draws_per_bank_round": {
+            k: v / FAULT_BANK_ROUNDS for k, v in draws.items()},
+            "skipped": skipped, "n_participants": n_part,
+            "vs_hotasim": cmp, "round_ms": times,
+            "round_ms_median": statistics.median(times),
+            "traced_round_ms": traced,
+            "device_busy_ms": sum(t for t, _ in ev),
+            "device_launches_traced": sum(k for _, k in ev)}
+        log(f"[fault bank] {name}: launches {launches}; skipped {skipped}, "
+            f"participants {n_part}; vs per-scenario HotaSim {cmp}; median "
+            f"{rec[name]['round_ms_median']:.2f} ms per bank round of "
+            f"{s_n} (all {['%.2f' % t for t in times]}); traced "
+            f"{traced:.2f} ms, device busy {rec[name]['device_busy_ms']:.2f}"
+            f" ms, {rec[name]['device_launches_traced']} device launches")
+        if name == "client_folded":
+            keep = (bank, holder[0])
+
+    # phase 23: save, restore, one more round, bit for bit
+    bank, states = keep
+    x_r, y_r = batcher.next_stacked()
+    k_r = rng.PRNGKey(79)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        path = bank.save(d, 7, states)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        t0 = time.perf_counter()
+        restored = bank.restore(d, 7)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    if not _same_but_step(restored, states) or not torch.equal(
+            restored.step, states.step):
+        fail("bank restore: the restored state differs from the saved one")
+    a, ma = bank.step(states, x_r, y_r, k_r)
+    b, mb = bank.step(restored, x_r, y_r, k_r)
+    same = (all(torch.equal(u, v) for u, v in _state_pairs(a, b))
+            and all(torch.equal(ma[k], mb[k]) for k in ma))
+    if not same:
+        fail("bank restore: the round after the restore differs from the "
+             "uninterrupted round")
+    rec["checkpoint"] = {"save_s": save_s, "restore_s": restore_s,
+                         "bytes": nbytes, "continues_bit_for_bit": same}
+    log(f"[checkpoint] bank saved ({nbytes / 1e6:.1f} MB) in {save_s:.3f} s, "
+        f"restored onto the card in {restore_s:.3f} s; the next round equal "
+        f"bit for bit to the uninterrupted one")
+    record["fault_bank"] = rec
+    return total
+
+
+def _dist_fault_rank(mesh, modes, timed: bool):
+    """One rank of phase 24: ``DIST_STEPS`` counted faulted steps per count
+    mode, a blackout step (the identity), and, when ``timed``, the step's
+    time and its split."""
+    import dataclasses
+    import torch
+    from repro_torch import rng
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.core.channel import fault_params
+    from repro_torch.core.hota_step import make_hota_train_step
+    from repro_torch.sharding.collectives import MeshStats
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    if dev.type == "cpu":
+        torch.set_num_threads(CPU_RANK_THREADS)
+    model, fl0, tcfg, x, y, keys = _dist_setup(mesh)
+    fl = dataclasses.replace(fl0, **FAULT_RATES)
+    counters = _dist_counters()
+    out = {}
+    for mode in modes:
+        init_fn, step_fn, _, _ = make_hota_train_step(
+            model, mesh, fl, tcfg, loss_kind="cls", n_out=DIST_CLASSES,
+            count_mode=mode)
+        st = init_fn(rng.PRNGKey(0))
+        _sync(mesh)
+        for ctr in counters:
+            ctr.reset()
+        metrics = []
+        for s in range(DIST_STEPS):
+            st, m = step_fn(st, x, y, keys[s])
+            metrics.append({k: float(v) for k, v in m.items()})
+        _sync(mesh)
+        rec = {"launches": {ctr.name: ctr.count for ctr in counters},
+               "metrics": metrics,
+               "omega": [l.cpu() for l in tree_leaves(st.omega)],
+               "stale": [l.cpu() for l in tree_leaves(st.omega_stale)],
+               "mu": st.opt.mu.cpu(), "p": st.p.cpu()}
+        black = fault_params(dataclasses.replace(fl, blackout_rate=1.0),
+                             device=dev)
+        after, m_b = step_fn(st, x, y, keys[DIST_STEPS], None, black)
+        _sync(mesh)
+        rec["identity"] = (_same_but_step(after, st)
+                           and float(m_b["skipped"]) == 1.0)
+        if timed:
+            times = []
+            for s in range(DIST_TIMED_STEPS):
+                _sync(mesh)
+                t0 = time.perf_counter()
+                st, _ = step_fn(st, x, y, keys[DIST_STEPS + s])
+                _sync(mesh)
+                times.append((time.perf_counter() - t0) * 1e3)
+            mesh.stats = MeshStats()
+            _sync(mesh)
+            t0 = time.perf_counter()
+            st, _ = step_fn(st, x, y, keys[-1])
+            _sync(mesh)
+            rec["stats_step_ms"] = (time.perf_counter() - t0) * 1e3
+            rec["stats"] = {"seconds": mesh.stats.seconds,
+                            "calls": mesh.stats.calls,
+                            "bytes": mesh.stats.bytes}
+            mesh.stats = None
+            rec["step_ms"] = times
+        out[mode] = rec
+    return out
+
+
+def dist_fault_phase(dev, record):
+    """Phase 24: the faulted distributed step at full width on four ranks
+    sharing the card, both count modes, against each other and against
+    four CPU ranks; the blackout step's identity; the step's split beside
+    phase 19's unfaulted step. Returns the counted launches over the
+    ranks."""
+    import torch
+    from repro_torch.launch.mesh import run_ranks
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gpu = run_ranks(_dist_fault_rank, (("local", "psum"), True),
+                    shape=DIST_SHAPE, device="cuda", timeout_s=600)
+    gpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = run_ranks(_dist_fault_rank, (("psum",), False), shape=DIST_SHAPE,
+                    device="cpu", timeout_s=600)
+    cpu_s = time.perf_counter() - t0
+    world = len(gpu)
+    rec = {"card_run_s": gpu_s, "cpu_run_s": cpu_s}
+    per = {"local": "ota_mask_count", "psum": "ota_mask_weight"}
+    total = {}
+    for mode in ("local", "psum"):
+        for r, res in enumerate(gpu):
+            got = res[mode]["launches"]
+            draws = take_draws(f"faulted dist {mode} rank {r}", got)
+            if draws.get("threefry_flat", 0) < 2 * DIST_STEPS:
+                fail(f"faulted dist {mode} rank {r}: the participation was "
+                     f"not drawn on the card ({draws})")
+            want = {k: 0 for k in got}
+            want[per[mode]] = DIST_LEAVES * DIST_STEPS
+            if got != want:
+                fail(f"faulted dist {mode} rank {r}: launches {got}, "
+                     f"expected {want}")
+            for k, v in got.items():
+                total[k] = total.get(k, 0) + v
+            if not res[mode]["identity"]:
+                fail(f"faulted dist {mode} rank {r}: the blackout step is "
+                     f"not the identity")
+        rec[f"draws_per_rank_per_step_{mode}"] = {
+            k: v / DIST_STEPS for k, v in draws.items()}
+    for r, res in enumerate(gpu):
+        a, b = res["local"], res["psum"]
+        if a["metrics"] != b["metrics"] or not all(
+                torch.equal(u, v) for u, v in zip(a["omega"], b["omega"])):
+            fail(f"faulted dist rank {r}: the count modes differ")
+    cmp = {}
+    for mode in ("local", "psum"):
+        for r in range(world):
+            for s in range(DIST_STEPS):
+                for k in ("loss", "p_mean", "p_min", "p_max", "gnorm_mean",
+                          "skipped", "n_participants"):
+                    g_v = gpu[r][mode]["metrics"][s][k]
+                    c_v = cpu[r]["psum"]["metrics"][s][k]
+                    if abs(g_v - c_v) > 1e-4 * abs(c_v) + 1e-7:
+                        fail(f"faulted dist {mode} rank {r} step {s} {k}: "
+                             f"card {g_v} vs CPU {c_v}")
+        cmp[mode] = {
+            "omega_rel_l2": rel_l2(
+                torch.cat([l.reshape(-1) for res in gpu
+                           for l in res[mode]["omega"]]),
+                torch.cat([l.reshape(-1) for res in cpu
+                           for l in res["psum"]["omega"]])),
+            "stale_rel_l2": rel_l2(
+                torch.cat([l.reshape(-1) for res in gpu
+                           for l in res[mode]["stale"]]),
+                torch.cat([l.reshape(-1) for res in cpu
+                           for l in res["psum"]["stale"]]))}
+        if max(cmp[mode].values()) > 1e-3:
+            fail(f"faulted dist {mode}: card vs CPU {cmp[mode]}")
+    rec["card_vs_cpu"] = cmp
+    rec["participants_per_step"] = [m["n_participants"]
+                                    for m in gpu[0]["local"]["metrics"]]
+    rec["skipped_per_step"] = [m["skipped"]
+                               for m in gpu[0]["local"]["metrics"]]
+    for mode in ("local", "psum"):
+        g0 = gpu[0][mode]
+        st = {k: g0["stats"]["seconds"].get(k, 0.0) * 1e3
+              for k in ("collective", "draw")}
+        unf = record.get("dist", {}).get(mode, {})
+        rec[mode] = {
+            "step_ms": g0["step_ms"],
+            "step_ms_median": statistics.median(g0["step_ms"]),
+            "stats_step_ms": g0["stats_step_ms"],
+            "collective_ms": st["collective"], "draw_ms": st["draw"],
+            "collective_calls": g0["stats"]["calls"].get("collective", 0),
+            "collective_bytes": g0["stats"]["bytes"].get("collective", 0),
+            "rest_ms": g0["stats_step_ms"] - st["collective"] - st["draw"]}
+        log(f"[dist faults {mode}] step median "
+            f"{rec[mode]['step_ms_median']:.2f} ms (unfaulted, phase 19: "
+            f"{unf.get('step_ms_median', float('nan')):.2f}); a timed step "
+            f"{g0['stats_step_ms']:.2f} ms: collectives "
+            f"{st['collective']:.2f} ms in {rec[mode]['collective_calls']} "
+            f"calls ({rec[mode]['collective_bytes'] / 1e6:.1f} MB; "
+            f"unfaulted {unf.get('collective_ms', float('nan')):.2f} ms in "
+            f"{unf.get('collective_calls')} calls, "
+            f"{unf.get('collective_bytes', 0) / 1e6:.1f} MB), draws "
+            f"{st['draw']:.2f} ms, the rest {rec[mode]['rest_ms']:.2f} ms")
+    log(f"[dist faults] launches per rank: local "
+        f"{gpu[0]['local']['launches']}, psum {gpu[0]['psum']['launches']}; "
+        f"participants per step {rec['participants_per_step']}, skipped "
+        f"{rec['skipped_per_step']}; blackout step the identity on every "
+        f"rank; card vs CPU {cmp}; card ranks {gpu_s:.1f} s, CPU ranks "
+        f"{cpu_s:.1f} s")
+    record["dist_faults"] = rec
+    return total
+
+
 def sc2_config():
     """StarCoder2-3B's full-size config (30 layers, d_model 3072)."""
     from repro_torch.configs import get_config
@@ -2208,7 +2770,7 @@ def main() -> None:
     cases = {"default": {}, "ota_off": {"ota_on": 0.0},
              "dead_cluster": {"live": [1.0] * (c - 1) + [0.0]},
              "n_eff": {"live": [0.0, 1.0] + [1.0] * (c - 2), "n_eff": 2.5}}
-    k1_err = 0.0
+    k1_err = k1_fault_err = 0.0
     for run in (biggest, ragged):
         g, b, nb = leaf_inputs(run)
         for cname, kw in cases.items():
@@ -2226,9 +2788,11 @@ def main() -> None:
                 ota_on, n_cl, live=live, n_eff=n_eff)
             err = check_close(f"K1 {names[run.leaf]} {cname}", got, want)
             k1_err = max(k1_err, err)
+            if "live" in kw:        # the fault mode: live ≠ 1, N_eff ≠ N
+                k1_fault_err = max(k1_fault_err, err)
             log(f"[K1] {names[run.leaf]} n={run.size} {cname}: max abs err "
                 f"{err:.3e}")
-    record["k1_max_abs_err"] = k1_err
+    record.update(k1_max_abs_err=k1_err, k1_fault_max_abs_err=k1_fault_err)
 
     # --- 4. K2 against its plain version ------------------------------------
     p_tail = sum(packer.slots[i].size for i in packer.tail_indices)
@@ -2614,6 +3178,18 @@ def main() -> None:
     got = dist_phase(dev, record)
     for k_name, v in got.items():
         total[k_name] = total.get(k_name, 0) + v
+
+    # --- 21-24. faults, the fault bank, checkpoints, the faulted step ------
+    got, k2_fault_err, k5_fault_err = faults_phase(sim, batcher, key0, dev,
+                                                   record, counters)
+    for k_name, v in got.items():
+        total[k_name] += v
+    got = fault_bank_phase(sim, batcher, dev, record, counters)
+    for k_name, v in got.items():
+        total[k_name] += v
+    got = dist_fault_phase(dev, record)
+    for k_name, v in got.items():
+        total[k_name] = total.get(k_name, 0) + v
     if "jax" in sys.modules or "repro" in sys.modules:
         fail("the JAX package was imported")
 
@@ -2623,6 +3199,7 @@ def main() -> None:
                    "ota_client_fold.cu",
          "replaces": "src/repro/kernels/ota_channel/kernel.py:370",
          "launches": total["ota_client_fold"], "max_abs_err": k1_err,
+         "fault_max_abs_err": k1_fault_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": ("bytes" if k1_bytes / HBM_BYTES_PER_S
                       >= k1_ops / F32_FLOPS_PER_S else "operations"),
@@ -2632,6 +3209,7 @@ def main() -> None:
                    "masked_gradnorm.cu",
          "replaces": "src/repro/kernels/masked_gradnorm/kernel.py:41",
          "launches": total["masked_gradnorm"], "max_abs_err": k2_err,
+         "fault_max_abs_err": k2_fault_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": ("bytes" if k2_bytes / HBM_BYTES_PER_S
                       >= k2_ops / F32_FLOPS_PER_S else "operations"),
@@ -2641,6 +3219,7 @@ def main() -> None:
                    "ota_mask_weight.cu",
          "replaces": "src/repro/kernels/ota_channel/kernel.py:142",
          "launches": total["ota_mask_weight"], "max_abs_err": k5_err,
+         "fault_max_abs_err": k5_fault_err,
          "ms": k5["ms"], "plain_ms": k5["plain_ms"],
          "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
          "library_ms": None},
@@ -2673,6 +3252,7 @@ def main() -> None:
                    "ota_mask_count.cu",
          "replaces": "src/repro/kernels/ota_channel/kernel.py:208",
          "launches": total["ota_mask_count"], "max_abs_err": k6_err,
+         "fault_max_abs_err": record["k6_fault_max_abs_err"],
          "ms": k6[2]["ms"], "plain_ms": k6[2]["plain_ms"],
          "bound_ms": k6[2]["bound_ms"], "bound_by": "bytes",
          "library_ms": None},

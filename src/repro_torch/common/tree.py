@@ -11,6 +11,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, Tuple
 
+import torch
+
 
 def tree_flatten_with_path(tree, prefix: Tuple[str, ...] = ()
                            ) -> List[Tuple[Tuple[str, ...], Any]]:
@@ -51,7 +53,10 @@ def tree_map(fn: Callable, tree, *rest):
 
 def state_map(fn: Callable, state, *rest):
     """Apply ``fn`` leafwise over states of one structure: dicts, named
-    tuples (``SimState`` and its optimizer states) and tensors."""
+    tuples (``SimState`` and its optimizer states) and tensors; a None
+    field (an absent fault copy) stays None."""
+    if state is None:
+        return None
     if isinstance(state, dict):
         return {k: state_map(fn, state[k], *(r[k] for r in rest))
                 for k in state}
@@ -59,3 +64,10 @@ def state_map(fn: Callable, state, *rest):
         out = [state_map(fn, *fields) for fields in zip(state, *rest)]
         return type(state)(*out) if hasattr(state, "_fields") else tuple(out)
     return fn(state, *rest)
+
+
+def tree_global_norm(tree):
+    """‖tree‖₂ over every leaf, in float32."""
+    return torch.sqrt(torch.sum(torch.stack(
+        [torch.sum(torch.square(l.to(torch.float32)))
+         for l in tree_leaves(tree)])))

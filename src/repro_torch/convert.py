@@ -10,11 +10,11 @@ numpy leaves, in the reference's field order, and never imports JAX::
                the per-leaf oracle AdamState(step, mu, nu) (moment trees)
     head_opt = AdamState(step, mu, nu)         (step (C, N), moments trees)
     fgn      = FGNState(step, mu, nu)          (step (C,), moments (C, N))
+    omega_stale, stale_age                     (fault injection only, or None)
 
-Fields beyond ``step`` (the fault-injection copies) must be None: the
-port's simulator does not carry faults yet. A distributed ``HotaState``
-(``hota_state_from_numpy``) is global; each rank takes its piece. A bank's state is the same
-structure with a leading (S,) axis on every leaf.
+A distributed ``HotaState`` (``hota_state_from_numpy``) is global; each
+rank takes its piece. A bank's state is the same structure with a
+leading (S,) axis on every leaf.
 
 An LM's parameters (``init_params`` of the reference's ``trunk_specs``,
 ``final_specs`` or ``head_specs``) are nested dicts with stacked layer
@@ -53,14 +53,29 @@ def lm_params_from_numpy(params, device="cpu"):
     return _tensor(np.asarray(params, np.float32), device, torch.float32)
 
 
+def _stale_fields(fields, n: int, device):
+    """The fault-injection fields after the first ``n``: (omega_stale,
+    stale_age) as tensors, or (None, None)."""
+    extra = tuple(fields[n:]) + (None, None)
+    if len(fields) > n + 2 or (extra[0] is None) != (extra[1] is None):
+        raise ValueError(f"expected {n} fields, then omega_stale and "
+                         f"stale_age (both set or both None)")
+    if extra[0] is None:
+        return None, None
+    return (_tree(extra[0], device),
+            _tensor(extra[1], device, torch.float32))
+
+
 def sim_state_from_numpy(state, device="cpu") -> SimState:
     """A port ``SimState`` holding the same ω, heads, optimizer and
-    FedGradNorm state, loss weights, f0 and step as the reference's."""
+    FedGradNorm state, loss weights, f0, step and (under faults) stale
+    copy and its age as the reference's."""
     fields = tuple(state)
-    if len(fields) < 8 or any(f is not None for f in fields[8:]):
-        raise ValueError("expected a fault-free reference SimState "
-                         "(omega, heads, p, ps_opt, head_opt, fgn, f0, step)")
+    if len(fields) < 8:
+        raise ValueError("expected a reference SimState (omega, heads, p, "
+                         "ps_opt, head_opt, fgn, f0, step, ...)")
     omega, heads, p, ps_opt, head_opt, fgn, f0, step = fields[:8]
+    omega_stale, stale_age = _stale_fields(fields, 8, device)
     i32 = torch.int32
     if isinstance(ps_opt[1], dict):     # the per-leaf oracle's tree Adam
         ps = AdamState(step=_tensor(ps_opt[0], device, i32),
@@ -82,7 +97,8 @@ def sim_state_from_numpy(state, device="cpu") -> SimState:
                      mu=_tensor(fgn[1], device, torch.float32),
                      nu=_tensor(fgn[2], device, torch.float32)),
         f0=_tensor(f0, device, torch.float32),
-        step=_tensor(step, device, i32))
+        step=_tensor(step, device, i32),
+        omega_stale=omega_stale, stale_age=stale_age)
 
 
 def bank_state_from_numpy(states, device="cpu") -> SimState:
@@ -105,14 +121,15 @@ def hota_state_from_numpy(state, mesh, rank: int, device, specs):
     ("client", "cluster"), each client's head, ``p``, ``fgn_mu``,
     ``fgn_nu`` and ``f0`` its own (a leading dim of 1), and the slab Adam
     moments the rank's local slab (the reference's global moment is the
-    shard-major concatenation of the local slabs). The fault-injection
-    fields must be None."""
+    shard-major concatenation of the local slabs), and under faults the
+    stale copy cut like ω."""
     fields = tuple(state)
-    if len(fields) < 10 or any(f is not None for f in fields[10:]):
-        raise ValueError("expected a fault-free reference HotaState (omega, "
-                         "opt, heads, head_opt, p, fgn_mu, fgn_nu, fgn_t, "
-                         "f0, step)")
+    if len(fields) < 10:
+        raise ValueError("expected a reference HotaState (omega, opt, "
+                         "heads, head_opt, p, fgn_mu, fgn_nu, fgn_t, f0, "
+                         "step, ...)")
     omega, opt, heads, head_opt, p, mu, nu, fgn_t, f0, step = fields[:10]
+    omega_stale, stale_age = _stale_fields(fields, 10, "cpu")
     i32, f32 = torch.int32, torch.float32
     glob = HotaState(
         omega=_tree(omega, "cpu"),
@@ -125,5 +142,6 @@ def hota_state_from_numpy(state, mesh, rank: int, device, specs):
                            nu=_tree(head_opt[2], "cpu")),
         p=_tensor(p, "cpu", f32), fgn_mu=_tensor(mu, "cpu", f32),
         fgn_nu=_tensor(nu, "cpu", f32), fgn_t=_tensor(fgn_t, "cpu", i32),
-        f0=_tensor(f0, "cpu", f32), step=_tensor(step, "cpu", i32))
+        f0=_tensor(f0, "cpu", f32), step=_tensor(step, "cpu", i32),
+        omega_stale=omega_stale, stale_age=stale_age)
     return shard_state(glob, specs, mesh, rank=rank, device=device)

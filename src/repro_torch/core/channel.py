@@ -14,6 +14,12 @@ for the host. A scenario bank stacks S of them along a leading (S,) axis
 * ``noise_std``   — () AWGN std of eq. (8)
 * ``ota_on``      — () 1.0 = fading MAC, 0.0 = error-free (all-pass, no noise)
 * ``fgn_on``      — () 1.0 = FedGradNorm weights (Alg. 2), 0.0 = equal
+
+``FaultParams`` is the same pattern for the fault-injection knobs
+(DESIGN.md §3.14): dropout, blackout and straggler rates, the staleness
+depth, the guard's spike threshold and the ``faults_on`` gate are
+tensors, banked along (S,) by ``stack_fault_params``; ``FLConfig.faults``
+is the one static gate that decides whether a round reads them.
 """
 from __future__ import annotations
 
@@ -66,3 +72,41 @@ def scenario_channel(bank: ChannelParams, s: int) -> ChannelParams:
 def cluster_channel(chan: ChannelParams, cluster: int) -> ChannelParams:
     """One cluster's view: σ² narrowed from (C,) to that cluster's ()."""
     return chan._replace(sigma2=chan.sigma2[cluster])
+
+
+class FaultParams(NamedTuple):
+    """The fault-injection knobs as tensors (DESIGN.md §3.14). The
+    participation draw compares shared uniforms against these rates, so
+    changing a rate moves no channel stream."""
+    dropout: torch.Tensor     # () per-client drop probability
+    blackout: torch.Tensor    # () per-cluster blackout probability
+    straggler: torch.Tensor   # () per-client straggler probability
+    staleness: torch.Tensor   # () straggler staleness depth τ (rounds)
+    spike_norm: torch.Tensor  # () guard threshold on ‖ĝ‖ (inf = off)
+    faults_on: torch.Tensor   # () 1.0 = inject faults, 0.0 = none
+
+
+def fault_params(fl: FLConfig, device="cpu") -> FaultParams:
+    """The fault knobs of a static ``FLConfig`` as float32 tensors."""
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=device)
+    return FaultParams(
+        dropout=f32(fl.dropout_rate),
+        blackout=f32(fl.blackout_rate),
+        straggler=f32(fl.straggler_rate),
+        staleness=f32(float(fl.staleness_rounds)),
+        spike_norm=f32(fl.spike_norm),
+        faults_on=f32(1.0 if fl.faults else 0.0),
+    )
+
+
+def stack_fault_params(faults: Sequence[FaultParams]) -> FaultParams:
+    """Stack S fault scenarios into one bank with a leading (S,) axis."""
+    if not faults:
+        raise ValueError("empty fault-scenario list")
+    return FaultParams(*[torch.stack(fields) for fields in zip(*faults)])
+
+
+def scenario_faults(bank: FaultParams, s: int) -> FaultParams:
+    """Scenario ``s``'s fault knobs: row ``s`` of every field."""
+    return FaultParams(*[field[s] for field in bank])

@@ -75,9 +75,15 @@ def fgn_update_gated(p, norms, loss_ratios, state: FGNState, fl: FLConfig,
                      ) -> Tuple[torch.Tensor, FGNState, torch.Tensor]:
     """Alg.-2 step behind the weighting gate: with ``fgn_on`` < 0.5 the
     weights and state pass through and F_grad reads 0 (equal weighting).
-    The gate is a tensor and selects through ``torch.where``."""
+    The gate is a tensor and selects through ``torch.where``: () for
+    every cluster, or (C,) per cluster (the faulted round passes
+    ``fgn_on · live``, so a dead cluster's state freezes); a per-cluster
+    gate is laid along the cluster axis of the (C, N) fields."""
     p_fgn, st_fgn, fval = fgn_update(p, norms, loss_ratios, state, fl)
-    on = fgn_on > 0.5
-    st_new = FGNState(*(torch.where(on, a, b) for a, b in zip(st_fgn, state)))
-    return (torch.where(on, p_fgn, p), st_new,
+    on = torch.as_tensor(fgn_on, device=p.device) > 0.5     # () or (C,)
+    on_cn = on.unsqueeze(-1)                    # against the N axis
+    st_new = FGNState(step=torch.where(on, st_fgn.step, state.step),
+                      mu=torch.where(on_cn, st_fgn.mu, state.mu),
+                      nu=torch.where(on_cn, st_fgn.nu, state.nu))
+    return (torch.where(on_cn, p_fgn, p), st_new,
             torch.where(on, fval, torch.zeros_like(fval)))

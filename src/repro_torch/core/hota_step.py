@@ -20,8 +20,22 @@ step_fn is the whole Algorithm 1 round:
 The channel and weighting knobs are tensors (``ChannelParams``): step_fn
 takes an optional ``chan`` whose σ² is (n_total_clusters,); dynamic vs.
 equal weighting is a ``torch.where`` on ``fgn_on``. Omitting ``chan``
-with equal weighting and τ_h = 0 takes the fast path that skips phases
-0/A/B, whose outputs could never be read.
+with equal weighting and τ_h = 0 (and no faults) takes the fast path that
+skips phases 0/A/B, whose outputs could never be read.
+
+Fault injection (DESIGN.md §3.14, ``fl.faults``; the knobs a
+``FaultParams``, overridable per call): every rank draws the round's
+(C, N) participation from the round key and reads its own slot. A
+straggler runs the whole round against the delayed copy ``omega_stale``
+(sharded like ω and gathered by the same all-gather); its phase-C loss
+is taken at the stale parameters while the gradient flows through the
+OTA gather (a straight-through select). The transmit weight folds
+participation and the 1/√(1+age) discount; ``live`` and N_eff reach the
+K6 or K5 backward; a dead cluster's FedGradNorm state and a
+non-participant's head freeze. The guard's ‖ĝ‖² is the sum of the FSDP
+shards' sums over the data axes plus the replicated leaves' sums, and a
+skipped round is the bit-exact identity of the whole state (only
+``step`` advances).
 
 Layouts (``state_specs``, ``batch_spec``) are ``PartitionSpec``-like
 tuples (``repro_torch.sharding.mesh_utils``): FSDP leaves split their
@@ -32,8 +46,8 @@ local slabs). ``shard_state`` cuts a rank's state from a global one.
 
 Not ported yet, each refused by name: the per-leaf oracle
 (``use_pallas_ota=False``) and the sectioned schedule (``ota_sectioned``,
-``max_section_rows``), ROADMAP Queue 1 item 13; faults (item 9); the LM
-loss (``loss_kind="lm"``, item 14.1).
+``max_section_rows``), ROADMAP Queue 1 item 13; the LM loss
+(``loss_kind="lm"``, item 14.1).
 """
 from __future__ import annotations
 
@@ -45,10 +59,13 @@ import torch
 
 from repro_torch import rng
 from repro_torch.common.config import FLConfig, TrainConfig
-from repro_torch.common.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.common.tree import (
+    state_map, tree_leaves, tree_map, tree_unflatten,
+)
 from repro_torch.core import ota
 from repro_torch.core.channel import (
-    ChannelParams, channel_params, cluster_channel,
+    ChannelParams, FaultParams, channel_params, cluster_channel,
+    fault_params,
 )
 from repro_torch.core.hota import (
     CLIENT_AXIS, OTACtx, _mesh_client_axes, _mesh_cluster_axes,
@@ -87,20 +104,21 @@ class HotaState(NamedTuple):
     fgn_t: torch.Tensor     # () int32
     f0: torch.Tensor        # (1,)
     step: torch.Tensor      # () int32
-    # the reference's stale-model fields (faults only; refused here)
-    omega_stale: Any = None
-    stale_age: Any = None
+    # fault injection only (None otherwise):
+    omega_stale: Any = None     # the delayed ω copy, sharded like ω
+    stale_age: Any = None       # () float32 rounds since its refresh
 
 
 class StepParts(NamedTuple):
     """The round body and what a harness needs to lay it on a mesh."""
     init_fn: Callable       # init_fn(key) -> this rank's HotaState
-    step: Callable          # step(state, tokens, labels, key, chan[, fast])
+    step: Callable  # step(state, tokens, labels, key, chan, faults[, fast])
     state_specs: Any        # HotaState of layout tuples
     batch_spec: tuple
     chan_all: ChannelParams  # the factory FLConfig's knobs
     n_total_clusters: int
-    has_fast: bool          # equal weighting, τ_h = 0, default chan
+    has_fast: bool          # equal weighting, τ_h = 0, no faults
+    faults_all: FaultParams  # the factory FLConfig's fault knobs
 
 
 def _refuse(fl: FLConfig, loss_kind: str) -> None:
@@ -113,14 +131,16 @@ def _refuse(fl: FLConfig, loss_kind: str) -> None:
     if loss_kind != "cls":
         raise ValueError(f"loss_kind must be 'cls' or 'lm', got "
                          f"{loss_kind!r}")
+    if fl.faults and not fl.use_pallas_ota:
+        raise ValueError(
+            "fl.faults requires the slab engine (use_pallas_ota=True): the "
+            "per-leaf distributed path has no participation-aware "
+            "aggregation — use the per-leaf SIMULATOR (repro_torch.core."
+            "sim) as the fault oracle instead (DESIGN.md §3.14)")
     if not fl.use_pallas_ota:
         raise NotImplementedError(
             "use_pallas_ota=False (the per-leaf distributed oracle) is not "
             "ported yet: ROADMAP Queue 1, item 13")
-    if fl.faults:
-        raise NotImplementedError(
-            "fl.faults in the distributed step is not ported yet: ROADMAP "
-            "Queue 1, item 9")
     if fl.ota_streaming:
         raise ValueError(
             "fl.ota_streaming is a SIMULATOR engine (DESIGN.md §3.15): the "
@@ -178,6 +198,7 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
     dev = mesh.device
     compute_dtype = getattr(torch, cfg.compute_dtype)
     chan_all = channel_params(fl, device=dev, n_clusters=n_total_clusters)
+    faults_all = fault_params(fl, device=dev)
     cidx = cluster_index(mesh, cluster_axes)
 
     head_specs = model.head_specs(n_out)
@@ -216,7 +237,9 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
         heads=heads_layout,
         head_opt=AdamState(step=(), mu=heads_layout, nu=heads_layout),
         p=per_client, fgn_mu=per_client, fgn_nu=per_client, fgn_t=(),
-        f0=per_client, step=())
+        f0=per_client, step=(),
+        omega_stale=omega_layout if fl.faults else None,
+        stale_age=() if fl.faults else None)
     batch_spec = (per_client, per_client)
 
     # ---------------- init ----------------
@@ -242,7 +265,11 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
             heads=heads,
             head_opt=AdamState(step=i32, mu=zeros(heads), nu=zeros(heads)),
             p=torch.ones(n_total_clients), fgn_mu=zc, fgn_nu=zc.clone(),
-            fgn_t=i32, f0=torch.ones(n_total_clients), step=i32)
+            fgn_t=i32, f0=torch.ones(n_total_clients), step=i32,
+            omega_stale=(tree_map(torch.clone, omega) if fl.faults
+                         else None),
+            stale_age=(torch.zeros((), dtype=torch.float32) if fl.faults
+                       else None))
         return shard_state(state, state_specs, mesh, device=dev)
 
     def _metrics(loss_val, p_new, fgrad_val, n_i):
@@ -256,7 +283,7 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
     # ---------------- the step ----------------
     @torch.no_grad()
     def _step(state: HotaState, tokens, labels, key, chan: ChannelParams,
-              fast: bool = False):
+              faults: Optional[FaultParams] = None, fast: bool = False):
         base_key = rng.fold_in(key, int(state.step))
         chan = ChannelParams(*[torch.as_tensor(f, dtype=torch.float32,
                                                device=dev) for f in chan])
@@ -268,9 +295,25 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
         head_opt = AdamState(step=state.head_opt.step,
                              mu=tree_map(lambda a: a[0], state.head_opt.mu),
                              nu=tree_map(lambda a: a[0], state.head_opt.nu))
+        head0, head_opt0 = head, head_opt
         p_i = state.p[0]
         f0_i = state.f0[0]
         zero = torch.zeros((), dtype=torch.float32, device=dev)
+
+        # fault injection: every rank draws the same (C, N) participation
+        # from the round key and reads its own slot
+        partc = stale_full = None
+        if fl.faults:
+            fp = FaultParams(*[torch.as_tensor(f, dtype=torch.float32,
+                                               device=dev)
+                               for f in (faults_all if faults is None
+                                         else faults)])
+            partc = ota.draw_participation(base_key, fp, n_total_clusters,
+                                           n_clients, dev)
+            my_client = mesh.axis_index(CLIENT_AXIS)
+            part_me = partc.part[cidx, my_client]
+            stale_me = partc.stale[cidx, my_client]
+            live_me = partc.live[cidx]
 
         if fast:
             # equal weighting, τ_h = 0, default chan: phases 0/A/B vanish
@@ -283,6 +326,15 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
             # ---- phase 0: trunk features (ω frozen; broadcast = gather)
             omega_full0 = plain_gather_full(state.omega, omega_fsdp, mesh,
                                             data_axes, compute_dtype)
+            if partc is not None:
+                # the stale copy rides the same gather; a straggler sees
+                # it for the whole round (the sim's per-client select)
+                stale_full = plain_gather_full(state.omega_stale,
+                                               omega_fsdp, mesh, data_axes,
+                                               compute_dtype)
+                omega_full0 = tree_map(
+                    lambda f, o: torch.where(stale_me > 0.5, o, f),
+                    omega_full0, stale_full)
             hidden = model.trunk_apply(omega_full0["trunk"], tokens)
             final_full = omega_full0["final"]
 
@@ -332,9 +384,12 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
             fgrad_fgn = sums[0]
             p_fgn = p_fgn * n_clients / torch.clamp(sums[1], min=1e-12)
             fgn_on = chan_c.fgn_on > 0.5
-            p_new = torch.where(fgn_on, p_fgn, p_i)
-            mu = torch.where(fgn_on, mu_fgn, state.fgn_mu[0])
-            nu = torch.where(fgn_on, nu_fgn, state.fgn_nu[0])
+            # under faults a dead cluster's (p, moment) state freezes too;
+            # fgn_t stays uniform across the ranks
+            fgn_upd = fgn_on if partc is None else fgn_on & (live_me > 0.5)
+            p_new = torch.where(fgn_upd, p_fgn, p_i)
+            mu = torch.where(fgn_upd, mu_fgn, state.fgn_mu[0])
+            nu = torch.where(fgn_upd, nu_fgn, state.fgn_nu[0])
             fgn_t_new = torch.where(fgn_on, state.fgn_t + 1, state.fgn_t)
             fgrad_val = torch.where(fgn_on, fgrad_fgn, zero)
 
@@ -342,12 +397,31 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
         # channel keys fold only (step, section): masks and AWGN are the
         # same for every microbatch, so averaging the microbatch estimates
         # is ONE MAC transmission of the round-averaged x^(l)
+        # under faults the transmit weight folds participation and the
+        # FedBuff discount from the carried age; live/N_eff generalize
+        # eq. 10
+        w_tx = p_new.to(torch.float32)
+        ctx_live = ctx_n_eff = None
+        if partc is not None:
+            disc = torch.where(stale_me > 0.5,
+                               torch.rsqrt(1.0 + state.stale_age),
+                               torch.ones_like(stale_me))
+            w_tx = w_tx * part_me * disc
+            ctx_live, ctx_n_eff = partc.live, partc.n_eff
         slab_ctx = OTACtx(
-            p_weight=p_new.to(torch.float32),
+            p_weight=w_tx,
             key=packed_omega_key(base_key),
             sigma2=chan.sigma2,       # every cluster's σ² (local counts)
             h_th=chan_c.h_threshold, noise_std=chan_c.noise_std,
-            ota_on=chan_c.ota_on)
+            ota_on=chan_c.ota_on, live=ctx_live, n_eff=ctx_n_eff)
+
+        def st_sel(fr, old):
+            # a straggler's loss at the stale parameters, the gradient
+            # through the OTA gather: (sel + fr) − fr is sel's value
+            # (to rounding, as the reference computes it) and has
+            # d/dfr = 1
+            sel = torch.where(stale_me > 0.5, old, fr)
+            return (sel.detach() + fr) - fr.detach()
         n_mb = max(fl.microbatches, 1)
         b_loc = tokens.shape[0]
         if b_loc % n_mb:
@@ -360,6 +434,8 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
         for tok_mb, lab_mb in zip(tokens.chunk(n_mb), labels.chunk(n_mb)):
             with torch.enable_grad():
                 full = omega_gather(om, slab_ctx)
+                if stale_full is not None:
+                    full = tree_map(st_sel, full, stale_full)
                 h = model.trunk_apply(full["trunk"], tok_mb)
                 loss = loss_fn(hd, model.final_apply(full["final"], h),
                                lab_mb)
@@ -383,6 +459,18 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
         # train on the phase-C gradient instead, for every scenario
         if fl.tau_h == 0:
             head, head_opt = adam_update(g_head, head_opt, head, tcfg.lr)
+        if partc is not None:
+            # a non-participant keeps its head and moments (the head Adam
+            # step counter stays uniform across the ranks)
+            keep = part_me > 0.5
+            head = tree_map(lambda a, b: torch.where(keep, a, b), head,
+                            head0)
+            head_opt = AdamState(
+                step=head_opt.step,
+                mu=tree_map(lambda a, b: torch.where(keep, a, b),
+                            head_opt.mu, head_opt0.mu),
+                nu=tree_map(lambda a, b: torch.where(keep, a, b),
+                            head_opt.nu, head_opt0.nu))
 
         new_state = HotaState(
             omega=omega, opt=opt,
@@ -393,13 +481,45 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
                 nu=tree_map(lambda a: a.unsqueeze(0), head_opt.nu)),
             p=p_new.reshape(1), fgn_mu=mu.reshape(1), fgn_nu=nu.reshape(1),
             fgn_t=fgn_t_new, f0=f0.reshape(1), step=state.step + 1)
-        return new_state, _metrics(loss_sum, p_new, fgrad_val, n_i)
+        metrics = _metrics(loss_sum, p_new, fgrad_val, n_i)
+        if partc is None:
+            return new_state, metrics
+
+        # the round guard (DESIGN.md §3.14): ‖ĝ‖², the same on every rank
+        # (the FSDP shards' sums over the data axes, the replicated
+        # leaves' sums as they are)
+        sq = [torch.sum(l.to(torch.float32) ** 2)
+              for l in tree_leaves(g_omega)]
+        gn2_loc = torch.stack([v for v, ax in zip(sq, omega_fsdp)
+                               if ax >= 0] + [zero]).sum().reshape(1)
+        gn2_rep = torch.stack([v for v, ax in zip(sq, omega_fsdp)
+                               if ax < 0] + [zero]).sum()
+        gn2 = col.psum(gn2_loc, mesh, data_axes)[0] + gn2_rep
+        skip = ((partc.total < 0.5) | ~torch.isfinite(gn2)
+                | (gn2 > fp.spike_norm * fp.spike_norm))
+        # the stale copy refreshes every fp.staleness rounds
+        refresh = (state.stale_age + 1.0) >= fp.staleness
+        new_state = new_state._replace(
+            omega_stale=tree_map(lambda a, b: torch.where(refresh, a, b),
+                                 new_state.omega, state.omega_stale),
+            stale_age=torch.where(refresh,
+                                  torch.zeros_like(state.stale_age),
+                                  state.stale_age + 1.0))
+        # a skipped round is the bit-exact identity (step aside)
+        new_state = state_map(lambda a, b: torch.where(skip, b, a),
+                              new_state, state)
+        new_state = new_state._replace(step=state.step + 1)
+        metrics.update(skipped=skip.to(torch.float32),
+                       n_participants=partc.total)
+        return new_state, metrics
 
     return StepParts(
         init_fn=init_fn, step=_step, state_specs=state_specs,
         batch_spec=batch_spec, chan_all=chan_all,
         n_total_clusters=n_total_clusters,
-        has_fast=(fl.weighting == "equal" and fl.tau_h == 0))
+        has_fast=(fl.weighting == "equal" and fl.tau_h == 0
+                  and not fl.faults),
+        faults_all=faults_all)
 
 
 def make_hota_train_step(model: Model, mesh: Mesh, fl: FLConfig,
@@ -408,24 +528,26 @@ def make_hota_train_step(model: Model, mesh: Mesh, fl: FLConfig,
                          count_mode: Optional[str] = None):
     """Returns (init_fn, step_fn, state_specs, batch_spec) for this rank.
 
-    ``step_fn(state, tokens, labels, key, chan=None)`` runs one round on
-    the rank's shards and its local batch (``batch_spec`` cuts it from a
-    global one); ``key`` is the round's threefry key. ``chan`` overrides
-    the factory config's knobs for this call (σ² of shape
-    (n_total_clusters,))."""
+    ``step_fn(state, tokens, labels, key, chan=None, faults=None)`` runs
+    one round on the rank's shards and its local batch (``batch_spec``
+    cuts it from a global one); ``key`` is the round's threefry key.
+    ``chan`` overrides the factory config's knobs for this call (σ² of
+    shape (n_total_clusters,)), ``faults`` its fault knobs (read only
+    when ``fl.faults`` is on)."""
     parts = make_hota_step_parts(model, mesh, fl, tcfg, loss_kind=loss_kind,
                                  n_out=n_out, count_mode=count_mode)
     n_total_clusters = parts.n_total_clusters
 
     def step_fn(state: HotaState, tokens, labels, key,
-                chan: Optional[ChannelParams] = None):
+                chan: Optional[ChannelParams] = None,
+                faults: Optional[FaultParams] = None):
         if chan is None:
             return parts.step(state, tokens, labels, key, parts.chan_all,
-                              fast=parts.has_fast)
+                              faults, fast=parts.has_fast)
         if tuple(chan.sigma2.shape) != (n_total_clusters,):
             raise ValueError(
                 f"chan.sigma2 shape {tuple(chan.sigma2.shape)} != "
                 f"(n_total_clusters,) = ({n_total_clusters},)")
-        return parts.step(state, tokens, labels, key, chan)
+        return parts.step(state, tokens, labels, key, chan, faults)
 
     return parts.init_fn, step_fn, parts.state_specs, parts.batch_spec

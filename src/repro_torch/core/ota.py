@@ -1,7 +1,8 @@
 """Over-the-air aggregation over the fading MAC (paper Sec. III-B).
 
 Port of ``repro.core.ota``: the reserved fold registry and key schedule
-(DESIGN.md §4), the chunk-quantized section streams, the eq.-5 masks
+(DESIGN.md §4), the round's fault participation (``draw_participation``,
+DESIGN.md §3.14), the chunk-quantized section streams, the eq.-5 masks
 (``final_layer_masks_packed``, and ``final_layer_masks`` for the per-leaf
 oracle) and the aggregation engines:
 
@@ -18,6 +19,12 @@ oracle) and the aggregation engines:
 * ``ota_aggregate_sectioned``: one section at a time, either folding all
   clusters (bit-identical to the client-folded engine) or streaming them
   inside the section (bit-identical to the streaming engine).
+
+Every engine takes the round's participation as ``live`` (C,) and
+``n_eff`` (): a dead cluster adds neither data nor count, and N_eff
+replaces N in eq. 10. The faithful channel-inversion helpers
+(``tree_channel``, ``power_allocation``, ``transmit_signal``,
+``transmit_power``) are run by no engine; they state eq. 3 as written.
 
 The channel is defined by its random streams, so every draw here is
 bit-identical to the reference's under the same
@@ -41,7 +48,7 @@ from repro_torch.common.flatpack import TreePacker, check_tree_matches_packer
 from repro_torch.common.tree import tree_leaves, tree_unflatten
 from repro_torch.core.channel import ChannelParams
 from repro_torch.kernels.ota_channel.ops import (
-    _ota_aggregate_fused_impl, chunked_stream, ota_client_fold_apply,
+    _ota_aggregate_fused_impl, bits, chunked_stream, ota_client_fold_apply,
     ota_stream_fold_apply, stream_range,
 )
 from repro_torch.kernels.ota_channel.ref import (
@@ -84,6 +91,58 @@ def sim_channel_key(key) -> torch.Tensor:
     """The simulator round's channel key: every channel stream of a
     ``HotaSim.step`` folds off it (DESIGN.md §4)."""
     return rng.fold_in(key, SIM_CHAN_FOLD)
+
+
+def participation_key(key) -> torch.Tensor:
+    """The round's participation-draw key: every fault draw (dropout,
+    blackout, straggler) folds off it, in a reserved domain disjoint from
+    every channel stream (DESIGN.md §4)."""
+    return rng.fold_in(key, PART_FOLD)
+
+
+class Participation(NamedTuple):
+    """One round's fault realization, all float32 tensors. With no fault
+    injected ``part`` and ``live`` are all ones and ``n_eff`` is N."""
+    part: torch.Tensor     # (C, N) 1.0 = the client takes part
+    stale: torch.Tensor    # (C, N) 1.0 = it takes part with a stale model
+    live: torch.Tensor     # (C,)   1.0 = the cluster has a participant
+    n_live: torch.Tensor   # ()     live-cluster count
+    total: torch.Tensor    # ()     participant count
+    n_eff: torch.Tensor    # ()     total / max(n_live, 1): eq. 10's N
+
+
+def draw_participation(key, faults, n_clusters: int, n_clients: int,
+                       device=None) -> Participation:
+    """The round's participation (DESIGN.md §3.14), equal to the
+    reference's: one uniform per (kind, slot) under the sub-folds of
+    ``participation_key(key)``, compared with the rates of ``faults``
+    (a ``FaultParams``) on ``device`` (default: the knobs' device).
+
+    The words come from the stream-draw kernel (``ops.bits``): the
+    dropout and straggler draws, both of C·N words, in one launch over
+    a (2, 2) key table, and the blackout draw of C words in another (its
+    words depend on its length in the original threefry layout, so it
+    is not a prefix of the longer draws)."""
+    dev = faults.dropout.device if device is None else torch.device(device)
+    pk = participation_key(key)
+    cn = n_clusters * n_clients
+    u = rng.uniform_from_words(bits(
+        rng.fold_in(pk, [PART_DROP_FOLD, PART_STRAG_FOLD]), cn, dev))
+    u_drop, u_strag = u.reshape(2, n_clusters, n_clients).unbind(0)
+    u_black = rng.uniform_from_words(bits(
+        rng.fold_in(pk, PART_BLACK_FOLD), n_clusters, dev))
+    on = faults.faults_on.to(dev) >= 0.5
+    drop = on & (u_drop < faults.dropout.to(dev))
+    black = on & (u_black < faults.blackout.to(dev))
+    part = (~drop & ~black.unsqueeze(1)).to(torch.float32)
+    stale = part * (on & (u_strag < faults.straggler.to(dev))).to(
+        torch.float32)
+    live = (part.sum(dim=1) > 0).to(torch.float32)
+    n_live = live.sum()
+    total = part.sum()
+    return Participation(part=part, stale=stale, live=live, n_live=n_live,
+                         total=total,
+                         n_eff=total / torch.clamp(n_live, min=1.0))
 
 
 def _section_bits(key, fold: int, n_clusters: int, length: int,
@@ -249,6 +308,34 @@ def _leaf_masks(ks, shape, chan: ChannelParams, device) -> torch.Tensor:
     hs = _cluster_gains(ks, shape, chan, device)
     return torch.logical_or(gain_mask(hs, chan.h_threshold.to(device)),
                             chan.ota_on.to(device) < 0.5)
+
+
+def tree_channel(key, tree, sigma2, h_threshold):
+    """(gains, masks) trees shaped like ``tree``: leaf i's gains are
+    ``sample_gain(leaf_key(key, i))``, its masks eq. 7."""
+    leaves = tree_leaves(tree)
+    gains = [sample_gain(leaf_key(key, i), tuple(l.shape), sigma2,
+                         device=l.device) for i, l in enumerate(leaves)]
+    masks = [gain_mask(h, h_threshold) for h in gains]
+    return tree_unflatten(tree, gains), tree_unflatten(tree, masks)
+
+
+def power_allocation(p_i, h: torch.Tensor, mask: torch.Tensor
+                     ) -> torch.Tensor:
+    """eq. (3): β = p / H where the channel passes, else 0."""
+    safe_h = torch.where(mask, h, torch.ones_like(h))
+    return torch.where(mask, p_i / safe_h, torch.zeros_like(h))
+
+
+def transmit_signal(p_i, g, h, mask) -> torch.Tensor:
+    """x^(l,i) = β ∘ g: what a cluster's IS puts on the air for one
+    client's gradient, with the channel inversion written out."""
+    return power_allocation(p_i, h, mask) * g
+
+
+def transmit_power(x: torch.Tensor) -> torch.Tensor:
+    """The instantaneous ‖x‖² of the average power constraint (eq. 4)."""
+    return torch.sum(torch.square(x))
 
 
 def ota_aggregate_leaf(weighted_grads: torch.Tensor, masks: torch.Tensor,

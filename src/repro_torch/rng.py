@@ -244,6 +244,8 @@ def uniform_from_words(w: torch.Tensor, minval=0.0,
     holding their bit patterns)."""
     w = w.to(torch.int64) & MASK32
     f = to_bit_pattern((w >> 9) | 0x3F800000).view(torch.float32) - 1.0
+    if minval == 0.0 and maxval == 1.0:
+        return f     # f·1 + 0 in one rounding is f, and f >= 0: exact
     lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=f.device)
     return torch.maximum(lo, _fma_f32(f, hi - lo, lo))

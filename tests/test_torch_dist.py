@@ -32,6 +32,13 @@ Cases and tolerances:
   reference program's);
 - the zero-copy pin: the backward produces no tensor of the packed slab's
   (P,) or (C, P) shape;
+- fault injection (``tests/dist_programs/dist_faults.py`` for the port):
+  3 faulted steps (dropout 0.3, blackout 0.2, stragglers 0.5, staleness
+  2: stragglers in every step, a dropped client, then a dead cluster) in
+  both count modes against the reference's faulted step, within the
+  tolerances above (the stale copy as ω); zero-rate faults against the
+  unfaulted steps bit for bit; total blackout freezes the whole state bit
+  for bit (only ``step`` advances);
 - the refusals, by name.
 """
 import os
@@ -46,7 +53,7 @@ import torch
 from repro_torch import rng
 from repro_torch.common.config import FLConfig, ModelConfig, TrainConfig
 from repro_torch.common.tree import tree_leaves, tree_map, tree_unflatten
-from repro_torch.core.channel import channel_params
+from repro_torch.core.channel import channel_params, fault_params
 from repro_torch.core.hota import OTACtx
 from repro_torch.core.hota_slab import (
     make_packed_omega_gather, packed_omega_aggregate_ref, packed_omega_key,
@@ -75,6 +82,8 @@ FL_CHANNEL = dict(n_clusters=C, n_clients=N, sigma2=(0.5, 2.0),
                   noise_std=0.3, tau_h=1)
 MODES = ("local", "psum")
 LIVE = [0.0, 1.0]        # cluster 0 dead in the partial-participation case
+FL_FAULTS = dict(FL_CHANNEL, faults=True, dropout_rate=0.3,
+                 blackout_rate=0.2, straggler_rate=0.5, staleness_rounds=2)
 
 
 def _inputs():
@@ -133,31 +142,34 @@ def _jax_main(out_path):
     inp = _inputs()
     orig = hs.make_packed_omega_gather
     out = {}
-    for mode in MODES:
-        hs.make_packed_omega_gather = partial(orig, count_mode=mode)
-        init_fn, step_fn, specs, bspec = hs.make_hota_train_step(
-            model, mesh, JFL(**FL_CHANNEL), JTC(lr=LR), loss_kind="cls",
-            n_out=MAXC)
-        st = init_fn(jax.random.PRNGKey(123))
-        st = st._replace(omega=jax.tree.map(jnp.asarray, inp["omega"]),
-                         heads=jax.tree.map(
-                             lambda h: jnp.broadcast_to(
-                                 h, (C * N,) + h.shape), inp["head"]))
-        if mode == MODES[0]:
-            out["state0"] = _plain(jax.tree.map(np.asarray, st))
-        st = jax.tree.map(lambda a, s: jax.device_put(a, NamedSharding(
-            mesh, s)), st, specs, is_leaf=lambda z: isinstance(z, P))
-        xb = jax.device_put(inp["x"].reshape(C * N * B, -1),
-                            NamedSharding(mesh, bspec[0]))
-        yb = jax.device_put(inp["y"].reshape(C * N * B),
-                            NamedSharding(mesh, bspec[1]))
-        step = jax.jit(step_fn)
-        metrics = []
-        for s in range(STEPS):
-            st, m = step(st, xb, yb, jnp.asarray(inp["keys"][s]))
-            metrics.append({k: float(v) for k, v in m.items()})
-        out[mode] = {"metrics": metrics,
-                     "state": _plain(jax.tree.map(np.asarray, st))}
+    for tag, fl_kw in (("", FL_CHANNEL), ("faults_", FL_FAULTS)):
+        for mode in MODES:
+            hs.make_packed_omega_gather = partial(orig, count_mode=mode)
+            init_fn, step_fn, specs, bspec = hs.make_hota_train_step(
+                model, mesh, JFL(**fl_kw), JTC(lr=LR), loss_kind="cls",
+                n_out=MAXC)
+            st = init_fn(jax.random.PRNGKey(123))
+            omega = jax.tree.map(jnp.asarray, inp["omega"])
+            st = st._replace(omega=omega, heads=jax.tree.map(
+                lambda h: jnp.broadcast_to(h, (C * N,) + h.shape),
+                inp["head"]))
+            if tag:
+                st = st._replace(omega_stale=omega)
+            if mode == MODES[0]:
+                out[tag + "state0"] = _plain(jax.tree.map(np.asarray, st))
+            st = jax.tree.map(lambda a, s: jax.device_put(a, NamedSharding(
+                mesh, s)), st, specs, is_leaf=lambda z: isinstance(z, P))
+            xb = jax.device_put(inp["x"].reshape(C * N * B, -1),
+                                NamedSharding(mesh, bspec[0]))
+            yb = jax.device_put(inp["y"].reshape(C * N * B),
+                                NamedSharding(mesh, bspec[1]))
+            step = jax.jit(step_fn)
+            metrics = []
+            for s in range(STEPS):
+                st, m = step(st, xb, yb, jnp.asarray(inp["keys"][s]))
+                metrics.append({k: float(v) for k, v in m.items()})
+            out[tag + mode] = {"metrics": metrics,
+                               "state": _plain(jax.tree.map(np.asarray, st))}
     with open(out_path, "wb") as f:
         pickle.dump(out, f)
 
@@ -215,6 +227,33 @@ def _backward_case(mesh, model, g_full, p_dev, mode, live=None):
             packer.size)
 
 
+def _steps(step_fn, st, x, y, inp, n=STEPS, faults=None):
+    metrics = []
+    for s in range(n):
+        st, m = step_fn(st, x, y, inp["keys"][s], None, faults)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics, "state": st}
+
+
+def _fault_runs(mesh, model, x, y, inp, ref_state0):
+    """The faulted step in both count modes; zero-rate faults (to hold
+    against the unfaulted steps); two total-blackout steps."""
+    out = {}
+    state0 = tuple(ref_state0) + (inp["omega"], np.float32(0.0))
+    for mode in MODES:
+        for name, fl_kw in (("faults", FL_FAULTS),
+                            ("zero", dict(FL_CHANNEL, faults=True))):
+            _, step_fn, specs, _ = make_hota_train_step(
+                model, mesh, FLConfig(**fl_kw), TrainConfig(lr=LR),
+                loss_kind="cls", n_out=MAXC, count_mode=mode)
+            st = hota_state_from_numpy(state0, mesh, mesh.rank, "cpu", specs)
+            out[(name, mode)] = _steps(step_fn, st, x, y, inp)
+        black = fault_params(FLConfig(**dict(FL_FAULTS, blackout_rate=1.0)))
+        out[("blackout", mode)] = dict(
+            _steps(step_fn, st, x, y, inp, n=2, faults=black), before=st)
+    return out
+
+
 def _rank(mesh, inp, ref_state0, g_full, p_dev, sim_init):
     torch.set_num_threads(1)
     rng.set_threefry_partitionable(True)
@@ -255,6 +294,7 @@ def _rank(mesh, inp, ref_state0, g_full, p_dev, sim_init):
         st, m = step_fn(st, x, y, inp["keys"][s])
         losses.append(float(m["loss"]))
     out["sim"] = {"losses": losses, "omega": st.omega}
+    out["fault"] = _fault_runs(mesh, model, x, y, inp, ref_state0)
     # the slab backward on shared keys, both modes, both threefry layouts
     out["bwd"] = {}
     for part in (True, False):
@@ -341,6 +381,20 @@ def _sim_init(inp, slab):
         p=torch.ones(C * N), fgn_mu=torch.zeros(C * N),
         fgn_nu=torch.zeros(C * N), fgn_t=i32, f0=torch.ones(C * N),
         step=i32)
+
+
+def _fault_specs(mode):
+    return make_hota_step_parts(
+        _spec_model(), _mesh(0), FLConfig(**FL_FAULTS), TrainConfig(lr=LR),
+        loss_kind="cls", n_out=MAXC, count_mode=mode).state_specs
+
+
+def _state_pairs(a, b):
+    """(leaf of a, leaf of b) over two port states of one structure."""
+    from repro_torch.common.tree import state_map
+    pairs = []
+    state_map(lambda u, v: pairs.append((u, v)), a, b)
+    return pairs
 
 
 def _mesh(rank):
@@ -527,9 +581,100 @@ def test_a_failing_rank_fails_the_run():
         run_ranks(_fail_on_rank_1, shape=(1, 2), device="cpu", timeout_s=60)
 
 
+def test_fault_initial_state_is_the_reference_init(runs):
+    """The faulted steps start from the reference's faulted init: the
+    unfaulted one plus the stale copy (ω) and its age (0)."""
+    ref, _, inp, state0, _, _ = runs
+    want = ref["faults_state0"]
+    assert len(want) == len(state0) + 2
+    for a, b in zip(tree_leaves(inp["omega"]), tree_leaves(want[10])):
+        np.testing.assert_array_equal(a, b)
+    assert float(want[11]) == 0.0
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_faulted_step_matches_jax(runs, mode):
+    """3 faulted steps against the reference's: metrics (``skipped`` and
+    ``n_participants`` included), p and the FedGradNorm state within rtol
+    1e-4, ω, its stale copy and the slab moments within relative L2
+    1e-4, the stale age and the counters exactly."""
+    ref, ranks, _, _, _, _ = runs
+    want_m = ref["faults_" + mode]["metrics"]
+    assert [m["n_participants"] for m in want_m] == [4.0, 3.0, 1.0]
+    specs = _fault_specs(mode)
+    got_w, want_w, got_s, want_s = [], [], [], []
+    for r, res in enumerate(ranks):
+        got = res["fault"][("faults", mode)]
+        for s in range(STEPS):
+            assert set(got["metrics"][s]) == set(want_m[s])
+            for k in want_m[s]:
+                np.testing.assert_allclose(got["metrics"][s][k],
+                                           want_m[s][k], rtol=1e-4,
+                                           atol=1e-7,
+                                           err_msg=f"rank {r} step {s} {k}")
+        st = got["state"]
+        want = hota_state_from_numpy(ref["faults_" + mode]["state"],
+                                     _mesh(r), r, "cpu", specs)
+        for f in ("p", "fgn_mu", "fgn_nu", "f0"):
+            np.testing.assert_allclose(getattr(st, f).numpy(),
+                                       getattr(want, f).numpy(), rtol=1e-4,
+                                       atol=1e-7, err_msg=f"rank {r} {f}")
+        for f in ("step", "fgn_t", "stale_age"):
+            assert float(getattr(st, f)) == float(getattr(want, f)), f
+        assert int(st.head_opt.step) == int(want.head_opt.step)
+        np.testing.assert_allclose(st.heads["w"].numpy(),
+                                   want.heads["w"].numpy(), rtol=1e-4,
+                                   atol=1e-6, err_msg=f"rank {r} head")
+        got_w += [l.numpy() for l in tree_leaves(st.omega)] + [
+            st.opt.mu.numpy()]
+        want_w += [l.numpy() for l in tree_leaves(want.omega)] + [
+            want.opt.mu.numpy()]
+        got_s += [l.numpy() for l in tree_leaves(st.omega_stale)]
+        want_s += [l.numpy() for l in tree_leaves(want.omega_stale)]
+    assert _rel_l2(got_w, want_w) < 1e-4
+    assert _rel_l2(got_s, want_s) < 1e-4
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_zero_rate_faults_match_the_unfaulted_step(runs, mode):
+    """faults=True at zero rates: the unfaulted steps bit for bit (every
+    participation select and the guard pass the same values through)."""
+    _, ranks, _, _, _, _ = runs
+    for r, res in enumerate(ranks):
+        got, want = res["fault"][("zero", mode)], res[mode]
+        for g, w in zip(got["metrics"], want["metrics"]):
+            assert g.pop("skipped") == 0.0
+            assert g.pop("n_participants") == C * N
+            assert g == w, f"rank {r}"
+        for a, b in _state_pairs(got["state"]._replace(
+                omega_stale=None, stale_age=None), want["state"]):
+            assert torch.equal(a, b), f"rank {r}"
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_blackout_freezes_the_whole_state(runs, mode):
+    """Total blackout: both steps skipped with no participant, and every
+    leaf of the rank's state (ω, the stale copy, the slab moments, the
+    FedGradNorm state, the head and its moments) bit for bit; only
+    ``step`` advances."""
+    _, ranks, _, _, _, _ = runs
+    for r, res in enumerate(ranks):
+        run = res["fault"][("blackout", mode)]
+        for m in run["metrics"]:
+            assert m["skipped"] == 1.0 and m["n_participants"] == 0.0
+        after, before = run["state"], run["before"]
+        assert int(after.step) == int(before.step) + 2
+        pairs = _state_pairs(after._replace(step=None),
+                             before._replace(step=None))
+        assert len(pairs) > 20
+        for a, b in pairs:
+            assert torch.equal(a, b), f"rank {r}"
+
+
 REFUSALS = {
     "per_leaf": (dict(use_pallas_ota=False), {}, "item 13"),
-    "faults": (dict(faults=True), {}, "item 9"),
+    "faults": (dict(faults=True, use_pallas_ota=False), {},
+               "requires the slab engine"),
     "sectioned": (dict(ota_sectioned=True), {}, "item 13"),
     "max_section_rows": (dict(max_section_rows=64), {}, "item 13"),
     "lm_loss": ({}, dict(loss_kind="lm"), "item 14.1"),

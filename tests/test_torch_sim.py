@@ -236,11 +236,13 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("gate", [
-    dict(faults=True), dict(faults=True, use_pallas_ota=False)])
+    dict(faults=True, ota_sectioned=True, use_pallas_ota=False),
+    dict(faults=True, max_section_rows=64, use_pallas_ota=False)])
 def test_unported_gates_refuse(gate):
-    """Faults are not ported: refused on the slab engines and on the
-    per-leaf oracle (which is ported and otherwise runs)."""
-    with pytest.raises(ValueError, match="does not carry"):
+    """Faults are ported (``tests/test_torch_faults.py``); what the sim
+    still refuses, faults on or off, are the reference's own gates that
+    the per-leaf oracle cannot honour."""
+    with pytest.raises(ValueError, match="requires the slab engine"):
         HotaSim(build_model(ModelConfig(family="mlp"), DIMS),
                 FLConfig(n_clusters=C, n_clients=N, **gate), TrainConfig(),
                 N_CLS, device="cpu")

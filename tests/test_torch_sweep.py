@@ -235,7 +235,7 @@ def test_bank_refusals():
         ScenarioBank(sim, [dict(weighting="equal"), dict(tau_h=2)])
     with pytest.raises(ValueError, match="fault knob 'dropout_rate'"):
         ScenarioBank(sim, [dict(dropout_rate=0.1)])
-    with pytest.raises(TypeError, match="fault scenarios"):
+    with pytest.raises(TypeError, match=r"\| FaultParams \| dict"):
         ScenarioBank(sim, [("not", "a", "scenario")])
     with pytest.raises(ValueError, match="sigma2 shape"):
         ScenarioBank(sim, [ChannelParams(*[torch.ones(C + 1)] * 5)])
