@@ -189,7 +189,40 @@ imports only ``repro_torch`` (never ``jax`` or the JAX package) and runs:
    both count modes, counted as phase 19 (and the participation drawn
    on the card), the modes bit for bit, a blackout step the identity on
    every rank, both against four CPU ranks (metrics rtol 1e-4, ω and the
-   stale copy relative L2 1e-3), and the step's split beside phase 19's.
+   stale copy relative L2 1e-3), and the step's split beside phase 19's;
+25. the sampled paper round (``core.sampling.SampledHotaSim``, phase 5's
+   config): the id draw on the card equal to the host's; banks of
+   ``sample_bench.POPULATIONS`` clients per slot (1 to 32,768: 30 to
+   983,040 clients), each with
+   its bytes, init seconds and init peak memory, the round's channel
+   words equal at every population, ``ROUNDS`` counted rounds (10 K1,
+   1 K2 and one flat draw per round, 0 plain draws; the ids the host's)
+   and the peak memory while stepping; one card round against the CPU
+   round at ``SAMPLE_CPU_POP`` (metrics rtol 1e-4, ω and the heads
+   relative L2 1e-3); a faulted blackout-1 round the bank's identity
+   bit for bit, in place; ``experiments.sample_bench.sample_rows``
+   (interleaved round medians and traced device-busy ms and launches per
+   population, the launches equal at every population);
+26. Fig. 4's S=4 bank over ``SampledHotaSim`` at ``SAMPLE_BANK_POP`` on
+   the client-folded and streaming engines: counted (K1 10 or K5 100 and
+   K2 1 per scenario round), the same ids in every scenario, each
+   scenario against its own sampled rounds (rtol 1e-4, ω relative L2
+   1e-3), the median and one traced bank round, the peak memory over the
+   stacked states; then at ``SAMPLE_CKPT_POP`` a bank saved, restored
+   and run one more round, bit for bit;
+27. the per-leaf distributed step (``use_pallas_ota=False``, ``ota_mode``
+   "scatter" and "naive") on phase 19's four ranks sharing the card,
+   ``DIST_STEPS`` counted steps (no kernel of the slab path, the gains
+   and AWGN on the stream kernel, 0 plain draws) against four CPU ranks
+   (metrics rtol 1e-4, ω relative L2 1e-3); ``experiments.dist_bench``'s
+   rows (slab, per-leaf scatter and naive, sectioned), each step split
+   by ``MeshStats``;
+28. the sectioned distributed step (``ota_sectioned``) at
+   ``max_section_rows`` 0 and ``SPLIT_SECTION_ROWS`` in both count
+   modes, bit for bit against the full-slab step of the same layout on
+   the same ranks (at 0, phase 19's step), ``DIST_LEAVES`` K6 or K5
+   launches per rank per step as the full-slab step, and each one's peak
+   memory per rank.
 
 Every counted run also counts the stream draws: the card's two draw
 kernels and the plain draw, which must stay at 0 on the card.
@@ -198,7 +231,7 @@ Any failure exits non-zero. The line before last is the card's name and
 power limit, the one before it the kernels' JSON (K1, K2, K5, K3, K4, K8,
 K6, K7 and the two stream draws; each kernel's ``launches`` sums its
 counts over the main-path runs of phases 5, 9, 11, 12, 13, 16, 19, 20,
-21, 22 and 24, over all ranks, and a kernel never launched there fails
+21, 22 and 24-28, over all ranks, and a kernel never launched there fails
 the run; K1, K2, K5 and K6 also carry their fault-mode error); the last
 line is
 ``{"ok": true, "device": {...}}``. An earlier ``[record]`` line holds every
@@ -283,6 +316,16 @@ FAULT_TRACE_PASSES = 3        # traced rounds per rate, the rates in turn
 FAULT_BANK = [dict(dropout_rate=0.0), dict(dropout_rate=0.25),
               dict(dropout_rate=0.5), dict(blackout_rate=1.0)]
 FAULT_BANK_ROUNDS = 2         # counted fault-bank rounds per engine
+
+# phases 25-28: client sampling, the sampled bank, the per-leaf and the
+# sectioned distributed steps
+SAMPLE_CPU_POP = 4            # the card round held against the CPU's
+SAMPLE_BANK_POP = 4096        # phase 26's sampled Fig. 4 bank (S=4)
+SAMPLE_CKPT_POP = 256         # phase 26's save/restore (disk I/O kept small)
+SAMPLE_BENCH_ROUNDS = 10      # sample_bench rounds per row, interleaved
+PERLEAF_MODES = ("scatter", "naive")
+SPLIT_SECTION_ROWS = 4096     # phase 28: splits the Table-I fc2 section
+DIST_BENCH_STEPS = 5          # dist_bench timed steps per engine
 
 # the stream draws (phase 10): the card's kernel and the plain draw
 DRAW_NAMES = ("threefry_chunked", "threefry_flat", "stream_draw_plain")
@@ -2680,6 +2723,535 @@ def dist_fault_phase(dev, record):
     return total
 
 
+# --------------------------------------------------------------------------
+# phases 25-28: client sampling, the sampled bank, the per-leaf and the
+# sectioned distributed steps
+# --------------------------------------------------------------------------
+
+def _bank_leaves(bank):
+    from repro_torch.common.tree import state_map
+    out = []
+    state_map(out.append, bank)
+    return out
+
+
+def _clone_state(state):
+    import torch
+    from repro_torch.common.tree import state_map
+    return state_map(torch.clone, state)
+
+
+def sampled_phase(sim, batcher, key0, dev, record, counters):
+    """Phase 25: the sampled paper round at full width. Returns the
+    launches of its counted runs."""
+    import dataclasses
+    import torch
+    from repro_torch import rng
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.core import ota
+    from repro_torch.core.sampling import SampledHotaSim
+    from repro_torch.experiments.sample_bench import (
+        POPULATIONS, bank_bytes, sample_rows,
+    )
+    fl = sim.fl
+    c, n = fl.n_clusters, fl.n_clients
+    n_cls = sim.n_classes.tolist()
+    rec = {"populations_per_slot": list(POPULATIONS)}
+
+    # the id draw on the card against the host's
+    for i in range(8):
+        k = rng.fold_in(key0, 5000 + i)
+        for m in POPULATIONS + (2 ** 31 - 1,):
+            got = ota.draw_client_sample(k, c, n, m, dev).cpu()
+            if not torch.equal(got, ota.draw_client_sample(k, c, n, m)):
+                fail(f"sample draw at M={m}: the card's ids differ from "
+                     f"the host's")
+    batches = [batcher.next_stacked() for _ in range(ROUNDS + 1)]
+    keys = [rng.fold_in(key0, 6000 + r) for r in range(ROUNDS + 1)]
+    total, per_m, words0 = {}, {}, None
+    for m in POPULATIONS:
+        samp = SampledHotaSim(sim.model, fl, sim.tcfg, n_cls, m, device=dev)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        st = samp.init(rng.PRNGKey(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated(dev) - base
+        nbytes = bank_bytes(st)
+        n_leaves = len(samp.sim.packer(st.sim.omega).leaf_runs())
+        # position determinism: the round's channel words at every M
+        words = samp.round_streams(keys[0], st.sim.omega)
+        if words0 is None:
+            words0 = words
+        elif not all(torch.equal(a, b) for a, b in zip(
+                words.gain + words.noise, words0.gain + words0.noise)):
+            fail(f"sampled round at M={m}: the channel words depend on the "
+                 f"population")
+        del words
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for ctr in counters:
+            ctr.reset()
+        metrics = []
+        for r in range(ROUNDS):
+            st, mt = samp.step(st, *batches[r], keys[r])
+            metrics.append(mt)
+        torch.cuda.synchronize()
+        launches = {ctr.name: ctr.count for ctr in counters}
+        step_peak = torch.cuda.max_memory_allocated(dev)
+        draws = take_draws(f"sampled round M={m}", launches)
+        want = {k: 0 for k in launches}
+        want.update(ota_client_fold=n_leaves * ROUNDS,
+                    masked_gradnorm=ROUNDS)
+        if launches != want:
+            fail(f"sampled round M={m}: launches {launches}, expected {want}")
+        if draws.get("threefry_flat", 0) != ROUNDS:
+            fail(f"sampled round M={m}: {draws.get('threefry_flat', 0)} flat "
+                 f"draws, expected 1 per round (the ids)")
+        for r, mt in enumerate(metrics):
+            if not all(bool(torch.isfinite(v.float()).all())
+                       for v in mt.values()):
+                fail(f"sampled round M={m}: non-finite metrics")
+            if not torch.equal(mt["sample_ids"].cpu(), ota.draw_client_sample(
+                    keys[r], c, n, m)):
+                fail(f"sampled round M={m}: ids differ from the host's draw")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        per_m[m] = {"clients": c * n * m, "bank_bytes": nbytes,
+                    "init_s": init_s, "init_peak_bytes": init_peak,
+                    "launches": launches,
+                    "draws_per_round": {k: v / ROUNDS
+                                        for k, v in draws.items()},
+                    "allocated_before_step": before,
+                    "step_peak_bytes": step_peak,
+                    "step_peak_minus_bank": step_peak - nbytes,
+                    "step_extra_bytes": step_peak - before}
+        log(f"[sample] M={m} per slot ({c * n * m:,} clients): bank "
+            f"{nbytes / 1e9:.3f} GB, init {init_s:.2f} s (peak "
+            f"{init_peak / 1e9:.3f} GB); {ROUNDS} rounds, launches "
+            f"{launches}, draws per round {per_m[m]['draws_per_round']}; "
+            f"peak while stepping {step_peak / 1e9:.3f} GB, "
+            f"{(step_peak - before) / 1e6:.1f} MB above the state")
+        del st, samp, metrics
+    rec["per_population"] = per_m
+    del words0
+    torch.cuda.empty_cache()
+
+    # one card round against the CPU round at a small population
+    samp = SampledHotaSim(sim.model, fl, sim.tcfg, n_cls, SAMPLE_CPU_POP,
+                          device=dev)
+    cpu_samp = SampledHotaSim(sim.model, fl, sim.tcfg, n_cls, SAMPLE_CPU_POP,
+                              device="cpu")
+    st = samp.init(rng.PRNGKey(0))
+    st, _ = samp.step(st, *batches[0], keys[0])
+    # the CPU first: a step consumes its state (the bank is written in
+    # place)
+    new_c, m_c = cpu_samp.step(to_cpu(st), *batches[-1], keys[-1])
+    new_g, m_g = samp.step(st, *batches[-1], keys[-1])
+    cmp = {name: check_close(f"sampled round {name}", m_g[name].cpu(),
+                             m_c[name], rtol=1e-4, atol=1e-6)
+           for name in ("loss", "p", "grad_norms", "fgrad")}
+    if not torch.equal(m_g["sample_ids"].cpu(), m_c["sample_ids"]):
+        fail("sampled round: the card's ids differ from the CPU's")
+    cmp["omega_rel_l2"] = rel_l2(_leaf_cat(new_g.sim.omega),
+                                 _leaf_cat(new_c.sim.omega))
+    cmp["heads_rel_l2"] = rel_l2(_leaf_cat(new_g.sim.heads),
+                                 _leaf_cat(new_c.sim.heads))
+    cmp["bank_heads_rel_l2"] = rel_l2(_leaf_cat(new_g.bank.heads),
+                                      _leaf_cat(new_c.bank.heads))
+    if max(cmp["omega_rel_l2"], cmp["heads_rel_l2"],
+           cmp["bank_heads_rel_l2"]) > 1e-3:
+        fail(f"sampled card round vs CPU round: {cmp}")
+    rec["card_vs_cpu"] = cmp
+    log(f"[sample] card round vs CPU round at M={SAMPLE_CPU_POP}: {cmp}")
+    del st, new_g, new_c, samp, cpu_samp
+
+    # a faulted blackout round is the bank's identity, bit for bit
+    fsamp = SampledHotaSim(sim.model, dataclasses.replace(
+        fl, faults=True, blackout_rate=1.0), sim.tcfg, n_cls, POPULATIONS[1],
+        device=dev)
+    st = fsamp.init(rng.PRNGKey(0))
+    before = _clone_state(st.bank)
+    ptrs = [l.data_ptr() for l in _bank_leaves(st.bank)]
+    new, m_b = fsamp.step(st, *batches[0], keys[0])
+    torch.cuda.synchronize()
+    ident = (float(m_b["skipped"]) == 1.0
+             and [l.data_ptr() for l in _bank_leaves(new.bank)] == ptrs
+             and all(torch.equal(a, b) for a, b in zip(
+                 _bank_leaves(new.bank), _bank_leaves(before))))
+    if not ident:
+        fail("sampled blackout round: the bank is not its identity")
+    rec["blackout_bank_identity"] = ident
+    del st, new, before, fsamp
+    torch.cuda.empty_cache()
+
+    # sample_bench: interleaved round medians and traced device-busy ms
+    rows = sample_rows(device=dev, rounds=SAMPLE_BENCH_ROUNDS)
+    rec["sample_rows"] = rows
+    base = rows[0]["round_ms_median"]
+    sampled = [r for r in rows if r["population"] is not None]
+    launch_sets = {tuple(r["device_launches"]) for r in sampled}
+    busy = [r["device_busy_ms_median"] for r in sampled]
+    rec["busy_spread"] = (max(busy) - min(busy)) / min(busy)
+    rec["busy_m1_vs_mmax"] = (sampled[-1]["device_busy_ms_median"]
+                              / sampled[0]["device_busy_ms_median"] - 1)
+    rec["sampled_launches_equal"] = len(launch_sets) == 1
+    for row in rows:
+        log(f"[sample time] {row['name']}: median "
+            f"{row['round_ms_median']:.2f} ms ({row['round_ms_median'] / base - 1:+.1%}"
+            f" vs unsampled); traced device busy {row['device_busy_ms']} ms, "
+            f"launches {row['device_launches']}; bank "
+            f"{row['bank_bytes'] / 1e9:.3f} GB, init {row['init_s']:.2f} s")
+    log(f"[sample] device busy M=1 vs M={POPULATIONS[-1]}: "
+        f"{rec['busy_m1_vs_mmax']:+.2%}, spread over the populations "
+        f"{rec['busy_spread']:.2%}; device launches equal at every M: "
+        f"{rec['sampled_launches_equal']}")
+    if not rec["sampled_launches_equal"]:
+        fail(f"sampled rounds: device launches depend on the population: "
+             f"{[r['device_launches'] for r in sampled]}")
+    record["sampled"] = rec
+    torch.cuda.empty_cache()
+    return total
+
+
+def sampled_bank_phase(sim, batcher, dev, record, counters):
+    """Phase 26: Fig. 4's S=4 bank over ``SampledHotaSim`` at M=4096 on
+    the client-folded and streaming engines: counted, each scenario
+    against its own sampled rounds, timed, traced, its peak memory over
+    the stacked states; then (at a smaller M) save, restore and one more
+    round bit for bit. Returns the counted launches."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch import rng
+    from repro_torch.core.channel import scenario_channel
+    from repro_torch.core.sampling import SampledHotaSim
+    from repro_torch.core.sweep import ScenarioBank
+    from repro_torch.experiments.fig4_diverse_sigma import (
+        experiments as fig4_experiments,
+    )
+    from repro_torch.experiments.sample_bench import bank_bytes
+    specs = list(fig4_experiments().values())
+    s_n = len(specs)
+    fl = sim.fl
+    c = fl.n_clusters
+    n_cls = sim.n_classes.tolist()
+    batches = [batcher.next_stacked() for _ in range(FAULT_BANK_ROUNDS)]
+    keys = [rng.fold_in(rng.PRNGKey(88), r) for r in range(FAULT_BANK_ROUNDS)]
+    total, rec = {}, {"population_per_slot": SAMPLE_BANK_POP}
+    for name in ("client_folded", "streaming"):
+        samp = SampledHotaSim(sim.model, dataclasses.replace(
+            fl, **ENGINES[name]), sim.tcfg, n_cls, SAMPLE_BANK_POP,
+            device=dev)
+        bank = ScenarioBank(samp, specs)
+        torch.cuda.empty_cache()
+        states = bank.init(rng.PRNGKey(0))
+        stacked = bank_bytes(states)
+        n_leaves = len(samp.sim.packer(states.sim.omega).leaf_runs())
+        torch.cuda.synchronize()
+        for ctr in counters:
+            ctr.reset()
+        states, hist = bank.run(states, batches, keys)
+        torch.cuda.synchronize()
+        launches = {ctr.name: ctr.count for ctr in counters}
+        draws = take_draws(f"sampled bank on {name}", launches)
+        per = s_n * FAULT_BANK_ROUNDS
+        want = {k: 0 for k in launches}
+        want["masked_gradnorm"] = per
+        if name == "streaming":
+            want["ota_mask_weight"] = c * n_leaves * per
+        else:
+            want["ota_client_fold"] = n_leaves * per
+        if launches != want:
+            fail(f"sampled bank on {name}: launches {launches}, expected "
+                 f"{want}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        ids = hist["sample_ids"]
+        if not all(torch.equal(ids[:, s], ids[:, 0]) for s in range(s_n)):
+            fail(f"sampled bank on {name}: scenarios drew different ids")
+        # each scenario against its own sampled rounds (one at a time: a
+        # scenario's state holds a whole bank)
+        cmp = {"bits_equal": True}
+        for s in range(s_n):
+            st_s = samp.init(rng.PRNGKey(0))
+            ch = scenario_channel(bank.chan_bank, s)
+            for r in range(FAULT_BANK_ROUNDS):
+                st_s, m_s = samp.step(st_s, *batches[r], keys[r], chan=ch)
+                for k in ("loss", "p", "grad_norms", "fgrad"):
+                    check_close(f"sampled bank {name} s={s} {k}",
+                                hist[k][r, s], m_s[k], rtol=1e-4,
+                                atol=1e-6)
+                    cmp["bits_equal"] &= torch.equal(hist[k][r, s], m_s[k])
+            view = bank.scenario_state(states, s)
+            w_b, w_s = _leaf_cat(view.sim.omega), _leaf_cat(st_s.sim.omega)
+            cmp[f"omega_rel_l2_s{s}"] = rel_l2(w_b, w_s)
+            cmp["bits_equal"] &= torch.equal(w_b, w_s) and all(
+                torch.equal(a, b) for a, b in zip(
+                    _bank_leaves(view.bank), _bank_leaves(st_s.bank)))
+            if cmp[f"omega_rel_l2_s{s}"] > 1e-3:
+                fail(f"sampled bank on {name} s={s} vs its sampled sim: "
+                     f"{cmp}")
+            del st_s, view
+        torch.cuda.empty_cache()
+        # the median bank round, one traced round, peak over the stack
+        holder = [states]
+        del states
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        for r in range(TIMED_BANK_ROUNDS + 1):
+            b_r = batcher.next_stacked()
+            k_r = rng.fold_in(rng.PRNGKey(89), r)
+
+            def one():
+                holder[0], _ = bank.step(holder[0], *b_r, k_r)
+            if r == TIMED_BANK_ROUNDS:
+                with device_trace() as prof:
+                    traced = host_ms(one)
+            else:
+                times.append(host_ms(one))
+        peak = torch.cuda.max_memory_allocated(dev)
+        ev = [(e.self_device_time_total / 1e3, e.count)
+              for e in device_events(prof)]
+        rec[name] = {
+            "launches": launches, "draws_per_bank_round": {
+                k: v / FAULT_BANK_ROUNDS for k, v in draws.items()},
+            "vs_sampled_sim": cmp, "stacked_bank_bytes": stacked,
+            "allocated_before": before, "peak_bytes": peak,
+            "peak_over_stacked_bank": peak / stacked - 1,
+            "step_extra_bytes": peak - before,
+            "round_ms": times, "round_ms_median": statistics.median(times),
+            "traced_round_ms": traced,
+            "device_busy_ms": sum(t for t, _ in ev),
+            "device_launches_traced": sum(k for _, k in ev)}
+        log(f"[sampled bank] {name}: S={s_n} at M={SAMPLE_BANK_POP}, "
+            f"launches {launches}; vs per-scenario SampledHotaSim {cmp}; "
+            f"median {rec[name]['round_ms_median']:.2f} ms per bank round "
+            f"(all {['%.2f' % t for t in times]}); traced {traced:.2f} ms, "
+            f"device busy {rec[name]['device_busy_ms']:.2f} ms, "
+            f"{rec[name]['device_launches_traced']} device launches; stacked "
+            f"bank {stacked / 1e9:.3f} GB, peak {peak / 1e9:.3f} GB "
+            f"({rec[name]['peak_over_stacked_bank']:+.1%} over the stacked "
+            f"bank, {(peak - before) / 1e6:.1f} MB above the state)")
+        if peak - before > 0.1 * stacked:
+            log(f"[sampled bank] {name}: stepping took more than 10 % of the "
+                f"stacked bank above the state")
+        del holder, bank, samp
+        torch.cuda.empty_cache()
+
+    # save, restore onto the card, one more round: bit for bit
+    samp = SampledHotaSim(sim.model, fl, sim.tcfg, n_cls, SAMPLE_CKPT_POP,
+                          device=dev)
+    bank = ScenarioBank(samp, specs)
+    states, _ = bank.step(bank.init(rng.PRNGKey(0)), *batches[0], keys[0])
+    x_r, y_r = batcher.next_stacked()
+    k_r = rng.PRNGKey(90)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        path = bank.save(d, 3, states)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        t0 = time.perf_counter()
+        restored = bank.restore(d, 3)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    if not all(torch.equal(u, v) for u, v in _state_pairs(restored, states)):
+        fail("sampled bank restore: the restored state differs")
+    a, ma = bank.step(states, x_r, y_r, k_r)
+    b, mb = bank.step(restored, x_r, y_r, k_r)
+    same = (all(torch.equal(u, v) for u, v in _state_pairs(a, b))
+            and all(torch.equal(ma[k], mb[k]) for k in ma))
+    if not same:
+        fail("sampled bank restore: the round after the restore differs")
+    rec["checkpoint"] = {"population_per_slot": SAMPLE_CKPT_POP,
+                         "save_s": save_s, "restore_s": restore_s,
+                         "bytes": nbytes, "continues_bit_for_bit": same}
+    log(f"[sampled bank] checkpoint at M={SAMPLE_CKPT_POP}: saved "
+        f"{nbytes / 1e6:.1f} MB in {save_s:.3f} s, restored in "
+        f"{restore_s:.3f} s; the next round equal bit for bit")
+    record["sampled_bank"] = rec
+    del a, b, states, restored, bank, samp
+    torch.cuda.empty_cache()
+    return total
+
+
+def _dist_sched_rank(mesh, runs):
+    """One rank of phases 27-28: ``DIST_STEPS`` counted steps of each
+    (name, FLConfig overrides, count mode) run, its metrics, state and
+    peak memory."""
+    import dataclasses
+    import torch
+    from repro_torch import rng
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.core.hota_step import make_hota_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    if dev.type == "cpu":
+        torch.set_num_threads(CPU_RANK_THREADS)
+    model, fl0, tcfg, x, y, keys = _dist_setup(mesh)
+    counters = _dist_counters()
+    out = {}
+    for name, kw, mode in runs:
+        init_fn, step_fn, _, _ = make_hota_train_step(
+            model, mesh, dataclasses.replace(fl0, **kw), tcfg,
+            loss_kind="cls", n_out=DIST_CLASSES, count_mode=mode)
+        st = init_fn(rng.PRNGKey(0))
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        _sync(mesh)
+        for ctr in counters:
+            ctr.reset()
+        metrics = []
+        for s in range(DIST_STEPS):
+            st, m = step_fn(st, x, y, keys[s])
+            metrics.append({k: float(v) for k, v in m.items()})
+        _sync(mesh)
+        rec = {"launches": {ctr.name: ctr.count for ctr in counters},
+               "metrics": metrics,
+               "omega": [l.cpu() for l in tree_leaves(st.omega)],
+               "mu": [l.cpu() for l in tree_leaves(st.opt.mu)],
+               "p": st.p.cpu()}
+        if dev.type == "cuda":
+            rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        out[name] = rec
+    return out
+
+
+PERLEAF_RUNS = tuple((f"perleaf_{m}", dict(use_pallas_ota=False,
+                                           ota_mode=m), None)
+                     for m in PERLEAF_MODES)
+SECTIONED_RUNS = tuple(
+    (f"{kind}_{mode}_rows{rows}", dict(ota_sectioned=kind == "sectioned",
+                                       max_section_rows=rows), mode)
+    for mode in ("local", "psum") for rows in (0, SPLIT_SECTION_ROWS)
+    for kind in ("slab", "sectioned"))
+
+
+def dist_perleaf_phase(dev, record):
+    """Phase 27: the per-leaf distributed step on four ranks sharing the
+    card, "scatter" and "naive", against four CPU ranks, with no kernel
+    of the slab path and no plain draw; then ``experiments.dist_bench``'s
+    rows. Returns the counted launches over the ranks."""
+    import torch
+    from repro_torch.experiments.dist_bench import dist_rows
+    from repro_torch.launch.mesh import run_ranks
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gpu = run_ranks(_dist_sched_rank, (PERLEAF_RUNS,),
+                    shape=DIST_SHAPE, device="cuda", timeout_s=600)
+    gpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = run_ranks(_dist_sched_rank, (PERLEAF_RUNS,),
+                    shape=DIST_SHAPE, device="cpu", timeout_s=600)
+    cpu_s = time.perf_counter() - t0
+    rec = {"card_run_s": gpu_s, "cpu_run_s": cpu_s}
+    total = {}
+    for name, _, _ in PERLEAF_RUNS:
+        for r, res in enumerate(gpu):
+            got = dict(res[name]["launches"])
+            draws = take_draws(f"per-leaf dist {name} rank {r}", got)
+            if any(got.values()):
+                fail(f"per-leaf dist {name} rank {r}: kernel launches {got}, "
+                     f"expected none (gains and AWGN come from the stream "
+                     f"kernel)")
+            for k, v in got.items():
+                total[k] = total.get(k, 0) + v
+            for s in range(DIST_STEPS):
+                for k in ("loss", "p_mean", "p_min", "p_max", "gnorm_mean",
+                          "fgrad"):
+                    g_v = res[name]["metrics"][s][k]
+                    c_v = cpu[r][name]["metrics"][s][k]
+                    if not math.isfinite(g_v) or abs(g_v - c_v) > \
+                            1e-4 * abs(c_v) + 1e-7:
+                        fail(f"per-leaf dist {name} rank {r} step {s} {k}: "
+                             f"card {g_v} vs CPU {c_v}")
+        cmp = {"omega_rel_l2": rel_l2(
+            torch.cat([l.reshape(-1) for res in gpu
+                       for l in res[name]["omega"]]),
+            torch.cat([l.reshape(-1) for res in cpu
+                       for l in res[name]["omega"]])),
+            "mu_rel_l2": rel_l2(
+                torch.cat([l.reshape(-1) for res in gpu
+                           for l in res[name]["mu"]]),
+                torch.cat([l.reshape(-1) for res in cpu
+                           for l in res[name]["mu"]]))}
+        if cmp["omega_rel_l2"] > 1e-3:
+            fail(f"per-leaf dist {name}: card vs CPU {cmp}")
+        rec[name] = {"card_vs_cpu": cmp,
+                     "draws_per_rank_per_step": {
+                         k: v / DIST_STEPS for k, v in draws.items()},
+                     "peak_bytes_per_rank": [res[name]["peak_bytes"]
+                                             for res in gpu]}
+        log(f"[dist per-leaf] {name}: {DIST_STEPS} steps on {len(gpu)} ranks, "
+            f"draws per rank per step {rec[name]['draws_per_rank_per_step']}"
+            f", no kernel of the slab path, 0 plain draws; card vs CPU {cmp};"
+            f" peak bytes per rank {rec[name]['peak_bytes_per_rank']}")
+    rows = dist_rows(device=dev, steps=DIST_BENCH_STEPS)
+    rec["dist_bench"] = rows
+    for row in rows:
+        log(f"[dist bench] {row['name']}: median "
+            f"{row['step_ms_median']:.2f} ms (all "
+            f"{['%.2f' % t for t in row['step_ms']]}); a split step "
+            f"{row['split_step_ms']:.2f} ms: collectives "
+            f"{row['collective_ms']:.2f} ms in {row['collective_calls']} "
+            f"calls ({row['collective_bytes'] / 1e6:.1f} MB), draws "
+            f"{row['draw_ms']:.2f} ms in {row['draw_calls']}, the rest "
+            f"{row['rest_ms']:.2f} ms; peak bytes per rank "
+            f"{row['peak_bytes_per_rank']}")
+    log(f"[dist per-leaf] card ranks {gpu_s:.1f} s, CPU ranks {cpu_s:.1f} s")
+    record["dist_perleaf"] = rec
+    return total
+
+
+def dist_sectioned_phase(dev, record):
+    """Phase 28: the sectioned distributed step at ``max_section_rows`` 0
+    and ``SPLIT_SECTION_ROWS``, both count modes, bit for bit against the
+    full-slab step of the same layout on the card, with the same K6/K5
+    launches; the peak memory per rank of each. Returns the counted
+    launches over the ranks."""
+    import torch
+    from repro_torch.launch.mesh import run_ranks
+    torch.cuda.empty_cache()
+    gpu = run_ranks(_dist_sched_rank, (SECTIONED_RUNS,),
+                    shape=DIST_SHAPE, device="cuda", timeout_s=600)
+    per = {"local": "ota_mask_count", "psum": "ota_mask_weight"}
+    rec, total = {}, {}
+    for name, kw, mode in SECTIONED_RUNS:
+        for r, res in enumerate(gpu):
+            got = dict(res[name]["launches"])
+            take_draws(f"sectioned dist {name} rank {r}", got)
+            want = {k: 0 for k in got}
+            want[per[mode]] = DIST_LEAVES * DIST_STEPS
+            if got != want:
+                fail(f"dist {name} rank {r}: launches {got}, expected {want}")
+            for k, v in got.items():
+                total[k] = total.get(k, 0) + v
+        rec[name] = {"peak_bytes_per_rank": [res[name]["peak_bytes"]
+                                             for res in gpu]}
+    for mode in ("local", "psum"):
+        for rows in (0, SPLIT_SECTION_ROWS):
+            full, sec = f"slab_{mode}_rows{rows}", f"sectioned_{mode}_rows{rows}"
+            for r, res in enumerate(gpu):
+                a, b = res[full], res[sec]
+                if a["metrics"] != b["metrics"] or not all(
+                        torch.equal(u, v) for u, v in zip(
+                            a["omega"] + a["mu"], b["omega"] + b["mu"])):
+                    fail(f"dist rank {r}: {sec} differs from {full}")
+            log(f"[dist sectioned] {sec} == {full} bit for bit on every "
+                f"rank; peak bytes per rank {rec[sec]['peak_bytes_per_rank']}"
+                f" (full slab {rec[full]['peak_bytes_per_rank']})")
+    record["dist_sectioned"] = rec
+    return total
+
+
 def sc2_config():
     """StarCoder2-3B's full-size config (30 layers, d_model 3072)."""
     from repro_torch.configs import get_config
@@ -3190,6 +3762,14 @@ def main() -> None:
     got = dist_fault_phase(dev, record)
     for k_name, v in got.items():
         total[k_name] = total.get(k_name, 0) + v
+
+    # --- 25-28. sampling, the sampled bank, per-leaf and sectioned steps ---
+    for got in (sampled_phase(sim, batcher, key0, dev, record, counters),
+                sampled_bank_phase(sim, batcher, dev, record, counters),
+                dist_perleaf_phase(dev, record),
+                dist_sectioned_phase(dev, record)):
+        for k_name, v in got.items():
+            total[k_name] = total.get(k_name, 0) + v
     if "jax" in sys.modules or "repro" in sys.modules:
         fail("the JAX package was imported")
 

@@ -1,5 +1,6 @@
 """Carry a JAX-package ``SimState``, a ``ScenarioBank``'s banked state,
-a distributed ``HotaState`` or an LM's parameters across into the port.
+a sampled sim's ``SampledSimState`` (its ``ClientBank``), a distributed
+``HotaState`` or an LM's parameters across into the port.
 
 The caller turns the reference state into numpy first
 (``jax.tree.map(np.asarray, state)``); this module reads only those
@@ -30,6 +31,7 @@ import torch
 from repro_torch.common.tree import state_map
 from repro_torch.core.fedgradnorm import FGNState
 from repro_torch.core.hota_step import HotaState, shard_state
+from repro_torch.core.sampling import ClientBank, SampledSimState
 from repro_torch.core.sim import SimState
 from repro_torch.optim.adam import AdamState, SlabAdamState
 
@@ -114,6 +116,28 @@ def bank_state_from_numpy(states, device="cpu") -> SimState:
     return out
 
 
+def client_bank_from_numpy(bank, device="cpu") -> ClientBank:
+    """A port ``ClientBank`` from a reference one turned into numpy:
+    ``(heads, head_opt, f0)`` with ``head_opt = AdamState(step, mu, nu)``
+    (any leading axes: (C, N, M), or (S, C, N, M) in a bank's state)."""
+    heads, head_opt, f0 = tuple(bank)
+    return ClientBank(
+        heads=_tree(heads, device),
+        head_opt=AdamState(step=_tensor(head_opt[0], device, torch.int32),
+                           mu=_tree(head_opt[1], device),
+                           nu=_tree(head_opt[2], device)),
+        f0=_tensor(f0, device, torch.float32))
+
+
+def sampled_state_from_numpy(state, device="cpu") -> SampledSimState:
+    """A port ``SampledSimState`` from a reference one (or a reference
+    ``ScenarioBank``'s over a ``SampledHotaSim``) turned into numpy:
+    the inner ``SimState`` and the ``ClientBank``."""
+    sim, bank = tuple(state)
+    return SampledSimState(sim=sim_state_from_numpy(sim, device=device),
+                           bank=client_bank_from_numpy(bank, device=device))
+
+
 def hota_state_from_numpy(state, mesh, rank: int, device, specs):
     """Rank ``rank``'s piece of a reference distributed ``HotaState``
     (turned into numpy), laid out by ``specs``, the port step's
@@ -122,7 +146,8 @@ def hota_state_from_numpy(state, mesh, rank: int, device, specs):
     ``fgn_nu`` and ``f0`` its own (a leading dim of 1), and the slab Adam
     moments the rank's local slab (the reference's global moment is the
     shard-major concatenation of the local slabs), and under faults the
-    stale copy cut like ω."""
+    stale copy cut like ω. On the per-leaf oracle the optimizer is the
+    tree Adam, its moments cut like ω."""
     fields = tuple(state)
     if len(fields) < 10:
         raise ValueError("expected a reference HotaState (omega, opt, "
@@ -131,11 +156,16 @@ def hota_state_from_numpy(state, mesh, rank: int, device, specs):
     omega, opt, heads, head_opt, p, mu, nu, fgn_t, f0, step = fields[:10]
     omega_stale, stale_age = _stale_fields(fields, 10, "cpu")
     i32, f32 = torch.int32, torch.float32
+    if isinstance(opt[1], dict):    # the per-leaf oracle's tree Adam
+        opt = AdamState(step=_tensor(opt[0], "cpu", i32),
+                        mu=_tree(opt[1], "cpu"), nu=_tree(opt[2], "cpu"))
+    else:
+        opt = SlabAdamState(step=_tensor(opt[0], "cpu", i32),
+                            mu=_tensor(opt[1], "cpu", f32),
+                            nu=_tensor(opt[2], "cpu", f32))
     glob = HotaState(
         omega=_tree(omega, "cpu"),
-        opt=SlabAdamState(step=_tensor(opt[0], "cpu", i32),
-                          mu=_tensor(opt[1], "cpu", f32),
-                          nu=_tensor(opt[2], "cpu", f32)),
+        opt=opt,
         heads=_tree(heads, "cpu"),
         head_opt=AdamState(step=_tensor(head_opt[0], "cpu", i32),
                            mu=_tree(head_opt[1], "cpu"),

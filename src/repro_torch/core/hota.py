@@ -1,9 +1,8 @@
-"""HOTA-FedGradNorm, distributed: the packed ω̃ gather (DESIGN.md §3.1).
+"""HOTA-FedGradNorm, distributed: the OTA gathers (DESIGN.md §3.1).
 
-Port of the parts of ``repro.core.hota`` that the slab-native distributed
-step runs. The paper's two-level aggregation rides the FSDP parameter
-gather as a custom backward (``torch.autograd.Function``, the port's
-``jax.custom_vjp``):
+Port of ``repro.core.hota``. The paper's two-level aggregation rides the
+FSDP parameter gather as a custom backward (``torch.autograd.Function``,
+the port's ``jax.custom_vjp``):
 
     forward : shard --all-gather over ("client", "cluster")--> full param
               (= PS -> IS -> client broadcast, Alg. 1 lines 3-6)
@@ -16,27 +15,41 @@ gather as a custom backward (``torch.autograd.Function``, the port's
 Each process of the mesh is one (cluster, client) position, so its
 cluster index is a plain integer (``cluster_index``), not a traced one.
 
+The per-leaf oracle (``use_pallas_ota=False`` in the step):
+``make_ota_gather`` wraps one leaf, ``make_param_hook`` calls it for each
+leaf of a layer's parameters right before the model uses them (the
+models' ``param_hook``), under the key ``fold_tags(step key, klass,
+*tags, leaf)``. Its backward draws each cluster's Gaussian gains (eq. 7,
+``channel_mask_for``) and the AWGN through ``rng.normal`` from words of
+the card's stream kernel (``ops.bits``): whole-tensor draws in
+``mode="naive"``, one draw per client region of the FSDP dim in
+``mode="scatter"`` (``region_mask_key``), where the LAN sum arrives as a
+reduce-scatter. ``full_transmission_mask`` redraws a leaf's mask exactly
+as its transmission does, so FedGradNorm's eq. 5 sees the channel the
+MAC applies.
+
 ``make_packed_final_gather`` packs ω̃'s whole gradient into one slab
 and masks it with the per-cluster gain-threshold kernel K7
 (``_packed_mask_apply``); ``packed_final_norm`` reads the same masks for
-eq. 6. The per-leaf oracle of the reference (``make_ota_gather``,
-``full_transmission_mask``, ``make_param_hook``, ...) is not ported yet
-(ROADMAP Queue 1, item 13): the step refuses ``use_pallas_ota=False``.
+eq. 6; ``make_param_hook(final_packed_gather=...)`` routes the "final"
+klass through it.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, NamedTuple, Optional, Tuple
+import math
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch import rng
 from repro_torch.common.flatpack import packer_for
 from repro_torch.common.tree import (
-    tree_flatten_with_path, tree_leaves, tree_unflatten,
+    tree_flatten_with_path, tree_leaves, tree_map, tree_unflatten,
 )
 from repro_torch.core.channel import ChannelParams
 from repro_torch.core.ota import HOTA_MASK_SALT
 from repro_torch.kernels.ota_channel.ops import _ota_channel_impl, bits
+from repro_torch.models.params import logical_axes
 from repro_torch.sharding import collectives as col
 from repro_torch.sharding.mesh_utils import Mesh
 
@@ -130,6 +143,208 @@ def shard_of(full: torch.Tensor, ax: int, index: int,
     """Piece ``index`` of ``n_shards`` along dim ``ax``."""
     sz = full.shape[ax] // n_shards
     return full.narrow(ax, index * sz, sz)
+
+
+# --------------------------------------------------------------------------
+# the per-leaf oracle: one gather per leaf, Gaussian gains per leaf
+# --------------------------------------------------------------------------
+
+REGION_SALT = 0xC0
+
+
+def _normal(key, shape, device) -> torch.Tensor:
+    """``rng.normal(key, shape)`` from words of ``ops.bits``: the card's
+    stream kernel there, the (counted) plain draw on the host."""
+    shape = tuple(int(d) for d in shape)
+    return rng.normal_from_words(bits(key, math.prod(shape),
+                                      device=device)).reshape(shape)
+
+
+def channel_mask_for(key, shape, sigma2, h_th, ota_on, cluster: int,
+                     device) -> torch.Tensor:
+    """The mask M_k^(l) that cluster ``cluster`` sees for one leaf (eq. 7):
+    gains ``normal(fold_in(key, cluster))·√σ²``, passed where h² ≥ H_th
+    (everywhere with ``ota_on`` off)."""
+    h = _normal(rng.fold_in(key, cluster), shape, device) * torch.sqrt(
+        torch.as_tensor(sigma2, dtype=torch.float32, device=device))
+    return torch.logical_or((h * h) >= h_th, torch.as_tensor(
+        ota_on, device=device) < 0.5)
+
+
+def region_mask_key(leaf_key, region: int) -> torch.Tensor:
+    """The key of one scatter region's channel draw (scatter mode). The
+    regions split the FSDP dim client-major; a leaf's full mask is the
+    concatenation of its region masks (``full_transmission_mask``)."""
+    return rng.fold_in(rng.fold_in(leaf_key, REGION_SALT), region)
+
+
+def full_transmission_mask(leaf_key, shape, axis: int, n_regions: int,
+                           sigma2, h_th, ota_on, cluster: int,
+                           scatter_mode: bool, device) -> torch.Tensor:
+    """A leaf's full mask M_k^(l) exactly as its transmission draws it,
+    for FedGradNorm's eq. 5: per region in scatter mode for an FSDP leaf
+    (``axis`` ≥ 0), whole-tensor for a replicated leaf or in naive
+    mode."""
+    if not scatter_mode or axis < 0:
+        return channel_mask_for(leaf_key, shape, sigma2, h_th, ota_on,
+                                cluster, device)
+    sub = list(shape)
+    if sub[axis] % n_regions:
+        raise ValueError(f"dim {axis} of {tuple(shape)} does not split into "
+                         f"{n_regions} regions")
+    sub[axis] //= n_regions
+    return torch.cat([channel_mask_for(region_mask_key(leaf_key, r), sub,
+                                       sigma2, h_th, ota_on, cluster, device)
+                      for r in range(n_regions)], dim=axis)
+
+
+def _estimate(y, cnt, z, denom) -> torch.Tensor:
+    """eq. 10's guarded estimate (y + z) / (|M|·N); 0 where no cluster
+    passed."""
+    return torch.where(cnt > 0, (y + z) / (torch.clamp(cnt, min=1.0)
+                                           * denom), torch.zeros_like(y))
+
+
+def make_ota_gather(mesh: Mesh, data_axes: Tuple[str, ...],
+                    cluster_axes: Tuple[str, ...], n_clients: int,
+                    n_shards: int, compute_dtype, mode: str = "scatter"):
+    """The per-leaf custom-backward FSDP gather for this rank of ``mesh``:
+    returns ``ota_gather(axis, shard, ctx)``, the full leaf in the compute
+    dtype. ``data_axes`` must be ("client", "cluster"): client-major
+    pieces make the scatter regions line up with the FSDP pieces.
+
+    ``axis`` ≥ 0 is the leaf's FSDP dim; -1 a leaf replicated over the
+    data axes (its forward copies it, its backward runs at full size).
+    The backward is Alg. 1's aggregation in one of two forms with the
+    same math:
+
+    * ``mode="naive"`` (as the paper writes it): the weighted psum over
+      "client" (eq. 3) and the masked psum over the clusters (eq. 8) at
+      full size, the estimate (eq. 10), the rank's own shard;
+    * ``mode="scatter"``: the weighted gradients reduce-scattered over
+      "client", so the LAN sum arrives split into client regions of 1/N
+      size; one mask and one AWGN draw per region; the MAC psum on the
+      region; the rank's cluster's piece of it. No full-size
+      intermediate, about a third of the collective bytes.
+
+    Channel keys fold only (step, layer, leaf), so every microbatch sees
+    the same masks and AWGN: averaging microbatch estimates is one MAC
+    transmission of the round-averaged x^(l)."""
+    if data_axes[0] != CLIENT_AXIS:
+        raise ValueError(f"data_axes must start with {CLIENT_AXIS!r}, got "
+                         f"{data_axes}")
+    if mode not in ("scatter", "naive"):
+        raise ValueError(f"ota_mode must be 'scatter' or 'naive', got "
+                         f"{mode!r}")
+    cidx = cluster_index(mesh, cluster_axes)
+    my_region = mesh.axis_index(CLIENT_AXIS)
+    sub_idx = mesh.axis_index(data_axes[1:])
+    me = mesh.axis_index(data_axes)
+    n_sub = n_shards // n_clients
+
+    def _channel(key, shape, ctx: OTACtx, dev):
+        """The leaf's (or region's) eq.-7 mask and its AWGN, timed into
+        ``mesh.stats`` as draws when it is set."""
+        return col.timed(mesh, "draw", 0, lambda: (
+            channel_mask_for(key, shape, ctx.sigma2, ctx.h_th, ctx.ota_on,
+                             cidx, dev),
+            _normal(rng.fold_in(key, HOTA_MASK_SALT), shape, dev)
+            * ctx.noise_std * ctx.ota_on))
+
+    def _bwd(axis: int, g: torch.Tensor, ctx: OTACtx) -> torch.Tensor:
+        g = g.to(torch.float32)
+        if mode == "scatter" and axis >= 0:
+            x_reg = col.reduce_scatter(ctx.p_weight * g, mesh, CLIENT_AXIS,
+                                       axis)
+            mask, z = _channel(region_mask_key(ctx.key, my_region),
+                               x_reg.shape, ctx, g.device)
+            cnt = col.psum(mask.to(torch.float32), mesh, cluster_axes)
+            y = col.psum(torch.where(mask, x_reg, torch.zeros_like(x_reg)),
+                         mesh, cluster_axes)
+            return shard_of(_estimate(y, cnt, z, n_clients), axis, sub_idx,
+                            n_sub)
+        x = col.psum(ctx.p_weight * g, mesh, CLIENT_AXIS)
+        mask, z = _channel(ctx.key, g.shape, ctx, g.device)
+        cnt = col.psum(mask.to(torch.float32), mesh, cluster_axes)
+        y = col.psum(torch.where(mask, x, torch.zeros_like(x)), mesh,
+                     cluster_axes)
+        ghat = _estimate(y, cnt, z, n_clients)
+        return shard_of(ghat, axis, me, n_shards) if axis >= 0 else ghat
+
+    def ota_gather(axis: int, shard: torch.Tensor, ctx: OTACtx):
+        shape = list(shard.shape)
+        if axis >= 0:
+            shape[axis] *= n_shards
+        return custom_gather(
+            shard,
+            lambda leaves: [gather_leaf(leaves[0], axis, mesh, data_axes,
+                                        compute_dtype)],
+            lambda grads: [_bwd(axis, grads[0], ctx)],
+            torch.empty(shape, dtype=torch.float32, device="meta"))
+
+    return ota_gather
+
+
+def build_axes_registry(model) -> Dict[str, List[tuple]]:
+    """klass -> the logical-axes tuple of each leaf the hook sees for it,
+    in flatten order: the ``mlp`` trunk as one "layers" call, the dense
+    LM's "embed" and "layers", and "final"."""
+    ax = logical_axes(model.trunk_specs())
+    reg: Dict[str, List[tuple]] = {}
+    if model.cfg.family == "mlp":
+        reg["layers"] = tree_leaves(ax)
+    else:
+        reg["embed"] = [ax["embed"]]
+        reg["layers"] = tree_leaves(ax["layers"])
+    reg["final"] = tree_leaves(logical_axes(model.final_specs()))
+    return reg
+
+
+def make_param_hook(gather, registry: Dict[str, List[tuple]], base_key,
+                    p_weight, chan: ChannelParams, final_packed_gather=None):
+    """``hook(params, klass, *tags)``: the subtree with every leaf through
+    ``gather`` (``make_ota_gather``) under ``fold_tags(base_key, klass,
+    tags, leaf)``. ``chan`` is this cluster's channel view (scalar σ²,
+    ``core.channel.cluster_channel``), ``p_weight`` the client's
+    FedGradNorm weight. With ``final_packed_gather``
+    (``make_packed_final_gather``) the "final" klass takes the whole ω̃
+    subtree through one packed gather under ``packed_final_key``."""
+    consts = dict(p_weight=p_weight, sigma2=chan.sigma2,
+                  h_th=chan.h_threshold, noise_std=chan.noise_std,
+                  ota_on=chan.ota_on)
+
+    def hook(lp, klass: str, *tags):
+        if klass == "final" and final_packed_gather is not None:
+            return final_packed_gather(
+                lp, OTACtx(key=packed_final_key(base_key), **consts))
+        leaves, axes = tree_leaves(lp), registry[klass]
+        if len(leaves) != len(axes):
+            raise ValueError(f"klass {klass!r}: {len(leaves)} leaves, the "
+                             f"registry holds {len(axes)}")
+        return tree_unflatten(lp, [
+            gather(_fsdp_axis(a), leaf,
+                   OTACtx(key=fold_tags(base_key, klass, tags, i), **consts))
+            for i, (leaf, a) in enumerate(zip(leaves, axes))])
+    return hook
+
+
+def identity_hook(lp, klass: str, *tags):
+    return lp
+
+
+def shard_specs_for(model, mesh: Mesh):
+    """The FL layout of the shared parameters {"final", "trunk"}: a leaf
+    with an "embed" dim splits it over the data axes ("client",
+    "cluster"), any other leaf is replicated (``()``)."""
+    data_axes = _mesh_data_axes(mesh)
+
+    def spec(axes):
+        if "embed" not in axes:
+            return ()
+        ax = axes.index("embed")
+        return tuple(data_axes if d == ax else None for d in range(ax + 1))
+    return tree_map(spec, {"final": logical_axes(model.final_specs()),
+                           "trunk": logical_axes(model.trunk_specs())})
 
 
 # --------------------------------------------------------------------------

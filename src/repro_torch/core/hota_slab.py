@@ -24,8 +24,8 @@ same either way, the masks being pure functions of the streams):
 ``sectioned_final_norm`` re-draws ONLY the ω̃ section's stream, so the
 FGN phase (eq. 5) sees the masks the backward applies.
 ``packed_omega_aggregate_ref`` is the single-process oracle of the
-backward on the same streams. The section-streaming schedule
-(``sectioned=True``) is not ported yet (ROADMAP Queue 1, item 13).
+backward on the same streams. ``sectioned=True`` runs the backward one
+section at a time (the section-streaming schedule, DESIGN.md §3.16).
 """
 from __future__ import annotations
 
@@ -118,11 +118,17 @@ def make_packed_omega_gather(mesh: Mesh, data_axes: Tuple[str, ...],
 
     ``ctx.sigma2`` must be the FULL (n_clusters,) per-cluster vector.
     ``count_mode`` None picks by the mesh's device
-    (``default_count_mode``)."""
-    if sectioned:
-        raise NotImplementedError(
-            "the section-streaming distributed schedule (sectioned=True, "
-            "fl.ota_sectioned) is not ported yet: ROADMAP Queue 1, item 13")
+    (``default_count_mode``).
+
+    ``sectioned`` (DESIGN.md §3.16) makes the layout's sections the unit
+    of the backward: it walks them in order (draw a section's streams,
+    apply its leaves' kernels, issue their collectives) and finalizes
+    each section (AWGN, the estimate, the shard) one section late. Only
+    one section's streams are alive at a time (split sections with
+    ``max_section_rows`` to bound them), and every leaf's values equal
+    the full-slab schedule's bit for bit: the same streams, the same
+    kernels and the same per-leaf collectives, in another order. The
+    port's collectives block, so the late finalize overlaps nothing."""
     if count_mode is None:
         count_mode = default_count_mode(mesh.device)
     if count_mode not in ("psum", "local"):
@@ -141,8 +147,6 @@ def make_packed_omega_gather(mesh: Mesh, data_axes: Tuple[str, ...],
     cidx = cluster_index(mesh, cluster_axes)
     my_reg = mesh.axis_index(CLIENT_AXIS)
     sub_idx = mesh.axis_index(data_axes[1:])
-    reg_idx = [i for i in range(n_leaves) if fsdp_axes[i] >= 0]
-    rep_idx = [i for i in range(n_leaves) if fsdp_axes[i] < 0]
     lan_mac = (CLIENT_AXIS,) + tuple(cluster_axes)
 
     # a region (1/n_clients slice along the FSDP dim) is a CONTIGUOUS
@@ -177,32 +181,42 @@ def make_packed_omega_gather(mesh: Mesh, data_axes: Tuple[str, ...],
                  else torch.clamp(torch.as_tensor(ctx.n_eff,
                                                   dtype=torch.float32),
                                   min=1.0))
-        y, cnt = {}, {}
-        if count_mode == "local":
-            # every cluster's stream, |M| counted locally by K6
-            gbits = {s: _draw(lambda s=s: _section_bits(
-                ctx.key, folds[s], n_cl, packer.sections[s].length, dev))
-                for s in sorted({runs[i].section for i in range(n_leaves)})}
-            outs, cnts = {}, {}
-            for i in range(n_leaves):
-                run = runs[i]
-                b = gbits[run.section][:, run.offset:run.offset + run.size]
-                outs[i], cnts[i] = ota_mask_count_apply(
-                    leaves[i], b, cidx, ctx.sigma2, ctx.h_th, ctx.ota_on,
-                    ctx.p_weight, live_all=ctx.live)
-            del gbits
-            for i in reg_idx:
-                y[i] = col.psum(col.reduce_scatter(
-                    outs[i], mesh, CLIENT_AXIS, fsdp_axes[i]).contiguous(),
-                    mesh, cluster_axes)
-                cnt[i] = _region(cnts[i], i)
-            for i in rep_idx:
-                y[i] = col.psum(outs[i], mesh, lan_mac)
-                cnt[i] = cnts[i]
-        else:
+        out = [None] * n_leaves
+
+        def _collect(idxs):
+            """The channel work and the collectives of the leaves
+            ``idxs`` (the whole model, or one section): ({leaf: y},
+            {leaf: |M|}), summed over the clusters. A leaf's values do
+            not depend on the grouping: the streams are sliced per leaf
+            and every collective is one leaf's."""
+            reg = [i for i in idxs if fsdp_axes[i] >= 0]
+            rep = [i for i in idxs if fsdp_axes[i] < 0]
+            y, cnt = {}, {}
+            if count_mode == "local":
+                # every cluster's stream, |M| counted locally by K6
+                gbits = {s: _draw(lambda s=s: _section_bits(
+                    ctx.key, folds[s], n_cl, packer.sections[s].length, dev))
+                    for s in sorted({runs[i].section for i in idxs})}
+                outs, cnts = {}, {}
+                for i in idxs:
+                    run = runs[i]
+                    b = gbits[run.section][:, run.offset:run.offset + run.size]
+                    outs[i], cnts[i] = ota_mask_count_apply(
+                        leaves[i], b, cidx, ctx.sigma2, ctx.h_th, ctx.ota_on,
+                        ctx.p_weight, live_all=ctx.live)
+                del gbits
+                for i in reg:
+                    y[i] = col.psum(col.reduce_scatter(
+                        outs[i], mesh, CLIENT_AXIS, fsdp_axes[i]).contiguous(),
+                        mesh, cluster_axes)
+                    cnt[i] = _region(cnts[i], i)
+                for i in rep:
+                    y[i] = col.psum(outs[i], mesh, lan_mac)
+                    cnt[i] = cnts[i]
+                return y, cnt
             # this cluster's stream only; the masks ride the MAC psum
             full_bits = {}
-            for i in rep_idx + [i for i in reg_idx if not _contig(i)]:
+            for i in rep + [i for i in reg if not _contig(i)]:
                 s = runs[i].section
                 if s not in full_bits:
                     full_bits[s] = _draw(lambda s=s: chunked_stream(
@@ -214,7 +228,7 @@ def make_packed_omega_gather(mesh: Mesh, data_axes: Tuple[str, ...],
                     return o, m
                 return o * live_me, m * live_me
 
-            for i in reg_idx:
+            for i in reg:
                 run, ax = runs[i], fsdp_axes[i]
                 if _contig(i):
                     x_reg = col.reduce_scatter(ctx.p_weight * leaves[i],
@@ -235,7 +249,7 @@ def make_packed_omega_gather(mesh: Mesh, data_axes: Tuple[str, ...],
                     m = _region(m, i)
                 y[i] = col.psum(o.contiguous(), mesh, cluster_axes)
                 cnt[i] = col.psum(m.contiguous(), mesh, cluster_axes)
-            for i in rep_idx:
+            for i in rep:
                 run = runs[i]
                 b = full_bits[run.section][run.offset:run.offset + run.size]
                 o, m = _live(*ota_mask_weight_apply(
@@ -243,39 +257,62 @@ def make_packed_omega_gather(mesh: Mesh, data_axes: Tuple[str, ...],
                     ctx.p_weight))
                 y[i] = col.psum(o.contiguous(), mesh, lan_mac)
                 cnt[i] = col.psum(m.contiguous(), mesh, cluster_axes)
-            del full_bits
+            return y, cnt
 
-        # AWGN from the section noise streams (contiguous regions draw only
-        # their words), the guarded estimate, the rank's own shard
-        full_nbits = {}
-        for i in rep_idx + [i for i in reg_idx if not _contig(i)]:
-            s = runs[i].section
-            if s not in full_nbits:
-                full_nbits[s] = _draw(lambda s=s: chunked_stream(
-                    section_noise_key(ctx.key, folds[s]),
-                    packer.sections[s].length, dev))
-        out = [None] * n_leaves
-        for i in range(n_leaves):
-            run, ax = runs[i], fsdp_axes[i]
-            if ax >= 0 and _contig(i):
-                lreg = run.size // n_clients
-                nb = _draw(lambda: stream_range_bits(
-                    section_noise_key(ctx.key, folds[run.section]),
-                    run.offset + my_reg * lreg, lreg, dev))
-                z = bits_to_gaussian(nb, 1.0).reshape(y[i].shape)
-            else:
-                nb = full_nbits[run.section][run.offset:run.offset + run.size]
-                z = bits_to_gaussian(nb, 1.0).reshape(leaves[i].shape)
+        def _finalize(idxs, y, cnt):
+            """AWGN from the section noise streams (contiguous regions
+            draw only their words), the guarded estimate and the rank's
+            own shard of the leaves ``idxs``, into ``out``."""
+            full_nbits = {}
+            for i in idxs:
+                if fsdp_axes[i] < 0 or not _contig(i):
+                    s = runs[i].section
+                    if s not in full_nbits:
+                        full_nbits[s] = _draw(lambda s=s: chunked_stream(
+                            section_noise_key(ctx.key, folds[s]),
+                            packer.sections[s].length, dev))
+            for i in idxs:
+                run, ax = runs[i], fsdp_axes[i]
+                if ax >= 0 and _contig(i):
+                    lreg = run.size // n_clients
+                    nb = _draw(lambda: stream_range_bits(
+                        section_noise_key(ctx.key, folds[run.section]),
+                        run.offset + my_reg * lreg, lreg, dev))
+                    z = bits_to_gaussian(nb, 1.0).reshape(y[i].shape)
+                else:
+                    nb = full_nbits[run.section][run.offset:
+                                                 run.offset + run.size]
+                    z = bits_to_gaussian(nb, 1.0).reshape(leaves[i].shape)
+                    if ax >= 0:
+                        z = _region(z, i)
+                z = z * ctx.noise_std * ctx.ota_on
+                ghat = torch.where(
+                    cnt[i] > 0,
+                    (y[i] + z) / (torch.clamp(cnt[i], min=1.0) * denom),
+                    torch.zeros_like(y[i]))
                 if ax >= 0:
-                    z = _region(z, i)
-            z = z * ctx.noise_std * ctx.ota_on
-            ghat = torch.where(
-                cnt[i] > 0,
-                (y[i] + z) / (torch.clamp(cnt[i], min=1.0) * denom),
-                torch.zeros_like(y[i]))
-            if ax >= 0:
-                ghat = shard_of(ghat, ax, sub_idx, n_sub)
-            out[i] = ghat
+                    ghat = shard_of(ghat, ax, sub_idx, n_sub)
+                out[i] = ghat
+
+        if sectioned:
+            # one section at a time, in layout order, each finalized one
+            # section late: section s's collectives are issued before
+            # section s-1 is finished, and one section's streams are
+            # alive at a time
+            pending = None
+            for sec in packer.sections:
+                idxs = list(sec.leaf_indices)
+                if not idxs:
+                    continue
+                y, cnt = _collect(idxs)
+                if pending is not None:
+                    _finalize(*pending)
+                pending = (idxs, y, cnt)
+            if pending is not None:
+                _finalize(*pending)
+        else:
+            idxs = list(range(n_leaves))
+            _finalize(idxs, *_collect(idxs))
         return out
 
     full_like = tree_unflatten(template, [

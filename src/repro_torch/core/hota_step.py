@@ -1,6 +1,7 @@
 """The distributed HOTA-FedGradNorm training step on ``torch.distributed``.
 
-Port of ``repro.core.hota_step`` on the slab engine. Each process of the
+Port of ``repro.core.hota_step``, on the slab engine and on the per-leaf
+oracle (``use_pallas_ota=False``). Each process of the
 FL mesh is one (cluster, client) position and runs the step on its own
 shards; ``make_hota_train_step(model, mesh, fl, tcfg, loss_kind="cls",
 n_out=...)`` returns (init_fn, step_fn, state_specs, batch_spec), where
@@ -16,6 +17,19 @@ step_fn is the whole Algorithm 1 round:
            K6 or K5 per leaf, LAN reduce-scatter, MAC psum, ĝ), averaged
            over ``fl.microbatches``; Adam on the rank's FSDP shard (the PS
            update, moments as one local slab); local Adam on the head.
+
+With ``fl.ota_sectioned`` the slab backward walks the layout's sections
+(split by ``fl.max_section_rows``), each section's collectives issued
+before the previous section is finished: the same per-leaf values as
+the full-slab schedule with one section's streams alive at a time.
+
+The per-leaf oracle (``use_pallas_ota=False``, the reference's
+``make_param_hook`` route, ``fl.ota_mode`` "scatter" or "naive"): phase 0
+runs the trunk through the per-leaf hook's forward, phase B's eq.-6 norm
+redraws each ω̃ leaf's transmission mask (``full_transmission_mask``),
+phase C takes every leaf through its own ``make_ota_gather`` (Gaussian
+gains and AWGN per leaf from the card's stream kernel), and the PS update
+is the tree Adam on the FSDP shards (moments shaped like ω).
 
 The channel and weighting knobs are tensors (``ChannelParams``): step_fn
 takes an optional ``chan`` whose σ² is (n_total_clusters,); dynamic vs.
@@ -44,10 +58,8 @@ leading dim over the client axes, the slab Adam moments over the data
 axes (the global moment is the shard-major concatenation of the ranks'
 local slabs). ``shard_state`` cuts a rank's state from a global one.
 
-Not ported yet, each refused by name: the per-leaf oracle
-(``use_pallas_ota=False``) and the sectioned schedule (``ota_sectioned``,
-``max_section_rows``), ROADMAP Queue 1 item 13; the LM loss
-(``loss_kind="lm"``, item 14.1).
+Not ported yet, refused by name: the LM loss (``loss_kind="lm"``,
+ROADMAP Queue 1 item 14.1).
 """
 from __future__ import annotations
 
@@ -68,8 +80,10 @@ from repro_torch.core.channel import (
     fault_params,
 )
 from repro_torch.core.hota import (
-    CLIENT_AXIS, OTACtx, _mesh_client_axes, _mesh_cluster_axes,
-    _mesh_data_axes, cluster_index,
+    CLIENT_AXIS, OTACtx, _fsdp_axis, _mesh_client_axes, _mesh_cluster_axes,
+    _mesh_data_axes, build_axes_registry, cluster_index, fold_tags,
+    full_transmission_mask, make_ota_gather, make_param_hook,
+    shard_specs_for,
 )
 from repro_torch.core.hota_slab import (
     _fsdp_axis_full, make_packed_omega_gather,
@@ -80,7 +94,7 @@ from repro_torch.models.params import (
     abstract_params, init_params, logical_axes,
 )
 from repro_torch.optim.adam import (
-    AdamState, SlabAdamState, adam_update, slab_adam_update,
+    AdamState, SlabAdamState, adam_init, adam_update, slab_adam_update,
 )
 from repro_torch.sharding import collectives as col
 from repro_torch.sharding.mesh_utils import Mesh, shard_slices
@@ -137,10 +151,6 @@ def _refuse(fl: FLConfig, loss_kind: str) -> None:
             "per-leaf distributed path has no participation-aware "
             "aggregation — use the per-leaf SIMULATOR (repro_torch.core."
             "sim) as the fault oracle instead (DESIGN.md §3.14)")
-    if not fl.use_pallas_ota:
-        raise NotImplementedError(
-            "use_pallas_ota=False (the per-leaf distributed oracle) is not "
-            "ported yet: ROADMAP Queue 1, item 13")
     if fl.ota_streaming:
         raise ValueError(
             "fl.ota_streaming is a SIMULATOR engine (DESIGN.md §3.15): the "
@@ -148,14 +158,22 @@ def _refuse(fl: FLConfig, loss_kind: str) -> None:
             "so there is no cluster batch to stream. Use fl.ota_sectioned "
             "for the section-streaming distributed schedule (DESIGN.md "
             "§3.16)")
-    if fl.ota_sectioned:
-        raise NotImplementedError(
-            "fl.ota_sectioned (the section-streaming distributed schedule) "
-            "is not ported yet: ROADMAP Queue 1, item 13")
-    if fl.max_section_rows:
-        raise NotImplementedError(
-            "fl.max_section_rows in the distributed step comes with the "
-            "sectioned schedule: ROADMAP Queue 1, item 13")
+    if fl.ota_sectioned and not fl.use_pallas_ota:
+        raise ValueError(
+            "fl.ota_sectioned requires the slab engine (use_pallas_ota="
+            "True): the per-leaf distributed path has no section layout to "
+            "stream — the flag would be silently inert (DESIGN.md §3.16)")
+    if fl.ota_sectioned and fl.ota_sections != "toplevel":
+        raise ValueError(
+            "fl.ota_sectioned requires a multi-section layout "
+            "(ota_sections='toplevel'): with the legacy two-section 'tail' "
+            "layout the head IS the whole trunk, so section streaming "
+            "cannot bound peak memory (DESIGN.md §3.16)")
+    if fl.max_section_rows and not fl.use_pallas_ota:
+        raise ValueError(
+            "fl.max_section_rows splits the slab engine's section layout "
+            "(use_pallas_ota=True); on the per-leaf path it would be "
+            "silently inert (DESIGN.md §4)")
 
 
 def shard_state(state, specs, mesh: Mesh, rank: Optional[int] = None,
@@ -206,34 +224,39 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
                    "trunk": model.trunk_specs()}
     omega_template = abstract_params(omega_specs)
     omega_axes = tree_leaves(logical_axes(omega_specs))
-    omega_gather, omega_pk = make_packed_omega_gather(
-        mesh, data_axes, cluster_axes, n_clients, n_shards, compute_dtype,
-        omega_template, omega_axes, n_clusters=n_total_clusters,
-        count_mode=count_mode, sections=fl.ota_sections,
-        min_section_rows=fl.min_section_rows,
-        max_section_rows=fl.max_section_rows, sectioned=fl.ota_sectioned)
     omega_fsdp = [_fsdp_axis_full(ax) for ax in omega_axes]
-    slab_local_len = sum(
-        math.prod(l.shape) // (n_shards if ax >= 0 else 1)
-        for l, ax in zip(tree_leaves(omega_template), omega_fsdp))
+    use_slab = fl.use_pallas_ota
+    if use_slab:
+        # the whole shared model rides one multi-section slab gather
+        omega_gather, omega_pk = make_packed_omega_gather(
+            mesh, data_axes, cluster_axes, n_clients, n_shards,
+            compute_dtype, omega_template, omega_axes,
+            n_clusters=n_total_clusters, count_mode=count_mode,
+            sections=fl.ota_sections, min_section_rows=fl.min_section_rows,
+            max_section_rows=fl.max_section_rows, sectioned=fl.ota_sectioned)
+        slab_local_len = sum(
+            math.prod(l.shape) // (n_shards if ax >= 0 else 1)
+            for l, ax in zip(tree_leaves(omega_template), omega_fsdp))
+    else:
+        # the per-leaf oracle: one OTA gather per leaf through the hook
+        leaf_gather = make_ota_gather(mesh, data_axes, cluster_axes,
+                                      n_clients, n_shards, compute_dtype,
+                                      mode=fl.ota_mode)
+        registry = build_axes_registry(model)
+        final_fsdp = [_fsdp_axis_full(ax) for ax in registry["final"]]
 
     def loss_fn(head, feats, labels):
         return cls_head_loss(head, model.head_apply, feats, labels)
 
     # ---------------- layouts ----------------
-    def fsdp_spec(axes):
-        ax = _fsdp_axis_full(axes)
-        if ax < 0:
-            return ()
-        return tuple(data_axes if d == ax else None for d in range(ax + 1))
-    omega_layout = tree_unflatten(omega_specs,
-                                  [fsdp_spec(a) for a in omega_axes])
+    omega_layout = shard_specs_for(model, mesh)
     per_client = (client_axes,)
     heads_layout = tree_map(lambda _: per_client, head_specs)
     slab_spec = (data_axes,)
     state_specs = HotaState(
         omega=omega_layout,
-        opt=SlabAdamState(step=(), mu=slab_spec, nu=slab_spec),
+        opt=(SlabAdamState(step=(), mu=slab_spec, nu=slab_spec) if use_slab
+             else AdamState(step=(), mu=omega_layout, nu=omega_layout)),
         heads=heads_layout,
         head_opt=AdamState(step=(), mu=heads_layout, nu=heads_layout),
         p=per_client, fgn_mu=per_client, fgn_nu=per_client, fgn_t=(),
@@ -259,9 +282,10 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
         zeros = lambda t: tree_map(torch.zeros_like, t)   # noqa: E731
         state = HotaState(
             omega=omega,
-            opt=SlabAdamState(step=i32,
-                              mu=torch.zeros(n_shards * slab_local_len),
-                              nu=torch.zeros(n_shards * slab_local_len)),
+            opt=(SlabAdamState(step=i32,
+                               mu=torch.zeros(n_shards * slab_local_len),
+                               nu=torch.zeros(n_shards * slab_local_len))
+                 if use_slab else adam_init(omega)),
             heads=heads,
             head_opt=AdamState(step=i32, mu=zeros(heads), nu=zeros(heads)),
             p=torch.ones(n_total_clients), fgn_mu=zc, fgn_nu=zc.clone(),
@@ -324,19 +348,32 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
             f0 = f0_i
         else:
             # ---- phase 0: trunk features (ω frozen; broadcast = gather)
-            omega_full0 = plain_gather_full(state.omega, omega_fsdp, mesh,
-                                            data_axes, compute_dtype)
-            if partc is not None:
-                # the stale copy rides the same gather; a straggler sees
-                # it for the whole round (the sim's per-client select)
-                stale_full = plain_gather_full(state.omega_stale,
-                                               omega_fsdp, mesh, data_axes,
-                                               compute_dtype)
-                omega_full0 = tree_map(
-                    lambda f, o: torch.where(stale_me > 0.5, o, f),
-                    omega_full0, stale_full)
-            hidden = model.trunk_apply(omega_full0["trunk"], tokens)
-            final_full = omega_full0["final"]
+            if use_slab:
+                omega_full0 = plain_gather_full(state.omega, omega_fsdp,
+                                                mesh, data_axes,
+                                                compute_dtype)
+                if partc is not None:
+                    # the stale copy rides the same gather; a straggler
+                    # sees it for the whole round (the sim's per-client
+                    # select)
+                    stale_full = plain_gather_full(
+                        state.omega_stale, omega_fsdp, mesh, data_axes,
+                        compute_dtype)
+                    omega_full0 = tree_map(
+                        lambda f, o: torch.where(stale_me > 0.5, o, f),
+                        omega_full0, stale_full)
+                hidden = model.trunk_apply(omega_full0["trunk"], tokens)
+                final_full = omega_full0["final"]
+            else:
+                # the per-leaf hook's forward (its backward never runs)
+                hidden = model.trunk_apply(
+                    state.omega["trunk"], tokens,
+                    param_hook=make_param_hook(
+                        leaf_gather, registry, base_key,
+                        torch.ones((), device=dev), chan_c))
+                final_full = plain_gather_full(
+                    state.omega["final"], final_fsdp, mesh, data_axes,
+                    compute_dtype)
 
             def tail_loss(ff, hd):
                 return loss_fn(hd, model.final_apply(ff, hidden), labels)
@@ -357,9 +394,15 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
                 F_i = tail_loss(ff, head)
                 g_final = torch.autograd.grad(F_i, tree_leaves(ff))
             F_i = F_i.detach()
-            n_i = sectioned_final_norm(
-                tree_unflatten(ff, list(g_final)),
-                packed_omega_key(base_key), chan_c, cidx, omega_pk)
+            g_final = tree_unflatten(ff, list(g_final))
+            if use_slab:
+                n_i = sectioned_final_norm(g_final, packed_omega_key(base_key),
+                                           chan_c, cidx, omega_pk)
+            else:
+                n_i = _masked_final_norm(g_final, registry["final"],
+                                         base_key, chan_c,
+                                         fl.ota_mode == "scatter", cidx,
+                                         n_clients)
             f0 = torch.where(state.step == 0, F_i, f0_i)
             ratio = F_i / torch.clamp(f0, min=1e-12)
             # Alg. 2, computed whatever the gate so the collectives stay
@@ -408,6 +451,9 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
                                torch.ones_like(stale_me))
             w_tx = w_tx * part_me * disc
             ctx_live, ctx_n_eff = partc.live, partc.n_eff
+        if not use_slab:
+            leaf_hook = make_param_hook(leaf_gather, registry, base_key,
+                                        w_tx, chan_c)
         slab_ctx = OTACtx(
             p_weight=w_tx,
             key=packed_omega_key(base_key),
@@ -433,12 +479,17 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
         g_sum, loss_sum = None, None
         for tok_mb, lab_mb in zip(tokens.chunk(n_mb), labels.chunk(n_mb)):
             with torch.enable_grad():
-                full = omega_gather(om, slab_ctx)
-                if stale_full is not None:
-                    full = tree_map(st_sel, full, stale_full)
-                h = model.trunk_apply(full["trunk"], tok_mb)
-                loss = loss_fn(hd, model.final_apply(full["final"], h),
-                               lab_mb)
+                if use_slab:
+                    full = omega_gather(om, slab_ctx)
+                    if stale_full is not None:
+                        full = tree_map(st_sel, full, stale_full)
+                    h = model.trunk_apply(full["trunk"], tok_mb)
+                    ff = full["final"]
+                else:
+                    h = model.trunk_apply(om["trunk"], tok_mb,
+                                          param_hook=leaf_hook)
+                    ff = leaf_hook(om["final"], "final")
+                loss = loss_fn(hd, model.final_apply(ff, h), lab_mb)
                 g = torch.autograd.grad(loss, tree_leaves(om)
                                         + tree_leaves(hd))
             g_sum = list(g) if g_sum is None else [
@@ -451,10 +502,12 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
         g_omega = tree_unflatten(om, g_sum[:n_om])
         g_head = tree_unflatten(hd, g_sum[n_om:])
 
-        # the PS update on the slab view of this rank's shards
-        omega, opt = slab_adam_update(
-            g_omega, state.opt, state.omega, tcfg.lr, tcfg.betas[0],
-            tcfg.betas[1], tcfg.eps, tcfg.weight_decay)
+        # the PS update on this rank's shards: the slab view, or the tree
+        # Adam of the per-leaf oracle
+        update = slab_adam_update if use_slab else adam_update
+        omega, opt = update(g_omega, state.opt, state.omega, tcfg.lr,
+                            tcfg.betas[0], tcfg.betas[1], tcfg.eps,
+                            tcfg.weight_decay)
         # Alg. 1 trains heads in the τ_h phase only; with τ_h = 0 they
         # train on the phase-C gradient instead, for every scenario
         if fl.tau_h == 0:
@@ -551,3 +604,21 @@ def make_hota_train_step(model: Model, mesh: Mesh, fl: FLConfig,
         return parts.step(state, tokens, labels, key, chan, faults)
 
     return parts.init_fn, step_fn, parts.state_specs, parts.batch_spec
+
+
+def _masked_final_norm(g_final, axes_list, base_key, chan_c: ChannelParams,
+                       scatter_mode: bool, cluster: int,
+                       n_clients: int) -> torch.Tensor:
+    """n_i = ‖M ∘ ∇_{ω̃}F_i‖ (eq. 6) on the per-leaf oracle, with the masks
+    its transmission draws (per region in scatter mode:
+    ``full_transmission_mask`` follows the gather backward's keys)."""
+    total = None
+    for i, (g, axes) in enumerate(zip(tree_leaves(g_final), axes_list)):
+        mask = full_transmission_mask(
+            fold_tags(base_key, "final", (), i), g.shape, _fsdp_axis(axes),
+            n_clients, chan_c.sigma2, chan_c.h_threshold, chan_c.ota_on,
+            cluster, scatter_mode, g.device)
+        g32 = g.to(torch.float32)
+        term = torch.sum(torch.where(mask, g32, torch.zeros_like(g32)) ** 2)
+        total = term if total is None else total + term
+    return torch.sqrt(total)

@@ -2,7 +2,8 @@
 
 Port of ``repro.core.ota``: the reserved fold registry and key schedule
 (DESIGN.md §4), the round's fault participation (``draw_participation``,
-DESIGN.md §3.14), the chunk-quantized section streams, the eq.-5 masks
+DESIGN.md §3.14) and client sample (``draw_client_sample``, §3.15), the
+chunk-quantized section streams, the eq.-5 masks
 (``final_layer_masks_packed``, and ``final_layer_masks`` for the per-leaf
 oracle) and the aggregation engines:
 
@@ -98,6 +99,30 @@ def participation_key(key) -> torch.Tensor:
     blackout, straggler) folds off it, in a reserved domain disjoint from
     every channel stream (DESIGN.md §4)."""
     return rng.fold_in(key, PART_FOLD)
+
+
+def sample_key(key) -> torch.Tensor:
+    """The round's client-sample key (DESIGN.md §4): the id draw that
+    fills each (cluster, slot) position from its subpopulation folds off
+    it, in a reserved domain disjoint from every channel and participation
+    stream, so resampling moves no mask, noise or fault draw."""
+    return rng.fold_in(key, SAMPLE_FOLD)
+
+
+def draw_client_sample(key, n_clusters: int, n_clients: int,
+                       population: int, device=None) -> torch.Tensor:
+    """(C, N) int32 ids in [0, population) on ``device`` (default: the
+    host): which member of each (cluster, slot) subpopulation takes part
+    this round (DESIGN.md §3.15), equal to the reference's
+    ``jax.random.randint(sample_key(key), (C, N), 0, population)`` in
+    both threefry layouts. A pure function of the round key: O(C·N) work
+    whatever the population, and a host can recompute it without state.
+    Both words of every id come from one stream-draw launch
+    (``ops.bits`` over the (2, 2) table of ``split(sample_key(key))``)."""
+    cn = n_clusters * n_clients
+    words = bits(rng.split(sample_key(key), 2), cn, device)
+    ids = rng.randint_from_words(words[0], words[1], 0, population)
+    return ids.reshape(n_clusters, n_clients)
 
 
 class Participation(NamedTuple):

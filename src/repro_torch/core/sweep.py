@@ -14,8 +14,13 @@ every scenario each round:
 * states and metrics carry the reference's leading (S,) axis.
 
 The reference vmaps the step over the scenarios; here the scenarios run
-one after another on views of the banked state, and the new states are
-stacked again. On the client-folded engine the round's streams are drawn
+one after another on views of the banked state, and the leaves each
+round replaces are stacked again. A leaf that a round writes in place
+(the population bank of a ``SampledHotaSim``: its scatter updates the
+scenario's view of the stacked bank) is kept as it is, so a round over a
+sampled sim moves O(C·N) rows of the bank, not the bank, and the step
+consumes the input state as the sampled sim's own step does. On the
+client-folded engine the round's streams are drawn
 once per round and read by every scenario (the reference's
 ``ota_bits_mode="supplied"``): the draw is the largest part of a round.
 The streaming and sectioned engines draw inside each scenario's step, one
@@ -56,6 +61,7 @@ from repro_torch.core.channel import (
     scenario_channel, scenario_faults, stack_channel_params,
     stack_fault_params,
 )
+from repro_torch.core.sampling import SampledHotaSim, SampledSimState
 from repro_torch.core.sim import HotaSim, SimState
 
 # the ONLY FLConfig fields a scenario may vary (the reference's set): the
@@ -131,9 +137,20 @@ def _as_fault_params(sc: Scenario, base: FLConfig,
     return fault_params(sc, device=device)
 
 
+def _restack(stacked: torch.Tensor, *rows: torch.Tensor) -> torch.Tensor:
+    """One leaf of the bank after a round: ``stacked`` itself where every
+    scenario's new value is its own view of it (written in place), else
+    the scenarios' new values stacked."""
+    if all(r.data_ptr() == v.data_ptr() and r.shape == v.shape
+           and r.stride() == v.stride()
+           for r, v in zip(rows, stacked.unbind(0))):
+        return stacked
+    return torch.stack(rows)
+
+
 class ScenarioBank:
     """An (S,)-batched bank of channel (and fault) scenarios over one
-    ``HotaSim``.
+    ``HotaSim`` or ``SampledHotaSim``.
 
     >>> bank = ScenarioBank(sim, [dict(weighting="equal"),
     ...                           dict(sigma2=(0.05, 1.0)), base_fl])
@@ -142,7 +159,8 @@ class ScenarioBank:
     >>> m["loss"].shape      # (S, C, N)
     """
 
-    def __init__(self, sim: HotaSim, scenarios: Sequence[Scenario]):
+    def __init__(self, sim: Union[HotaSim, SampledHotaSim],
+                 scenarios: Sequence[Scenario]):
         self.sim = sim
         self.chan_bank = stack_channel_params(
             [_as_channel_params(sc, sim.fl, sim.device) for sc in scenarios])
@@ -175,8 +193,10 @@ class ScenarioBank:
         y = torch.as_tensor(yb).to(device=sim.device, dtype=torch.int64)
         streams = None
         if sim.draws_streams_at_once:
-            streams = sim.round_streams(
-                key, self.scenario_state(states.omega, 0))
+            inner = states.sim if isinstance(states, SampledSimState) \
+                else states
+            streams = sim.round_streams(key, self.scenario_state(
+                inner.omega, 0))
         new, metrics = [], []
         for s in range(self.n_scenarios):
             st, m = sim.step_with_channel(
@@ -186,7 +206,7 @@ class ScenarioBank:
                 faults=scenario_faults(self.fault_bank, s))
             new.append(st)
             metrics.append(m)
-        return (state_map(lambda *xs: torch.stack(xs), *new),
+        return (state_map(_restack, states, *new),
                 {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]})
 
     # ------------------------------------------------------------------

@@ -404,6 +404,9 @@ def launch_chunked(keys: torch.Tensor, start: int, out: torch.Tensor):
     return out
 
 
+MAX_DRAW_KEYS = 65535     # keys of one draw launch (a grid dimension)
+
+
 def launch_flat(keys: torch.Tensor, out: torch.Tensor):
     """Launch the flat draw on prepared CUDA operands: ``keys`` (K, 2)
     int32 bit patterns, ``out`` (K, n) int32 as above: ``bits(key, n)``
@@ -428,8 +431,9 @@ def _check_draw(keys: torch.Tensor, out: torch.Tensor, n_keys: int) -> None:
         raise ValueError(f"keys must be a contiguous ({n_keys}, 2) int32 "
                          f"CUDA tensor")
     _check_rows("out", out, tuple(out.shape), torch.int32, out.device)
-    if n_keys > 65535:
-        raise ValueError(f"{n_keys} keys: one launch draws at most 65535")
+    if n_keys > MAX_DRAW_KEYS:
+        raise ValueError(f"{n_keys} keys: one launch draws at most "
+                         f"{MAX_DRAW_KEYS}")
 
 
 def launch_stream(keys, start: int, length: int, device) -> torch.Tensor:

@@ -82,14 +82,25 @@ class Model:
 
     # ---------------- apply ----------------
     def trunk_apply(self, params, inputs: torch.Tensor, *, positions=None,
-                    mode: str = "prefill", cache=None, cache_len=None):
+                    mode: str = "prefill", cache=None, cache_len=None,
+                    param_hook=None):
         """``mlp``: the trunk's features. ``dense``: (hidden, aux,
-        new_cache) as in the reference."""
+        new_cache) as in the reference. ``param_hook(params, klass,
+        *tags)`` (the distributed per-leaf oracle,
+        ``core.hota.make_param_hook``) sees the ``mlp`` trunk's parameters
+        as one "layers" call right before they are used."""
         if not self.is_lm:
+            if param_hook is not None:
+                params = param_hook(params, "layers")
             h = inputs
             for i in range(len(self.dims) - 2):
                 h = torch.relu(_dense(h, params[f"fc{i}"]))
             return h
+        if param_hook is not None:
+            raise NotImplementedError(
+                "param_hook on the dense trunk (the distributed per-leaf "
+                "step of an LM) waits for LM training: ROADMAP Queue 1, "
+                "item 14.1")
         if positions is None:
             positions = torch.arange(inputs.shape[1], device=inputs.device)
         return T.dense_trunk_apply(params, inputs, self.cfg,

@@ -27,7 +27,7 @@ import torch
 
 from repro_torch import rng
 from repro_torch.common.tree import tree_leaves, tree_unflatten
-from repro_torch.kernels.ota_channel.ops import bits
+from repro_torch.kernels.ota_channel.ops import MAX_DRAW_KEYS, bits
 
 # entries of a normal leaf turned from words into floats at a time (the
 # float64 fused multiply-add of ``rng.uniform`` needs 48 bytes per entry)
@@ -57,16 +57,27 @@ def _fan_in(shape: Tuple[int, ...]) -> int:
 
 def _normal(key, shape, device) -> torch.Tensor:
     """``rng.normal(key, shape)`` for each key of a (..., 2) table, its
-    words drawn on ``device`` (the card's stream kernel there) and turned
-    into floats a slice at a time."""
+    words drawn on ``device`` (the card's stream kernel there). The keys
+    are drawn a slice of rows at a time (at most ``MAX_DRAW_KEYS``, one
+    launch's) and the words turned into floats a slice at a time, so the
+    transient word buffers stay near ``_NORMAL_SLICE`` entries however
+    many keys the table holds (a population bank's heads: one key per
+    client). Each key's words
+    depend on that key alone, so the values are those of one draw."""
     n = math.prod(shape)
-    words = bits(key, n, device=device)
-    out = torch.empty(words.shape, dtype=torch.float32, device=words.device)
-    flat_w, flat_o = words.reshape(-1), out.reshape(-1)
-    for a in range(0, flat_w.numel(), _NORMAL_SLICE):
-        sl = slice(a, a + _NORMAL_SLICE)
-        flat_o[sl] = rng.normal_from_words(flat_w[sl])
-    return out.reshape(words.shape[:-1] + tuple(shape))
+    batch = tuple(key.shape[:-1])
+    keys = key.reshape(-1, 2)
+    out = torch.empty((keys.shape[0], n), dtype=torch.float32,
+                      device=device)
+    rows = min(max(1, _NORMAL_SLICE // max(n, 1)), MAX_DRAW_KEYS)
+    for r in range(0, keys.shape[0], rows):
+        flat_w = bits(keys[r:r + rows], n, device=device).reshape(-1)
+        flat_o = out[r:r + rows].reshape(-1)
+        for a in range(0, flat_w.numel(), _NORMAL_SLICE):
+            sl = slice(a, a + _NORMAL_SLICE)
+            flat_o[sl] = rng.normal_from_words(flat_w[sl])
+        del flat_w
+    return out.reshape(batch + tuple(shape))
 
 
 def init_params(specs, key, device="cpu"):

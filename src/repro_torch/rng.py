@@ -215,8 +215,18 @@ def randint(key, shape, minval, maxval, device=None) -> torch.Tensor:
     ``shape``) are clipped to int32 first."""
     shape = tuple(int(d) for d in shape)
     k = split(key, 2)
-    hi = _shaped_bits(k[..., 0, :], shape, device)
-    lo = _shaped_bits(k[..., 1, :], shape, device)
+    return randint_from_words(_shaped_bits(k[..., 0, :], shape, device),
+                              _shaped_bits(k[..., 1, :], shape, device),
+                              minval, maxval)
+
+
+def randint_from_words(hi: torch.Tensor, lo: torch.Tensor, minval,
+                       maxval) -> torch.Tensor:
+    """``randint``'s int32 values from its two words per value: ``hi``
+    drawn under the first key of ``split(key)``, ``lo`` under the second
+    (any int tensors holding the uint32 bit patterns)."""
+    hi = hi.to(torch.int64) & MASK32
+    lo = lo.to(torch.int64) & MASK32
     lo_v = torch.as_tensor(minval, dtype=torch.int64, device=hi.device)
     hi_v = torch.as_tensor(maxval, dtype=torch.int64, device=hi.device)
     out_of_range = hi_v > _INT32_MAX

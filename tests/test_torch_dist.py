@@ -39,7 +39,7 @@ Cases and tolerances:
   tolerances above (the stale copy as ω); zero-rate faults against the
   unfaulted steps bit for bit; total blackout freezes the whole state bit
   for bit (only ``step`` advances);
-- the refusals, by name.
+- the refusals, by name (the reference's own, and the LM loss).
 """
 import os
 import pickle
@@ -671,12 +671,18 @@ def test_blackout_freezes_the_whole_state(runs, mode):
             assert torch.equal(a, b), f"rank {r}"
 
 
+# the per-leaf oracle and the sectioned schedule run now
+# (tests/test_torch_dist_sched.py); their cases pin the reference's own
+# refusals of the combinations that would leave a flag silently inert
 REFUSALS = {
-    "per_leaf": (dict(use_pallas_ota=False), {}, "item 13"),
+    "per_leaf": (dict(use_pallas_ota=False, ota_sectioned=True), {},
+                 "requires the slab engine"),
     "faults": (dict(faults=True, use_pallas_ota=False), {},
                "requires the slab engine"),
-    "sectioned": (dict(ota_sectioned=True), {}, "item 13"),
-    "max_section_rows": (dict(max_section_rows=64), {}, "item 13"),
+    "sectioned": (dict(ota_sectioned=True, ota_sections="tail"), {},
+                  "multi-section layout"),
+    "max_section_rows": (dict(max_section_rows=64, use_pallas_ota=False), {},
+                         "splits the slab engine"),
     "lm_loss": ({}, dict(loss_kind="lm"), "item 14.1"),
     "streaming": (dict(ota_streaming=True), {}, "SIMULATOR engine"),
 }
