@@ -222,16 +222,50 @@ imports only ``repro_torch`` (never ``jax`` or the JAX package) and runs:
    modes, bit for bit against the full-slab step of the same layout on
    the same ranks (at 0, phase 19's step), ``DIST_LEAVES`` K6 or K5
    launches per rank per step as the full-slab step, and each one's peak
-   memory per rank.
+   memory per rank;
+29. LM training's pieces at ``lm-100m``'s width
+   (``experiments/train_lm_federated.LM_100M``: B=4, S=128, 8 heads over
+   4, D=80, attention blocks 64/64), each on the card against the CPU,
+   float32, TF32 off: ``blocked`` and ``folded`` attention forward and
+   backward (rtol ``LM_RTOL`` with an atol of rtol times the largest
+   entry), StarCoder2-3B's smoke window (32 in blocks of 16: whole key
+   blocks masked) with finite gradients, ``chunked_lm_loss`` in one piece
+   (S=128) and in recomputed chunks (S=1024; loss rtol ``LM_RTOL``,
+   gradients relative L2 1e-4), and one ``lm-100m`` train-mode forward and
+   backward with no FL (loss rtol ``LM_RTOL``, gradient relative L2 1e-3)
+   and its time;
+30. the distributed LM step at ``lm-100m``'s full depth and width on
+   phase 19's four ranks sharing the card, the example's FL settings
+   (FedGradNorm, noise std 0.5, lr 3e-4), 4 sequences of 128 tokens per
+   client from the example's skewed streams: per count mode
+   ``LM_WARMUP`` warm-up and ``LM_STEPS`` counted steps (``LM_LEAVES``
+   K6 launches per rank per step and microbatch in "local", as many K5
+   in "psum", nothing else, 0 plain draws; finite metrics, the loss lower at the end
+   than at the first step, p_mean·N within 1e-3 of N; the modes bit for
+   bit), one 2-microbatch step and one per-leaf ("scatter") step, each
+   step's time barrier to barrier and tokens per second, a "local" step
+   split by ``MeshStats``, the peak memory per rank; then one step of an
+   ``LM_CUT``-layer cut at the same width on the card ranks against four
+   CPU ranks from the same initial state (metrics and p rtol ``LM_RTOL``,
+   ω relative L2 1e-3); K6 and K5 at the model's 11 leaves (one rank's
+   launches of one step) equal to their plain versions, timed beside
+   their byte bounds and plain versions;
+31. ``python -m repro_torch.launch.train --arch starcoder2-3b --steps 3
+   --mesh 2,2,1`` as a subprocess, once with the layout tuner (its cache
+   in a temporary directory) and once with ``--faults --ckpt-dir <tmp>
+   --ckpt-every 1``: finite loss lines for steps 0 and 2, the layout
+   line, the participation in the faulted lines, the full state of step
+   2 and the final ω of step 3 restored from its checkpoints.
 
 Every counted run also counts the stream draws: the card's two draw
 kernels and the plain draw, which must stay at 0 on the card.
 
 Any failure exits non-zero. The line before last is the card's name and
 power limit, the one before it the kernels' JSON (K1, K2, K5, K3, K4, K8,
-K6, K7 and the two stream draws; each kernel's ``launches`` sums its
+K6, K7 and the two stream draws, K5 and K6 also with one rank's step of
+``lm-100m``, ``lm100m_step_ms``; each kernel's ``launches`` sums its
 counts over the main-path runs of phases 5, 9, 11, 12, 13, 16, 19, 20,
-21, 22 and 24-28, over all ranks, and a kernel never launched there fails
+21, 22, 24-28 and 30, over all ranks, and a kernel never launched there fails
 the run; K1, K2, K5 and K6 also carry their fault-mode error); the last
 line is
 ``{"ok": true, "device": {...}}``. An earlier ``[record]`` line holds every
@@ -326,6 +360,16 @@ SAMPLE_BENCH_ROUNDS = 10      # sample_bench rounds per row, interleaved
 PERLEAF_MODES = ("scatter", "naive")
 SPLIT_SECTION_ROWS = 4096     # phase 28: splits the Table-I fc2 section
 DIST_BENCH_STEPS = 5          # dist_bench timed steps per engine
+
+# phases 29-31: LM training (experiments/train_lm_federated.py's lm-100m)
+LM_BATCH = 4                  # sequences per client
+LM_SEQ = 128                  # tokens per sequence
+LM_RTOL = 1e-4                # card against CPU, float32, TF32 off
+LM_WARMUP = 1                 # warm-up steps per count mode
+LM_STEPS = 5                  # counted steps per count mode
+LM_LEAVES = 11                # K6 (or K5) launches per rank per step
+LM_CUT = 2                    # layers of the cut held against CPU ranks
+LAUNCH_STEPS = 3              # launch.train steps (the smoke config)
 
 # the stream draws (phase 10): the card's kernel and the plain draw
 DRAW_NAMES = ("threefry_chunked", "threefry_flat", "stream_draw_plain")
@@ -3252,6 +3296,563 @@ def dist_sectioned_phase(dev, record):
     return total
 
 
+# --------------------------------------------------------------------------
+# phases 29-31: LM training: the pieces, the distributed LM step at full
+# size, the training launcher
+# --------------------------------------------------------------------------
+
+def _close_scaled(name, got, want, rtol) -> float:
+    """Elementwise rtol with an atol of rtol times the largest entry (the
+    two devices sum in other orders); the max abs error."""
+    import torch
+    got, want = got.float().cpu(), want.float().cpu()
+    if not torch.isfinite(got).all():
+        fail(f"{name}: non-finite values on the card")
+    err = (got - want).abs()
+    lim = rtol * want.abs() + rtol * float(want.abs().max())
+    if bool((err > lim).any()):
+        fail(f"{name}: {int((err > lim).sum())} entries outside rtol {rtol};"
+             f" max abs err {float(err.max()):.3e}")
+    return float(err.max())
+
+
+def _attention_case(dev, name, impl, shape, window, blocks, record):
+    """Training attention forward and backward on the card against the
+    CPU (float32, rtol ``LM_RTOL`` scaled as ``_close_scaled``)."""
+    import torch
+    from repro_torch.models import layers as L
+    b, s, h, kv, d = shape
+    gen = torch.Generator().manual_seed(sum(shape) + (window or 0))
+    q, k, v, ct = (torch.randn(sz, generator=gen) for sz in (
+        (b, s, h, d), (b, s, kv, d), (b, s, kv, d), (b, s, h, d)))
+
+    def run(device):
+        ts = [t.detach().to(device).requires_grad_(True) for t in (q, k, v)]
+        pos = torch.arange(s, device=device)
+        out = L.attention(*ts, pos_q=pos, pos_kv=pos, impl=impl,
+                          window=window, block_q=blocks[0],
+                          block_kv=blocks[1])
+        (out * ct.to(device)).sum().backward()
+        return [out.detach()] + [t.grad for t in ts]
+    got, want = run(dev), run("cpu")
+    errs = [_close_scaled(f"{name} {part}", g, w, LM_RTOL)
+            for part, g, w in zip(("out", "dq", "dk", "dv"), got, want)]
+    ms = host_ms(lambda: run(dev))
+    record[name] = {"shape": list(shape), "window": window,
+                    "blocks": list(blocks), "max_abs_err": max(errs),
+                    "fwd_bwd_ms": ms}
+    log(f"[lm attention] {name} {impl} B,S,H,KV,D={shape} window {window} "
+        f"blocks {blocks}: card vs CPU max abs err {max(errs):.3e} (out, dq,"
+        f" dk, dv finite); forward + backward {ms:.2f} ms")
+
+
+def lm_pieces_phase(dev, record):
+    """Phase 29: the training pieces on the card at ``lm-100m``'s width,
+    each against the CPU, TF32 off."""
+    import torch
+    from repro_torch import configs, rng
+    from repro_torch.common.tree import tree_leaves, tree_unflatten
+    from repro_torch.core.hota_step import LOSS_CHUNK, chunked_lm_loss
+    from repro_torch.data.lm import synthetic_lm_batches
+    from repro_torch.experiments.train_lm_federated import LM_100M
+    from repro_torch.models.model import build_model, lm_loss
+    from repro_torch.models.params import init_params
+    rec = {}
+    cfg = LM_100M
+    shape = (LM_BATCH, LM_SEQ, cfg.n_heads, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    blocks = (cfg.attn_block_q, cfg.attn_block_kv)
+    _attention_case(dev, "blocked", "blocked", shape, None, blocks, rec)
+    _attention_case(dev, "folded", "folded", shape, None, blocks, rec)
+    sc2 = configs.get_smoke_config("starcoder2_3b")
+    # window 32 in blocks of 16: the band's first key block is masked whole
+    # for the last half of each query block
+    _attention_case(dev, "blocked_sc2_window", "blocked",
+                    (LM_BATCH, LM_SEQ, sc2.n_heads, sc2.n_kv_heads,
+                     sc2.resolved_head_dim), sc2.sliding_window,
+                    (sc2.attn_block_q, sc2.attn_block_kv), rec)
+
+    # chunked_lm_loss: one piece at S = 128, two recomputed chunks at 1024
+    gen = torch.Generator().manual_seed(29)
+    w = torch.randn((cfg.d_model, cfg.vocab_size), generator=gen) \
+        / math.sqrt(cfg.d_model)
+    model = build_model(cfg)
+    for b, s in ((LM_BATCH, LM_SEQ), (1, 2 * LOSS_CHUNK)):
+        feats = torch.randn((b, s, cfg.d_model), generator=gen)
+        labels = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+
+        def run(device):
+            hd = {"w": w.detach().to(device).requires_grad_(True)}
+            f = feats.detach().to(device).requires_grad_(True)
+            loss = chunked_lm_loss(hd, model.head_apply, f,
+                                   labels.to(device))
+            loss.backward()
+            return loss.detach().cpu(), hd["w"].grad.cpu(), f.grad.cpu()
+        got, want = run(dev), run("cpu")
+        if abs(float(got[0]) - float(want[0])) > LM_RTOL * abs(
+                float(want[0])):
+            fail(f"chunked_lm_loss S={s}: card {float(got[0])} vs CPU "
+                 f"{float(want[0])}")
+        errs = [rel_l2(g, w_) for g, w_ in zip(got[1:], want[1:])]
+        if max(errs) > 1e-4 or not all(torch.isfinite(g).all()
+                                       for g in got[1:]):
+            fail(f"chunked_lm_loss S={s}: gradients card vs CPU relative L2 "
+                 f"{errs}")
+        rec[f"chunked_lm_loss_S{s}"] = {"loss": float(got[0]),
+                                        "loss_cpu": float(want[0]),
+                                        "grad_rel_l2": errs}
+        log(f"[lm loss] chunked_lm_loss B={b} S={s} "
+            f"({'chunks of %d' % LOSS_CHUNK if s > LOSS_CHUNK else 'whole'}"
+            f"): card {float(got[0]):.6f} vs CPU {float(want[0]):.6f}; "
+            f"gradient relative L2 (head, feats) {errs}")
+
+    # one lm-100m train-mode forward and backward, no FL
+    keys = rng.split(rng.PRNGKey(29), 3)
+    backbone = {"trunk": init_params(model.trunk_specs(), keys[0],
+                                     device=dev),
+                "final": init_params(model.final_specs(), keys[1],
+                                     device=dev)}
+    head = init_params(model.head_specs(), keys[2], device=dev)
+    toks, labs = next(synthetic_lm_batches(cfg.vocab_size, LM_BATCH,
+                                           LM_SEQ, seed=29))
+
+    def fwd_bwd(device):
+        leaves = [t.detach().to(device).requires_grad_(True)
+                  for t in tree_leaves(backbone) + tree_leaves(head)]
+        n_bb = len(tree_leaves(backbone))
+        bb = tree_unflatten(backbone, leaves[:n_bb])
+        hd = tree_unflatten(head, leaves[n_bb:])
+        logits, aux, _ = model.forward_logits(
+            bb, hd, torch.from_numpy(toks).long().to(device), mode="train")
+        loss = lm_loss(logits, torch.from_numpy(labs).to(device)) + aux
+        grads = torch.autograd.grad(loss, leaves)
+        return float(loss.detach()), grads
+    loss_g, grads_g = fwd_bwd(dev)
+    card_ms = host_ms(lambda: fwd_bwd(dev))
+    loss_c, grads_c = fwd_bwd("cpu")
+    g_g = torch.cat([g.reshape(-1).cpu() for g in grads_g])
+    g_c = torch.cat([g.reshape(-1) for g in grads_c])
+    err = rel_l2(g_g, g_c)
+    if abs(loss_g - loss_c) > LM_RTOL * abs(loss_c) or err > 1e-3 \
+            or not bool(torch.isfinite(g_g).all()):
+        fail(f"lm-100m train forward/backward: loss card {loss_g} vs CPU "
+             f"{loss_c}, gradient relative L2 {err:.3e}")
+    rec["lm100m_fwd_bwd"] = {"loss": loss_g, "loss_cpu": loss_c,
+                             "grad_rel_l2": err, "card_ms": card_ms}
+    log(f"[lm train] lm-100m (12 layers, d_model 640, vocab 32000) B="
+        f"{LM_BATCH} S={LM_SEQ} train-mode forward + backward: loss card "
+        f"{loss_g:.6f} vs CPU {loss_c:.6f}, gradient relative L2 "
+        f"{err:.3e} over {g_g.numel()} entries; {card_ms:.2f} ms on the card")
+    record["lm_pieces"] = rec
+
+
+def _lm_setup(mesh, n_layers):
+    """``lm-100m`` (cut to ``n_layers`` when given), its FL config, and
+    the client streams' batches for this rank."""
+    from repro_torch.common.config import FLConfig, TrainConfig
+    from repro_torch.experiments.train_lm_federated import (
+        FL, LM_100M, LR, client_streams, next_batch,
+    )
+    from repro_torch.models.model import build_model
+    cfg = LM_100M if n_layers is None else LM_100M.replace(
+        n_layers=n_layers)
+    streams = client_streams(cfg, LM_BATCH, LM_SEQ)
+    me = mesh.axis_index(("cluster", "client"))
+    rows = slice(me * LM_BATCH, (me + 1) * LM_BATCH)
+    batches = [tuple(x[rows] for x in next_batch(streams))
+               for _ in range(LM_WARMUP + LM_STEPS)]
+    return build_model(cfg), FLConfig(**FL), TrainConfig(lr=LR), batches
+
+
+def _lm_dist_rank(mesh, plans, init_states=None):
+    """One rank of phase 30: for each (depth cut, runs) plan, each run's
+    steps (``(name, FLConfig overrides, count mode, warm-up steps, counted
+    steps)``), counted and timed barrier to barrier; the count modes held
+    bit for bit in the rank; the peak memory; one "local" step split by
+    ``MeshStats``. ``init_states`` (the card ranks' initial states of the
+    cut) start the CPU ranks where the card's started."""
+    import dataclasses
+    import torch
+    from repro_torch import rng
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.core.hota_step import make_hota_train_step
+    from repro_torch.experiments.train_lm_federated import (
+        ROUND_KEY, SEED_KEY,
+    )
+    from repro_torch.sharding.collectives import MeshStats
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    if dev.type == "cpu":
+        torch.set_num_threads(CPU_RANK_THREADS)
+    counters = _dist_counters()
+    key = rng.PRNGKey(ROUND_KEY)
+    out = {"device": str(dev)}
+    for n_layers, runs in plans:
+        model, fl0, tcfg, batches = _lm_setup(mesh, n_layers)
+        kept = {}
+        for name, kw, mode, warm, steps in runs:
+            init_fn, step_fn, _, _ = make_hota_train_step(
+                model, mesh, dataclasses.replace(fl0, **kw), tcfg,
+                loss_kind="lm", count_mode=mode)
+            if init_states is not None:
+                st = to_device_state(init_states[mesh.rank], dev)
+            else:
+                st = init_fn(rng.PRNGKey(SEED_KEY))
+            rec = {}
+            if n_layers is not None and init_states is None:
+                rec["init"] = to_cpu(st)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            metrics, times = [], []
+            for s, (toks, labs) in enumerate(batches[:warm + steps]):
+                if s == warm:
+                    _sync(mesh)
+                    for ctr in counters:
+                        ctr.reset()
+                _sync(mesh)
+                t0 = time.perf_counter()
+                st, m = step_fn(st, toks, labs, key)
+                _sync(mesh)
+                if s >= warm:
+                    times.append((time.perf_counter() - t0) * 1e3)
+                metrics.append({k: float(v) for k, v in m.items()})
+            rec.update(launches={ctr.name: ctr.count for ctr in counters},
+                       metrics=metrics, step_ms=times,
+                       p=float(st.p[0]))
+            if dev.type == "cuda":
+                rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+            if n_layers is not None:
+                rec["omega"] = [l.cpu() for l in tree_leaves(st.omega)]
+            if name in ("local", "psum"):
+                kept[name] = (metrics, [t.clone() for t in tree_leaves(
+                    st.omega) + [st.opt.mu]])
+            if name == "local":
+                mesh.stats = MeshStats()
+                _sync(mesh)
+                t0 = time.perf_counter()
+                step_fn(st, *batches[0], key)
+                _sync(mesh)
+                rec["stats_step_ms"] = (time.perf_counter() - t0) * 1e3
+                rec["stats"] = {"seconds": mesh.stats.seconds,
+                                "calls": mesh.stats.calls,
+                                "bytes": mesh.stats.bytes}
+                mesh.stats = None
+            out[name] = rec
+            del st
+        if len(kept) == 2:
+            (ma, la), (mb, lb) = kept["local"], kept["psum"]
+            out["modes_equal"] = ma == mb and all(
+                torch.equal(a, b) for a, b in zip(la, lb))
+        del kept
+    return out
+
+
+def to_device_state(state, dev):
+    """A copy of a state (tensors, dicts, named tuples) on ``dev``."""
+    if state is None:
+        return None
+    if isinstance(state, dict):
+        return {k: to_device_state(v, dev) for k, v in state.items()}
+    if isinstance(state, tuple):
+        return type(state)(*[to_device_state(v, dev) for v in state])
+    return state.to(dev)
+
+
+LM_RUNS = (("local", {}, "local", LM_WARMUP, LM_STEPS),
+           ("psum", {}, "psum", LM_WARMUP, LM_STEPS),
+           ("mb2", {"microbatches": 2}, "local", 0, 1),
+           ("perleaf", {"use_pallas_ota": False, "ota_mode": "scatter"},
+            None, 0, 1))
+LM_CUT_RUNS = (("cut", {}, None, 0, 1),)
+
+
+def lm_dist_phase(dev, record):
+    """Phase 30: ``lm-100m`` at full depth and width on four ranks sharing
+    the card (2 clusters × 2 clients), the example's FL settings: each
+    count mode 1 warm-up and ``LM_STEPS`` counted steps, a 2-microbatch
+    step, a per-leaf step, and a ``LM_CUT``-layer cut's step against four
+    CPU ranks. Returns the counted launches over the ranks."""
+    import torch
+    from repro_torch.launch.mesh import run_ranks
+    torch.cuda.empty_cache()
+    world = DIST_SHAPE[0] * DIST_SHAPE[1]
+    t0 = time.perf_counter()
+    gpu = run_ranks(_lm_dist_rank, ([(None, LM_RUNS), (LM_CUT,
+                                                        LM_CUT_RUNS)],),
+                    shape=DIST_SHAPE, device="cuda", timeout_s=900)
+    gpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = run_ranks(_lm_dist_rank, ([(LM_CUT, LM_CUT_RUNS)],
+                                    [res["cut"]["init"] for res in gpu]),
+                    shape=DIST_SHAPE, device="cpu", timeout_s=900)
+    cpu_s = time.perf_counter() - t0
+    rec = {"card_run_s": gpu_s, "cpu_run_s": cpu_s,
+           "tokens_per_step": world * LM_BATCH * LM_SEQ}
+    per = {"local": "ota_mask_count", "psum": "ota_mask_weight"}
+    total = {}
+    for name, kw, mode, warm, steps in LM_RUNS + LM_CUT_RUNS:
+        for r, res in enumerate(gpu):
+            got = dict(res[name]["launches"])
+            draws = take_draws(f"lm dist {name} rank {r}", got)
+            want = {k: 0 for k in got}
+            if name != "perleaf":     # one launch per leaf per microbatch
+                want[per[mode or "local"]] = LM_LEAVES * steps * kw.get(
+                    "microbatches", 1)
+            if got != want:
+                fail(f"lm dist {name} rank {r}: launches {got}, expected "
+                     f"{want}")
+            for k, v in got.items():
+                total[k] = total.get(k, 0) + v
+            ms = res[name]["metrics"]
+            if not all(math.isfinite(v) for m in ms for v in m.values()):
+                fail(f"lm dist {name} rank {r}: non-finite metrics {ms}")
+            if abs(ms[-1]["p_mean"] * DIST_SHAPE[1] - DIST_SHAPE[1]) > 1e-3:
+                fail(f"lm dist {name} rank {r}: p_mean·N = "
+                     f"{ms[-1]['p_mean'] * DIST_SHAPE[1]}")
+        g0 = gpu[0][name]
+        rec[name] = {
+            "launches_per_rank": {k: v for k, v in g0["launches"].items()
+                                  if v},
+            "draws_per_rank_per_step": {k: v / steps for k, v in
+                                        draws.items()},
+            "losses": [m["loss"] for m in g0["metrics"]],
+            "step_ms": g0["step_ms"],
+            "step_ms_median": statistics.median(g0["step_ms"]),
+            "peak_bytes_per_rank": [res[name].get("peak_bytes") for res in gpu]}
+        rec[name]["tokens_per_s"] = rec["tokens_per_step"] / (
+            rec[name]["step_ms_median"] / 1e3)
+        log(f"[lm dist {name}] {warm} warm-up + {steps} counted steps: "
+            f"losses {['%.4f' % v for v in rec[name]['losses']]}; step "
+            f"median {rec[name]['step_ms_median']:.2f} ms (all "
+            f"{['%.2f' % t for t in g0['step_ms']]}), "
+            f"{rec[name]['tokens_per_s']:.1f} tokens/s; launches per rank "
+            f"{rec[name]['launches_per_rank']}, draws per rank per step "
+            f"{rec[name]['draws_per_rank_per_step']}; peak bytes per rank "
+            f"{rec[name]['peak_bytes_per_rank']}")
+    for mode in ("local", "psum"):
+        losses = rec[mode]["losses"]
+        if not losses[-1] < losses[0]:
+            fail(f"lm dist {mode}: the loss did not fall: {losses}")
+    for r, res in enumerate(gpu):
+        if not res["modes_equal"]:
+            fail(f"lm dist rank {r}: the count modes differ")
+    st = gpu[0]["local"]
+    split = {k: st["stats"]["seconds"].get(k, 0.0) * 1e3
+             for k in ("collective", "draw")}
+    rec["split"] = {
+        "step_ms": st["stats_step_ms"], "collective_ms": split["collective"],
+        "draw_ms": split["draw"],
+        "rest_ms": st["stats_step_ms"] - split["collective"]
+        - split["draw"],
+        "collective_calls": st["stats"]["calls"].get("collective", 0),
+        "collective_bytes": st["stats"]["bytes"].get("collective", 0),
+        "draw_calls": st["stats"]["calls"].get("draw", 0)}
+    log(f"[lm dist split] a local step {st['stats_step_ms']:.2f} ms: "
+        f"collectives {split['collective']:.2f} ms in "
+        f"{rec['split']['collective_calls']} calls "
+        f"({rec['split']['collective_bytes'] / 1e6:.1f} MB per rank), "
+        f"stream draws {split['draw']:.2f} ms, the rest "
+        f"{rec['split']['rest_ms']:.2f} ms")
+    # the cut: card ranks against CPU ranks from the same initial state
+    for r in range(world):
+        for k in ("loss", "p_mean", "p_min", "p_max", "gnorm_mean"):
+            g_v = gpu[r]["cut"]["metrics"][0][k]
+            c_v = cpu[r]["cut"]["metrics"][0][k]
+            if abs(g_v - c_v) > LM_RTOL * abs(c_v) + 1e-7:
+                fail(f"lm dist cut rank {r} {k}: card {g_v} vs CPU {c_v}")
+        if abs(gpu[r]["cut"]["p"] - cpu[r]["cut"]["p"]) > \
+                LM_RTOL * abs(cpu[r]["cut"]["p"]):
+            fail(f"lm dist cut rank {r}: p card {gpu[r]['cut']['p']} vs CPU "
+                 f"{cpu[r]['cut']['p']}")
+    w_rel = rel_l2(torch.cat([l.reshape(-1) for res in gpu
+                              for l in res["cut"]["omega"]]),
+                   torch.cat([l.reshape(-1) for res in cpu
+                              for l in res["cut"]["omega"]]))
+    if w_rel > 1e-3:
+        fail(f"lm dist cut: ω card vs CPU relative L2 {w_rel:.3e}")
+    rec["cut_card_vs_cpu"] = {"omega_rel_l2": w_rel, "loss": [
+        gpu[0]["cut"]["metrics"][0]["loss"],
+        cpu[0]["cut"]["metrics"][0]["loss"]]}
+    log(f"[lm dist cut] {LM_CUT}-layer cut, one step: card vs CPU ranks "
+        f"metrics within rtol {LM_RTOL}, ω relative L2 {w_rel:.3e}; card "
+        f"ranks {gpu_s:.1f} s, CPU ranks {cpu_s:.1f} s (spawn and set-up "
+        f"included)")
+    record["lm_dist"] = rec
+    return total
+
+
+def lm_kernel_timing(dev, record):
+    """K6 and K5 at ``lm-100m``'s 11 leaves, one rank's launches of one
+    step ("local": K6 on each whole leaf with both clusters' words;
+    "psum": K5 on each whole leaf): each launch equal to its plain
+    version, and the step's launches timed beside their byte bound and
+    their plain versions."""
+    import torch
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.experiments.train_lm_federated import LM_100M
+    from repro_torch.kernels.ota_channel import ops as kc
+    from repro_torch.kernels.ota_channel.ref import (
+        ota_mask_count_ref, ota_mask_weight_ref, pass_probability,
+    )
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import abstract_params
+    model = build_model(LM_100M)
+    sizes = [l.numel() for l in tree_leaves(abstract_params(
+        {"final": model.final_specs(), "trunk": model.trunk_specs()}))]
+    c = DIST_SHAPE[0]
+    gen = torch.Generator(device=dev).manual_seed(30)
+    sig = torch.tensor([0.5, 2.0], device=dev)
+    k6_p = kc.mask_count_params(sig, 0.032, 1.0, 0.37, 0, None, c,
+                                device=dev)
+    k6_pp = pass_probability(k6_p[:c], k6_p[c])
+    k5_p = kc.mask_weight_params(sig[0], 0.032, 1.0, 0.37, device=dev)
+    k5_pp = pass_probability(k5_p[0], k5_p[1]).reshape(1)
+    k6_calls, k5_calls, err = [], [], 0.0
+    for n in sizes:
+        x = torch.randn(n, generator=gen, device=dev) * 1e-3
+        bits = torch.randint(-2 ** 31, 2 ** 31, (c, n), generator=gen,
+                             device=dev, dtype=torch.int64).to(torch.int32)
+        o6, cn = torch.empty(n, device=dev), torch.empty(n, device=dev)
+        kc.launch_mask_count(x, bits, k6_p, k6_pp, o6, cn)
+        w6 = ota_mask_count_ref(x, bits, 0, sig, 0.032, 1.0, 0.37)
+        o5, m5 = (torch.empty((1, n), device=dev) for _ in range(2))
+        kc.launch_mask_weight(x.reshape(1, n), bits[:1], k5_p, k5_pp, o5, m5)
+        w5 = ota_mask_weight_ref(x.reshape(1, n), bits[:1], sig[0], 0.032,
+                                 1.0, 0.37)
+        torch.cuda.synchronize()
+        if not (torch.equal(o6, w6[0]) and torch.equal(cn, w6[1])
+                and torch.equal(o5, w5[0]) and torch.equal(m5, w5[1])):
+            fail(f"K6/K5 at an lm-100m leaf of {n} entries: not equal to "
+                 f"the plain version")
+        k6_calls.append((x, bits, k6_p, k6_pp, o6, cn))
+        k5_calls.append((x.reshape(1, n), bits[:1], k5_p, k5_pp, o5, m5))
+    n_all = sum(sizes)
+    rec = {"leaves": len(sizes), "entries": n_all}
+    for name, launch, calls, ref, nbytes in (
+            ("k6", kc.launch_mask_count, k6_calls,
+             lambda a: ota_mask_count_ref(a[0], a[1], 0, sig, 0.032, 1.0,
+                                          0.37), (12 + 4 * c) * n_all),
+            ("k5", kc.launch_mask_weight, k5_calls,
+             lambda a: ota_mask_weight_ref(a[0], a[1], sig[0], 0.032, 1.0,
+                                           0.37), 16 * n_all)):
+        ms, queued, recorded = kernel_ms(
+            [functools.partial(launch, *a) for a in calls], 10)
+        plain = device_ms(lambda: [ref(a) for a in calls], 2)
+        rec[name] = {"ms": ms, "queued_ms": queued, "recorded": recorded,
+                     "plain_ms": plain,
+                     "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+                     "bound_by": "bytes"}
+        log(f"[{name.upper()} lm-100m] {len(sizes)} launches over {n_all} "
+            f"entries (one rank's step): equal to the plain version; "
+            f"{ms:.4f} ms (queued {queued:.4f}, records kept "
+            f"{recorded:.0%}), plain {plain:.4f}, byte bound "
+            f"{rec[name]['bound_ms']:.4f}")
+    record["lm_kernels"] = rec
+    del k6_calls, k5_calls
+    torch.cuda.empty_cache()
+
+
+def _launcher(args, env):
+    """Run ``python -m repro_torch.launch.train`` with ``args``; its
+    standard output, or a failure with its last lines."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train"] + args,
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"launch.train {' '.join(args)} exited {proc.returncode}: "
+             f"{(proc.stdout + proc.stderr)[-3000:]}")
+    return proc.stdout
+
+
+def _check_step_lines(out, steps, what):
+    import re
+    lines = re.findall(r"^step +(\d+) loss (\S+) p \[.*$", out, re.M)
+    if [int(s) for s, _ in lines] != [0, steps - 1] or not all(
+            math.isfinite(float(v)) for _, v in lines):
+        fail(f"launch.train {what}: expected finite step lines 0 and "
+             f"{steps - 1}, got: {out[-2000:]}")
+    return [float(v) for _, v in lines]
+
+
+def launcher_phase(dev, record):
+    """Phase 31: ``python -m repro_torch.launch.train --arch starcoder2-3b
+    --steps 3 --mesh 2,2,1`` in a subprocess, once with the layout tuner
+    (its cache in a temporary directory) and once with ``--faults
+    --ckpt-dir <tmp> --ckpt-every 1``; the printed lines, and the
+    checkpoints restored (the full state and the final ω)."""
+    import re
+    import tempfile
+    import torch
+    from repro_torch import rng
+    from repro_torch.checkpoint.store import (
+        checkpoint_metadata, latest_step, restore_checkpoint,
+    )
+    from repro_torch.common.config import FLConfig, TrainConfig
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.core.hota_step import global_like, make_hota_step_parts
+    from repro_torch.launch import train as launch_train
+    from repro_torch.sharding.mesh_utils import Mesh
+    rec = {}
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    base = ["--arch", "starcoder2-3b", "--steps", str(LAUNCH_STEPS),
+            "--mesh", "2,2,1"]
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = os.path.join(tmp, "layout_tune.json")
+        t0 = time.perf_counter()
+        out = _launcher(base + ["--layout-cache", cache], env)
+        rec["tuned_s"] = time.perf_counter() - t0
+        layout = re.findall(r"^layout: (\S+)$", out, re.M)
+        if len(layout) != 1 or not os.path.isfile(cache):
+            fail(f"launch.train with the tuner: no layout line or no cache "
+                 f"file: {out[-2000:]}")
+        rec["tuned"] = {"layout": layout[0],
+                        "losses": _check_step_lines(out, LAUNCH_STEPS,
+                                                    "tuned")}
+        ckpt = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        out = _launcher(base + ["--layout-cache", cache, "--faults",
+                                "--ckpt-dir", ckpt, "--ckpt-every", "1"],
+                        env)
+        rec["faults_s"] = time.perf_counter() - t0
+        losses = _check_step_lines(out, LAUNCH_STEPS, "faults")
+        if not re.search(r"^step +0 loss .* part 4 skip 0 ", out, re.M):
+            fail(f"launch.train --faults: no participation in its lines: "
+                 f"{out[-2000:]}")
+        if latest_step(ckpt) != LAUNCH_STEPS or not re.search(
+                r"^checkpoint: .*step_%08d$" % LAUNCH_STEPS, out, re.M):
+            fail(f"launch.train --ckpt-dir: no final checkpoint: "
+                 f"{out[-2000:]}")
+        # the full state of step LAUNCH_STEPS - 1 and the final ω restore
+        model = launch_train._model("starcoder2-3b")
+        mesh = Mesh((2, 2, 1), launch_train.MESH_AXES)
+        parts = make_hota_step_parts(
+            model, mesh, FLConfig(n_clusters=2, n_clients=2, noise_std=0.1,
+                                  faults=True), TrainConfig(),
+            loss_kind="lm")
+        like = global_like(parts.init_fn(rng.PRNGKey(0)), parts.state_specs,
+                           mesh)
+        full = restore_checkpoint(ckpt, LAUNCH_STEPS - 1, like)
+        omega = restore_checkpoint(ckpt, LAUNCH_STEPS, like.omega)
+        meta = (checkpoint_metadata(ckpt, LAUNCH_STEPS - 1),
+                checkpoint_metadata(ckpt, LAUNCH_STEPS))
+        if int(full.step) != LAUNCH_STEPS - 1 or meta[0].get("kind") != \
+                "full_state" or not all(
+                    bool(torch.isfinite(l).all())
+                    for l in tree_leaves(omega) + tree_leaves(full.omega)):
+            fail(f"launch.train checkpoints: step {int(full.step)}, "
+                 f"metadata {meta}")
+        rec["faults"] = {"losses": losses, "metadata": list(meta),
+                         "restored_full_step": int(full.step)}
+    log(f"[launcher] launch.train --arch starcoder2-3b --steps "
+        f"{LAUNCH_STEPS} --mesh 2,2,1: tuned layout {rec['tuned']['layout']}"
+        f", losses {rec['tuned']['losses']} ({rec['tuned_s']:.1f} s); with "
+        f"--faults --ckpt-every 1: losses {losses} ({rec['faults_s']:.1f} "
+        f"s), full state of step {LAUNCH_STEPS - 1} and ω of step "
+        f"{LAUNCH_STEPS} restored, metadata {list(meta)}")
+    record["launcher"] = rec
+
+
 def sc2_config():
     """StarCoder2-3B's full-size config (30 layers, d_model 3072)."""
     from repro_torch.configs import get_config
@@ -3770,6 +4371,13 @@ def main() -> None:
                 dist_sectioned_phase(dev, record)):
         for k_name, v in got.items():
             total[k_name] = total.get(k_name, 0) + v
+
+    # --- 29-31. LM training: the pieces, the lm-100m step, the launcher ----
+    lm_pieces_phase(dev, record)
+    for k_name, v in lm_dist_phase(dev, record).items():
+        total[k_name] = total.get(k_name, 0) + v
+    lm_kernel_timing(dev, record)
+    launcher_phase(dev, record)
     if "jax" in sys.modules or "repro" in sys.modules:
         fail("the JAX package was imported")
 
@@ -3802,7 +4410,9 @@ def main() -> None:
          "fault_max_abs_err": k5_fault_err,
          "ms": k5["ms"], "plain_ms": k5["plain_ms"],
          "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
-         "library_ms": None},
+         "library_ms": None,
+         "lm100m_step_ms": record["lm_kernels"]["k5"]["ms"],
+         "lm100m_step_bound_ms": record["lm_kernels"]["k5"]["bound_ms"]},
         {"name": "ota_aggregate", "route": "cuda",
          "source": "src/repro_torch/kernels/ota_channel/csrc/"
                    "ota_aggregate.cu",
@@ -3835,7 +4445,9 @@ def main() -> None:
          "fault_max_abs_err": record["k6_fault_max_abs_err"],
          "ms": k6[2]["ms"], "plain_ms": k6[2]["plain_ms"],
          "bound_ms": k6[2]["bound_ms"], "bound_by": "bytes",
-         "library_ms": None},
+         "library_ms": None,
+         "lm100m_step_ms": record["lm_kernels"]["k6"]["ms"],
+         "lm100m_step_bound_ms": record["lm_kernels"]["k6"]["bound_ms"]},
         {"name": "ota_channel", "route": "cuda",
          "source": "src/repro_torch/kernels/ota_channel/csrc/ota_channel.cu",
          "replaces": "src/repro/kernels/ota_channel/kernel.py:451",

@@ -1,5 +1,5 @@
-"""Nested-dict parameter trees in ``jax.tree`` leaf order, and a map over
-whole states.
+"""Nested-dict parameter trees in ``jax.tree`` leaf order, a map over
+whole states, and the leafwise arithmetic of ``repro.common.tree``.
 
 The port keeps parameters, gradients and optimizer moments as nested
 dicts of tensors. Leaf order matters: the leaf index and the packer
@@ -71,3 +71,35 @@ def tree_global_norm(tree):
     return torch.sqrt(torch.sum(torch.stack(
         [torch.sum(torch.square(l.to(torch.float32)))
          for l in tree_leaves(tree)])))
+
+
+def tree_size(tree) -> int:
+    """Total number of elements in a tree of tensors."""
+    return sum(l.numel() for l in tree_leaves(tree))
+
+
+def tree_bytes(tree) -> int:
+    return sum(l.numel() * l.element_size() for l in tree_leaves(tree))
+
+
+def tree_zeros_like(tree):
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_cast(tree, dtype):
+    """Cast floating-point leaves to ``dtype``; leave integer leaves alone."""
+    return tree_map(lambda x: x.to(dtype) if torch.is_floating_point(x)
+                    else x, tree)
+
+
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def tree_scale(tree, s):
+    return tree_map(lambda x: x * s, tree)
+
+
+def tree_axpy(alpha, x, y):
+    """alpha * x + y, leafwise."""
+    return tree_map(lambda xi, yi: alpha * xi + yi, x, y)

@@ -14,7 +14,9 @@ numpy leaves, in the reference's field order, and never imports JAX::
     omega_stale, stale_age                     (fault injection only, or None)
 
 A distributed ``HotaState`` (``hota_state_from_numpy``) is global; each
-rank takes its piece. A bank's state is the same structure with a
+rank takes its piece, and ``hota_state_to_numpy`` gathers the ranks'
+pieces back into the reference's global numpy state (a checkpoint of
+the port's launcher restores in the reference). A bank's state is the same structure with a
 leading (S,) axis on every leaf.
 
 An LM's parameters (``init_params`` of the reference's ``trunk_specs``,
@@ -30,7 +32,7 @@ import torch
 
 from repro_torch.common.tree import state_map
 from repro_torch.core.fedgradnorm import FGNState
-from repro_torch.core.hota_step import HotaState, shard_state
+from repro_torch.core.hota_step import HotaState, gather_state, shard_state
 from repro_torch.core.sampling import ClientBank, SampledSimState
 from repro_torch.core.sim import SimState
 from repro_torch.optim.adam import AdamState, SlabAdamState
@@ -175,3 +177,16 @@ def hota_state_from_numpy(state, mesh, rank: int, device, specs):
         f0=_tensor(f0, "cpu", f32), step=_tensor(step, "cpu", i32),
         omega_stale=omega_stale, stale_age=stale_age)
     return shard_state(glob, specs, mesh, rank=rank, device=device)
+
+
+def hota_state_to_numpy(state, specs, mesh):
+    """The global state of which ``state`` is this rank's piece (``specs``
+    the step's ``state_specs``), its leaves numpy arrays in the
+    reference's layout: FSDP leaves whole, every client's head, ``p``,
+    ``fgn_mu``, ``fgn_nu`` and ``f0`` stacked over the clients, the slab
+    Adam moments the shard-major concatenation of the local slabs. Every
+    rank of the mesh must call it (all-gathers); ``state`` may be any
+    sub-tree of a ``HotaState`` with the matching sub-tree of specs (ω
+    alone, for the launcher's final checkpoint)."""
+    return state_map(lambda t: t.detach().cpu().numpy(),
+                     gather_state(state, specs, mesh))

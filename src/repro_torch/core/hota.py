@@ -288,14 +288,17 @@ def make_ota_gather(mesh: Mesh, data_axes: Tuple[str, ...],
 def build_axes_registry(model) -> Dict[str, List[tuple]]:
     """klass -> the logical-axes tuple of each leaf the hook sees for it,
     in flatten order: the ``mlp`` trunk as one "layers" call, the dense
-    LM's "embed" and "layers", and "final"."""
+    LM's "embed" and one layer's "layers" (gemma3's local and global
+    layers hold the same leaves), and "final". The "layer" stacking dims
+    stay in the tuples; ``_fsdp_axis`` strips them."""
     ax = logical_axes(model.trunk_specs())
     reg: Dict[str, List[tuple]] = {}
     if model.cfg.family == "mlp":
         reg["layers"] = tree_leaves(ax)
     else:
         reg["embed"] = [ax["embed"]]
-        reg["layers"] = tree_leaves(ax["layers"])
+        reg["layers"] = tree_leaves(ax["layers"] if "layers" in ax
+                                    else ax["global"])
     reg["final"] = tree_leaves(logical_axes(model.final_specs()))
     return reg
 

@@ -3,7 +3,7 @@
 Port of ``repro.core.hota_step``, on the slab engine and on the per-leaf
 oracle (``use_pallas_ota=False``). Each process of the
 FL mesh is one (cluster, client) position and runs the step on its own
-shards; ``make_hota_train_step(model, mesh, fl, tcfg, loss_kind="cls",
+shards; ``make_hota_train_step(model, mesh, fl, tcfg, loss_kind=...,
 n_out=...)`` returns (init_fn, step_fn, state_specs, batch_spec), where
 step_fn is the whole Algorithm 1 round:
 
@@ -58,8 +58,14 @@ leading dim over the client axes, the slab Adam moments over the data
 axes (the global moment is the shard-major concatenation of the ranks'
 local slabs). ``shard_state`` cuts a rank's state from a global one.
 
-Not ported yet, refused by name: the LM loss (``loss_kind="lm"``,
-ROADMAP Queue 1 item 14.1).
+The loss (``loss_kind``): "lm" (the default, as in the reference) is the
+cross-entropy of a dense LM's vocab head over its token batch
+(``chunked_lm_loss``: in sequence chunks of ``LOSS_CHUNK``, each
+recomputed in the backward, when the sequence splits into more than
+one), "cls" that of a classifier head (``cls_head_loss``). The phase-C
+loss adds the trunk's auxiliary loss (0 for a dense model). A mesh may
+carry a "model" axis besides the FL axes: no layout names it, so its
+ranks are replicas that run the same step on the same batch.
 """
 from __future__ import annotations
 
@@ -68,6 +74,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import rng
 from repro_torch.common.config import FLConfig, TrainConfig
@@ -89,7 +96,9 @@ from repro_torch.core.hota_slab import (
     _fsdp_axis_full, make_packed_omega_gather,
     packed_omega_key, plain_gather_full, sectioned_final_norm,
 )
-from repro_torch.models.model import Model
+from repro_torch.models.model import (
+    Model, cls_loss, lm_loss, log_likelihoods,
+)
 from repro_torch.models.params import (
     abstract_params, init_params, logical_axes,
 )
@@ -100,11 +109,32 @@ from repro_torch.sharding import collectives as col
 from repro_torch.sharding.mesh_utils import Mesh, shard_slices
 
 
+LOSS_CHUNK = 512
+
+
+def _chunk_sum(head, head_apply, feats, labels) -> torch.Tensor:
+    return torch.sum(log_likelihoods(head_apply(head, feats), labels))
+
+
+def chunked_lm_loss(head, head_apply, feats, labels,
+                    chunk: int = LOSS_CHUNK) -> torch.Tensor:
+    """Cross-entropy over a big vocab, in sequence chunks of ``chunk``
+    when S splits into more than one (each chunk's logits recomputed in
+    the backward, so no (B, S, V) logits are kept); else in one piece."""
+    b, s, _ = feats.shape
+    if s % chunk != 0 or s <= chunk:
+        return lm_loss(head_apply(head, feats), labels)
+    tot = torch.zeros((), dtype=torch.float32, device=feats.device)
+    for i in range(s // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        args = (head, head_apply, feats[:, sl], labels[:, sl])
+        tot = tot + (checkpoint(_chunk_sum, *args, use_reentrant=False)
+                     if torch.is_grad_enabled() else _chunk_sum(*args))
+    return -tot / (b * s)
+
+
 def cls_head_loss(head, head_apply, feats, labels) -> torch.Tensor:
-    logits = head_apply(head, feats)
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    ll = torch.gather(logp, -1, labels.to(torch.int64).unsqueeze(-1))
-    return -torch.mean(ll.squeeze(-1))
+    return cls_loss(head_apply(head, feats), labels)
 
 
 class HotaState(NamedTuple):
@@ -135,16 +165,17 @@ class StepParts(NamedTuple):
     faults_all: FaultParams  # the factory FLConfig's fault knobs
 
 
-def _refuse(fl: FLConfig, loss_kind: str) -> None:
-    """What this port does not carry yet refuses by name, like the
-    reference's own static refusals, instead of running another round."""
-    if loss_kind == "lm":
-        raise NotImplementedError(
-            "loss_kind='lm' (the chunked LM loss) waits for LM training: "
-            "ROADMAP Queue 1, item 14.1")
-    if loss_kind != "cls":
+def _refuse(model: Model, fl: FLConfig, loss_kind: str) -> None:
+    """The reference's static refusals, by name, and a loss that the
+    model cannot take."""
+    if loss_kind not in ("cls", "lm"):
         raise ValueError(f"loss_kind must be 'cls' or 'lm', got "
                          f"{loss_kind!r}")
+    if loss_kind == "lm" and not model.is_lm:
+        raise ValueError(
+            f"loss_kind='lm' needs a language model (token sequences in, a "
+            f"vocab head out); the {model.cfg.family!r} family trains with "
+            f"loss_kind='cls'")
     if fl.faults and not fl.use_pallas_ota:
         raise ValueError(
             "fl.faults requires the slab engine (use_pallas_ota=True): the "
@@ -176,21 +207,51 @@ def _refuse(fl: FLConfig, loss_kind: str) -> None:
             "silently inert (DESIGN.md §4)")
 
 
+def _spec_map(fn, state, specs):
+    """``fn(leaf, spec)`` over a state (any nesting of dicts and named
+    tuples; a None field stays None) and its layout tree."""
+    if isinstance(state, dict):
+        return {k: _spec_map(fn, state[k], specs[k]) for k in state}
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*[None if v is None else _spec_map(fn, v, s)
+                             for v, s in zip(state, specs)])
+    return fn(state, specs)
+
+
 def shard_state(state, specs, mesh: Mesh, rank: Optional[int] = None,
                 device=None):
-    """The piece of a global state (tensors or arrays, any nesting of
-    dicts and named tuples) that ``rank`` holds under ``specs``."""
-    if isinstance(state, dict):
-        return {k: shard_state(state[k], specs[k], mesh, rank, device)
-                for k in state}
-    if isinstance(state, tuple) and hasattr(state, "_fields"):
-        return type(state)(*[None if v is None else
-                             shard_state(v, s, mesh, rank, device)
-                             for v, s in zip(state, specs)])
-    t = torch.as_tensor(np.asarray(state)) if not torch.is_tensor(
-        state) else state
-    piece = t[shard_slices(tuple(t.shape), specs, mesh, rank)]
-    return piece.to(device).clone()
+    """The piece of a global state (tensors or arrays) that ``rank``
+    holds under ``specs``."""
+    def piece(leaf, spec):
+        t = leaf if torch.is_tensor(leaf) else torch.as_tensor(
+            np.asarray(leaf))
+        return t[shard_slices(tuple(t.shape), spec, mesh, rank)].to(
+            device).clone()
+    return _spec_map(piece, state, specs)
+
+
+def gather_state(state, specs, mesh: Mesh):
+    """The global state of which ``state`` is this rank's piece under
+    ``specs``: the inverse of ``shard_state``, each split dim all-gathered
+    over its axes (collectives: every rank of the mesh calls it)."""
+    def whole(t, spec):
+        for d, axes in enumerate(spec):
+            if axes is not None:
+                t = col.all_gather(t, mesh, axes, d)
+        return t
+    return _spec_map(whole, state, specs)
+
+
+def global_like(state, specs, mesh: Mesh):
+    """Storage-free (``meta``) stand-ins of the global state's leaves,
+    shaped as ``gather_state`` would give them (no collectives): the
+    ``like_tree`` that restores a global checkpoint."""
+    def like(t, spec):
+        shape = [n * (mesh.axis_size(spec[d]) if d < len(spec)
+                      and spec[d] is not None else 1)
+                 for d, n in enumerate(t.shape)]
+        return torch.empty(shape, dtype=t.dtype, device="meta")
+    return _spec_map(like, state, specs)
 
 
 def _requires_grad(tree):
@@ -204,7 +265,7 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
     """The Alg.-1 round body for this rank of ``mesh`` and its layouts.
     ``count_mode`` picks how the backward counts |M| ("local": K6,
     "psum": K5; None: by the mesh's device, see ``hota_slab``)."""
-    _refuse(fl, loss_kind)
+    _refuse(model, fl, loss_kind)
     cfg = model.cfg
     data_axes = _mesh_data_axes(mesh)           # ("client", "cluster")
     cluster_axes = _mesh_cluster_axes(mesh)     # ("pod","cluster") | ...
@@ -245,8 +306,10 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
         registry = build_axes_registry(model)
         final_fsdp = [_fsdp_axis_full(ax) for ax in registry["final"]]
 
-    def loss_fn(head, feats, labels):
-        return cls_head_loss(head, model.head_apply, feats, labels)
+    loss_fn = chunked_lm_loss if loss_kind == "lm" else cls_head_loss
+    # the LM's inputs are token ids (the embedding gathers long ids), the
+    # MLP's features
+    input_dtype = torch.int64 if model.is_lm else torch.float32
 
     # ---------------- layouts ----------------
     omega_layout = shard_specs_for(model, mesh)
@@ -270,31 +333,38 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
         """This rank's piece of the global state of a PRNG key, the
         reference's ``init_fn(key)``: ``k1, k2 = split(key)``, the trunk
         from ``k1``, ω̃ from ``fold_in(k1, FINAL_INIT_FOLD)``, one head
-        per client from ``split(k2, n_clients)``. Drawn on the host, the
-        same on every rank."""
+        per client from ``split(k2, n_clients)``. Drawn on the rank's
+        device, the same on every rank; a rank draws only its own head,
+        and its moment slab is zeros of its local length."""
         k1, k2 = rng.split(key)
         omega = {"final": init_params(model.final_specs(),
-                                      rng.fold_in(k1, ota.FINAL_INIT_FOLD)),
-                 "trunk": init_params(model.trunk_specs(), k1)}
-        heads = init_params(head_specs, rng.split(k2, n_total_clients))
+                                      rng.fold_in(k1, ota.FINAL_INIT_FOLD),
+                                      device=dev),
+                 "trunk": init_params(model.trunk_specs(), k1, device=dev)}
+        me = mesh.axis_index(client_axes)
+        heads = init_params(head_specs,
+                            rng.split(k2, n_total_clients)[me:me + 1],
+                            device=dev)
         zc = torch.zeros((n_total_clients,), dtype=torch.float32)
         i32 = torch.zeros((), dtype=torch.int32)
         zeros = lambda t: tree_map(torch.zeros_like, t)   # noqa: E731
         state = HotaState(
-            omega=omega,
-            opt=(SlabAdamState(step=i32,
-                               mu=torch.zeros(n_shards * slab_local_len),
-                               nu=torch.zeros(n_shards * slab_local_len))
-                 if use_slab else adam_init(omega)),
-            heads=heads,
-            head_opt=AdamState(step=i32, mu=zeros(heads), nu=zeros(heads)),
+            omega=omega, opt=None if use_slab else adam_init(omega),
+            heads=None, head_opt=None,
             p=torch.ones(n_total_clients), fgn_mu=zc, fgn_nu=zc.clone(),
             fgn_t=i32, f0=torch.ones(n_total_clients), step=i32,
             omega_stale=(tree_map(torch.clone, omega) if fl.faults
                          else None),
             stale_age=(torch.zeros((), dtype=torch.float32) if fl.faults
                        else None))
-        return shard_state(state, state_specs, mesh, device=dev)
+        state = shard_state(state, state_specs, mesh, device=dev)
+        i32 = i32.to(dev)
+        if use_slab:
+            state = state._replace(opt=SlabAdamState(
+                step=i32, mu=torch.zeros(slab_local_len, device=dev),
+                nu=torch.zeros(slab_local_len, device=dev)))
+        return state._replace(heads=heads, head_opt=AdamState(
+            step=i32, mu=zeros(heads), nu=zeros(heads)))
 
     def _metrics(loss_val, p_new, fgrad_val, n_i):
         v = torch.stack([loss_val, p_new, fgrad_val, n_i]).to(torch.float32)
@@ -312,8 +382,7 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
         chan = ChannelParams(*[torch.as_tensor(f, dtype=torch.float32,
                                                device=dev) for f in chan])
         chan_c = cluster_channel(chan, cidx)
-        tokens = torch.as_tensor(tokens).to(device=dev,
-                                            dtype=torch.float32)
+        tokens = torch.as_tensor(tokens).to(device=dev, dtype=input_dtype)
         labels = torch.as_tensor(labels).to(device=dev, dtype=torch.int64)
         head = tree_map(lambda a: a[0], state.heads)
         head_opt = AdamState(step=state.head_opt.step,
@@ -362,7 +431,7 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
                     omega_full0 = tree_map(
                         lambda f, o: torch.where(stale_me > 0.5, o, f),
                         omega_full0, stale_full)
-                hidden = model.trunk_apply(omega_full0["trunk"], tokens)
+                hidden = model.trunk_apply(omega_full0["trunk"], tokens)[0]
                 final_full = omega_full0["final"]
             else:
                 # the per-leaf hook's forward (its backward never runs)
@@ -370,13 +439,14 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
                     state.omega["trunk"], tokens,
                     param_hook=make_param_hook(
                         leaf_gather, registry, base_key,
-                        torch.ones((), device=dev), chan_c))
+                        torch.ones((), device=dev), chan_c))[0]
                 final_full = plain_gather_full(
                     state.omega["final"], final_fsdp, mesh, data_axes,
                     compute_dtype)
 
             def tail_loss(ff, hd):
-                return loss_fn(hd, model.final_apply(ff, hidden), labels)
+                return loss_fn(hd, model.head_apply,
+                               model.final_apply(ff, hidden), labels)
 
             # ---- phase A: τ_h personalized-head steps (Alg. 1 l. 10-11)
             for _ in range(fl.tau_h):
@@ -483,13 +553,14 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
                     full = omega_gather(om, slab_ctx)
                     if stale_full is not None:
                         full = tree_map(st_sel, full, stale_full)
-                    h = model.trunk_apply(full["trunk"], tok_mb)
+                    h, aux, _ = model.trunk_apply(full["trunk"], tok_mb)
                     ff = full["final"]
                 else:
-                    h = model.trunk_apply(om["trunk"], tok_mb,
-                                          param_hook=leaf_hook)
+                    h, aux, _ = model.trunk_apply(om["trunk"], tok_mb,
+                                                  param_hook=leaf_hook)
                     ff = leaf_hook(om["final"], "final")
-                loss = loss_fn(hd, model.final_apply(ff, h), lab_mb)
+                loss = loss_fn(hd, model.head_apply,
+                               model.final_apply(ff, h), lab_mb) + aux
                 g = torch.autograd.grad(loss, tree_leaves(om)
                                         + tree_leaves(hd))
             g_sum = list(g) if g_sum is None else [

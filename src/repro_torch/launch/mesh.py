@@ -9,8 +9,11 @@ processes, runs a function on the mesh in each and returns their results.
 Backend: NCCL only when every rank has a card of its own; several ranks
 sharing one card, and ranks on the CPU, use gloo (``pick_backend``). On
 one card every rank runs its kernels on ``cuda:0`` with its own CUDA
-context. The scenario meshes (``make_dist_scenario_mesh``,
-``make_scenario_mesh``) wait with the distributed scenario banks.
+context. A mesh may carry axes besides the FL ones (the training
+launcher's "model" axis): every axis subset gets its groups, so a
+collective over the FL axes stays inside one slice of the others. The
+scenario meshes (``make_dist_scenario_mesh``, ``make_scenario_mesh``)
+wait with the distributed scenario banks.
 """
 from __future__ import annotations
 

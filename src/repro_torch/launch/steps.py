@@ -1,10 +1,10 @@
 """Serve steps: prefill and greedy decode.
 
-Port of the serve steps of ``repro.launch.steps`` (the sharding helpers
-and abstract dry-run specs stay JAX-only until the distributed step,
-ROADMAP Queue 1, item 13). The prefill step returns the last position's
-logits, so it applies the final norm and head to that position only: the
-same numbers without a (B, S, vocab) float32 logits tensor.
+Port of the serve steps of ``repro.launch.steps`` (its sharding rules
+and abstract dry-run specs are XLA tooling: ROADMAP Queue 1, item 16).
+The prefill step returns the last position's logits, so it applies the
+final norm and head to that position only: the same numbers without a
+(B, S, vocab) float32 logits tensor.
 """
 from __future__ import annotations
 

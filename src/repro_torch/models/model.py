@@ -12,8 +12,12 @@ FedGradNorm differentiates -> a per-client head.
   so the reference's (C, N) ``vmap`` is a batched matmul here.
 * ``dense``: the decoder LM of ``models/transformer.py`` (embedding and
   stacked layers) -> final RMSNorm -> a vocab head with float32 logits,
-  for prefill and decode. MoE, SSM, xLSTM and hybrid families wait for
-  ROADMAP Queue 1, item 14.
+  for training, prefill and decode. MoE, SSM, xLSTM and hybrid families
+  wait for ROADMAP Queue 1, items 14.2-14.4.
+
+``trunk_apply`` returns (hidden, aux_loss, new_cache) for both families,
+as the reference's does; ``lm_loss`` and ``cls_loss`` are the
+reference's cross-entropies.
 """
 from __future__ import annotations
 
@@ -72,7 +76,8 @@ class Model:
     def head_specs(self, n_out=None):
         if self.is_lm:
             return {"w": ParamSpec((self.cfg.d_model,
-                                    n_out or self.cfg.vocab_size))}
+                                    n_out or self.cfg.vocab_size),
+                                   axes=("embed", "vocab"))}
         return {"w": ParamSpec((self.dims[-1], n_out),
                                axes=("embed", "vocab")),
                 "b": ParamSpec((n_out,), "zeros", axes=("vocab",))}
@@ -82,30 +87,29 @@ class Model:
 
     # ---------------- apply ----------------
     def trunk_apply(self, params, inputs: torch.Tensor, *, positions=None,
-                    mode: str = "prefill", cache=None, cache_len=None,
+                    mode: str = "train", cache=None, cache_len=None,
                     param_hook=None):
-        """``mlp``: the trunk's features. ``dense``: (hidden, aux,
-        new_cache) as in the reference. ``param_hook(params, klass,
-        *tags)`` (the distributed per-leaf oracle,
+        """(hidden, aux, new_cache) as in the reference (``mlp``: the
+        trunk's features, a zero aux and no cache). ``param_hook(params,
+        klass, *tags)`` (the distributed per-leaf oracle,
         ``core.hota.make_param_hook``) sees the ``mlp`` trunk's parameters
-        as one "layers" call right before they are used."""
+        as one "layers" call, the dense trunk's embedding as "embed" and
+        each layer's parameters as "layers" with the layer index as the
+        last tag, right before they are used."""
         if not self.is_lm:
             if param_hook is not None:
                 params = param_hook(params, "layers")
             h = inputs
             for i in range(len(self.dims) - 2):
                 h = torch.relu(_dense(h, params[f"fc{i}"]))
-            return h
-        if param_hook is not None:
-            raise NotImplementedError(
-                "param_hook on the dense trunk (the distributed per-leaf "
-                "step of an LM) waits for LM training: ROADMAP Queue 1, "
-                "item 14.1")
+            return h, torch.zeros((), dtype=torch.float32,
+                                  device=h.device), None
         if positions is None:
             positions = torch.arange(inputs.shape[1], device=inputs.device)
         return T.dense_trunk_apply(params, inputs, self.cfg,
                                    positions=positions, mode=mode,
-                                   cache=cache, cache_len=cache_len)
+                                   cache=cache, cache_len=cache_len,
+                                   param_hook=param_hook)
 
     def final_apply(self, params, hidden: torch.Tensor) -> torch.Tensor:
         if self.is_lm:
@@ -120,9 +124,9 @@ class Model:
     def features(self, omega, inputs: torch.Tensor) -> torch.Tensor:
         """final(trunk(x)): the shared network's output (``mlp``)."""
         return self.final_apply(omega["final"],
-                                self.trunk_apply(omega["trunk"], inputs))
+                                self.trunk_apply(omega["trunk"], inputs)[0])
 
-    # ---------------- LM serving ----------------
+    # ---------------- LM caches and logits ----------------
     def init_cache(self, batch: int, cache_len: int, dtype=torch.bfloat16,
                    device="cuda"):
         if not self.is_lm:
@@ -130,7 +134,7 @@ class Model:
         return T.init_dense_cache(self.cfg, batch, cache_len, dtype, device)
 
     def forward_logits(self, backbone_params, head_params, inputs, *,
-                       positions=None, mode="prefill", cache=None,
+                       positions=None, mode="train", cache=None,
                        cache_len=None):
         """(logits, aux, new_cache)."""
         h, aux, new_cache = self.trunk_apply(
@@ -143,3 +147,20 @@ class Model:
 def build_model(cfg: ModelConfig, dims: Tuple[int, ...] = PAPER_MLP_DIMS
                 ) -> Model:
     return Model(cfg, tuple(dims))
+
+
+def log_likelihoods(logits: torch.Tensor,
+                    labels: torch.Tensor) -> torch.Tensor:
+    """log softmax(logits)[label] per position, in float32."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return torch.gather(logp, -1,
+                        labels.to(torch.int64).unsqueeze(-1)).squeeze(-1)
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy over the vocab; logits (B, S, V), labels (B, S)."""
+    return -torch.mean(log_likelihoods(logits, labels))
+
+
+def cls_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return lm_loss(logits, labels)

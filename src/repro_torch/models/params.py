@@ -119,9 +119,8 @@ def logical_axes(specs):
     def axes(spec):
         if spec.axes is None:
             raise ValueError(
-                f"a {spec.shape} spec has no logical axes: the port gives "
-                f"them to the mlp family only (LM training is ROADMAP "
-                f"Queue 1, item 14.1)")
+                f"a {spec.shape} spec has no logical axes: the "
+                f"distributed step needs each leaf's axes to lay it out")
         return spec.axes
     return tree_unflatten(specs, [axes(s) for s in tree_leaves(specs)])
 

@@ -1,10 +1,19 @@
 """Dense decoder backbone: GQA + RoPE + SwiGLU/GELU, stacked layers.
 
-Port of ``repro.models.transformer`` for inference (``prefill`` and
-``decode``). Covers starcoder2 (sliding window), stablelm, qwen2.5 (qkv
-bias) and gemma3's local:global pattern (stacks ``local`` of shape
-(n_super, r, ...) and ``global`` of shape (n_super, ...)). MoE layers
-are refused (ROADMAP Queue 1, item 14).
+Port of ``repro.models.transformer`` for training (``train``) and
+inference (``prefill`` and ``decode``). Covers starcoder2 (sliding
+window), stablelm, qwen2.5 (qkv bias) and gemma3's local:global pattern
+(stacks ``local`` of shape (n_super, r, ...) and ``global`` of shape
+(n_super, ...)). MoE layers are refused (ROADMAP Queue 1, item 14.2).
+
+Training runs each layer under ``cfg.remat_policy`` (``_remat``): the
+backward recomputes the layer (``"nothing_saveable"``), recomputes all
+but its matmul outputs (``"dots"``), or keeps everything (``"none"``).
+A ``param_hook`` (the distributed per-leaf oracle's gather) sees each
+layer's parameters inside that boundary, with the layer's index as its
+last tag, so the backward gathers each layer again rather than keeping
+the gathered copies: its collectives and channel draws run again in the
+backward, in the same order and under the same keys on every rank.
 
 Parameters are the reference's stacked trees: every leaf of
 ``layers`` carries a leading layer dim, and the layer loop indexes it
@@ -24,6 +33,10 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import resolve_device
@@ -37,44 +50,47 @@ from repro_torch.models.params import ParamSpec
 # --------------------------------------------------------------------------
 
 def _stack(specs, n: int):
-    """Prepend a stacking dim of size ``n`` to every spec in a tree."""
-    return tree_map(lambda s: ParamSpec((n,) + s.shape, s.init, s.scale),
-                    specs)
+    """Prepend a ('layer',) stacking dim of size ``n`` to every spec in a
+    tree."""
+    return tree_map(lambda s: ParamSpec((n,) + s.shape, s.init, s.scale,
+                                        axes=("layer",) + s.axes), specs)
 
 
 def attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, h, kv, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                     cfg.resolved_head_dim)
     specs = {
-        "norm": ParamSpec((d,), "zeros"),
-        "wq": ParamSpec((d, h, hd)),
-        "wk": ParamSpec((d, kv, hd)),
-        "wv": ParamSpec((d, kv, hd)),
-        "wo": ParamSpec((h, hd, d)),
+        "norm": ParamSpec((d,), "zeros", axes=("embed",)),
+        "wq": ParamSpec((d, h, hd), axes=("embed", "heads", "head_dim")),
+        "wk": ParamSpec((d, kv, hd), axes=("embed", "kv_heads", "head_dim")),
+        "wv": ParamSpec((d, kv, hd), axes=("embed", "kv_heads", "head_dim")),
+        "wo": ParamSpec((h, hd, d), axes=("heads", "head_dim", "embed")),
     }
     if cfg.qkv_bias:
-        specs["bq"] = ParamSpec((h, hd), "zeros")
-        specs["bk"] = ParamSpec((kv, hd), "zeros")
-        specs["bv"] = ParamSpec((kv, hd), "zeros")
+        specs["bq"] = ParamSpec((h, hd), "zeros", axes=("heads", "head_dim"))
+        specs["bk"] = ParamSpec((kv, hd), "zeros",
+                                axes=("kv_heads", "head_dim"))
+        specs["bv"] = ParamSpec((kv, hd), "zeros",
+                                axes=("kv_heads", "head_dim"))
     return specs
 
 
 def mlp_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, f = cfg.d_model, cfg.d_ff
     specs = {
-        "norm": ParamSpec((d,), "zeros"),
-        "w_up": ParamSpec((d, f)),
-        "w_down": ParamSpec((f, d)),
+        "norm": ParamSpec((d,), "zeros", axes=("embed",)),
+        "w_up": ParamSpec((d, f), axes=("embed", "mlp")),
+        "w_down": ParamSpec((f, d), axes=("mlp", "embed")),
     }
     if cfg.mlp_act == "silu":
-        specs["w_gate"] = ParamSpec((d, f))
+        specs["w_gate"] = ParamSpec((d, f), axes=("embed", "mlp"))
     return specs
 
 
 def dense_layer_specs(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.moe is not None:
         raise NotImplementedError("MoE layers are not ported yet (ROADMAP "
-                                  "Queue 1, item 14: MoE)")
+                                  "Queue 1, item 14.2: MoE)")
     return {"attn": attn_specs(cfg), "mlp": mlp_specs(cfg)}
 
 
@@ -89,7 +105,8 @@ def _super_blocks(cfg: ModelConfig) -> int:
 
 def dense_trunk_specs(cfg: ModelConfig) -> Dict[str, Any]:
     specs: Dict[str, Any] = {
-        "embed": ParamSpec((cfg.vocab_size, cfg.d_model), "embed"),
+        "embed": ParamSpec((cfg.vocab_size, cfg.d_model), "embed",
+                           axes=("vocab", "embed")),
     }
     if cfg.local_global_ratio:
         r, n_super = cfg.local_global_ratio, _super_blocks(cfg)
@@ -102,7 +119,7 @@ def dense_trunk_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 def final_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     """The 'last shared layer' ω̃ that FedGradNorm differentiates."""
-    return {"norm": ParamSpec((cfg.d_model,), "zeros")}
+    return {"norm": ParamSpec((cfg.d_model,), "zeros", axes=("embed",))}
 
 
 # --------------------------------------------------------------------------
@@ -151,14 +168,14 @@ def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, *, positions,
                window: Optional[int], theta: float, mode: str,
                cache: Optional[Dict[str, torch.Tensor]] = None,
                cache_len: Optional[int] = None):
-    """Pre-norm attention block; returns (x + attn(x), cache).
+    """Pre-norm attention block; returns (x + attn(x), cache), the cache
+    None in training.
 
-    ``positions`` is (S,) in prefill and the (B,) absolute positions of
-    the incoming tokens in decode."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mode {mode!r}: the port runs prefill "
-                                  f"and decode (training is ROADMAP Queue "
-                                  f"1, item 14)")
+    ``positions`` is (S,) in training and prefill and the (B,) absolute
+    positions of the incoming tokens in decode."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode must be 'train', 'prefill' or 'decode', "
+                         f"got {mode!r}")
     h = L.rms_norm(x, p["norm"], 1e-6)
     q, k, v = _project_qkv(p, h, cfg)
     if mode == "decode":
@@ -178,9 +195,11 @@ def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, *, positions,
         q = L.apply_rope(q, positions[None, :], theta)
         k = L.apply_rope(k, positions[None, :], theta)
         out = L.attention(q, k, v, pos_q=positions, pos_kv=positions,
-                          impl=cfg.attn_impl, window=window)
-        new_cache = _prefill_cache(k, v, positions, window, cache_len,
-                                   x.shape[0])
+                          impl=cfg.attn_impl, window=window,
+                          block_q=cfg.attn_block_q,
+                          block_kv=cfg.attn_block_kv)
+        new_cache = None if mode == "train" else _prefill_cache(
+            k, v, positions, window, cache_len, x.shape[0])
     wo = p["wo"]
     y = out.flatten(-2) @ wo.reshape(-1, wo.shape[-1]).to(x.dtype)
     return x + y, new_cache
@@ -205,6 +224,37 @@ def dense_layer_apply(p, x, cfg: ModelConfig, *, positions, window, theta,
 # trunk forward (a loop over stacked layers)
 # --------------------------------------------------------------------------
 
+_DOT_OPS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy (``jax.checkpoint_policies.checkpoint_dots``):
+    keep the matmul outputs, recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under ``cfg.remat_policy`` when autograd records: "none"
+    runs it plainly, "dots" recomputes all but the matmul outputs in the
+    backward, "nothing_saveable" recomputes it whole."""
+    if cfg.remat_policy == "none":
+        return fn
+    if cfg.remat_policy not in ("dots", "nothing_saveable"):
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+            _save_dots)
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run
+
+
 def _index(tree, i: int):
     """Layer ``i`` of a stacked tree (views, no copies)."""
     return tree_map(lambda t: t[i], tree)
@@ -214,17 +264,34 @@ def _stack_caches(caches: List[Dict[str, torch.Tensor]]):
     return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
 
 
-def _run_stack(layer_fn, stack_params, x, cache, mode: str):
+def _hooked(layer_fn, param_hook, tags):
+    """``layer_fn`` with the hook on its parameters: ``fn(lp, i, h, c)``
+    hooks ``lp`` as ("layers", *tags, i)."""
+    def fn(lp, i, h, c):
+        if param_hook is not None:
+            lp = param_hook(lp, "layers", *tags, i)
+        return layer_fn(lp, h, c)
+    return fn
+
+
+def _run_stack(layer_fn, stack_params, x, cache, mode: str,
+               cfg: ModelConfig, param_hook=None, hook_tags=()):
     """Run ``layer_fn(lp, h, c) -> (h, c)`` over a stacked param tree
-    (and, in decode, the matching stacked cache). Returns (x, new_cache);
-    prefill stacks the layers' caches, decode returns the updated input
-    cache."""
+    (and, in decode, the matching stacked cache), each layer under the
+    remat policy in training. Returns (x, new_cache): None in training,
+    the layers' caches stacked in prefill, the updated input cache in
+    decode."""
+    fn = _hooked(layer_fn, param_hook, hook_tags)
+    if mode == "train":
+        fn = _remat(fn, cfg)
     n = tree_leaves(stack_params)[0].shape[0]
     caches = []
     for i in range(n):
         c = _index(cache, i) if mode == "decode" else None
-        x, c2 = layer_fn(_index(stack_params, i), x, c)
+        x, c2 = fn(_index(stack_params, i), i, x, c)
         caches.append(c2)
+    if mode == "train":
+        return x, None
     if mode == "decode":
         return x, cache
     return x, _stack_caches(caches)
@@ -235,19 +302,27 @@ def _cdt(cfg: ModelConfig) -> torch.dtype:
 
 
 def dense_trunk_apply(params, tokens_or_embeds, cfg: ModelConfig, *,
-                      positions, mode: str = "prefill", cache=None,
-                      cache_len=None):
+                      positions, mode: str = "train", cache=None,
+                      cache_len=None, param_hook=None):
     """Returns (hidden_pre_final, aux_loss, new_cache), aux_loss 0 as no
-    ported layer has one."""
+    ported layer has one. ``param_hook(params, klass, *tags)`` sees the
+    embedding table as "embed" and each layer's parameters as "layers"
+    with tags (layer,), or gemma3's (super-block, layer in it), the
+    global layer of a super-block being layer r."""
+    embed = params["embed"]
+    if param_hook is not None:
+        embed = param_hook(embed, "embed")
     if torch.is_floating_point(tokens_or_embeds):
         x = tokens_or_embeds.to(_cdt(cfg))
     else:   # gather, then cast: the same numbers as casting the table
-        x = params["embed"][tokens_or_embeds].to(_cdt(cfg))
+        # (``F.embedding``: its backward sums each row's gradients in a
+        # fixed order on every device, unlike an indexed gather's)
+        x = F.embedding(tokens_or_embeds, embed).to(_cdt(cfg))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     if cfg.local_global_ratio:
         theta_g = cfg.rope_theta_global or cfg.rope_theta
-        n_super = _super_blocks(cfg)
+        r, n_super = cfg.local_global_ratio, _super_blocks(cfg)
 
         def local_fn(lp, h, c):
             return dense_layer_apply(lp, h, cfg, positions=positions,
@@ -264,11 +339,17 @@ def dense_trunk_apply(params, tokens_or_embeds, cfg: ModelConfig, *,
         for si in range(n_super):
             c_l = _index(cache["local"], si) if mode == "decode" else None
             x, nc_l = _run_stack(local_fn, _index(params["local"], si), x,
-                                 c_l, mode)
+                                 c_l, mode, cfg, param_hook, (si,))
             c_g = _index(cache["global"], si) if mode == "decode" else None
-            x, nc_g = global_fn(_index(params["global"], si), x, c_g)
+            # the global layer is hooked as ("layers", si, r)
+            g_fn = _hooked(global_fn, param_hook, (si,))
+            if mode == "train":
+                g_fn = _remat(g_fn, cfg)
+            x, nc_g = g_fn(_index(params["global"], si), r, x, c_g)
             loc.append(nc_l)
             glob.append(nc_g)
+        if mode == "train":
+            return x, aux, None
         if mode == "decode":
             return x, aux, cache
         return x, aux, {"local": _stack_caches(loc),
@@ -279,7 +360,8 @@ def dense_trunk_apply(params, tokens_or_embeds, cfg: ModelConfig, *,
                                  window=cfg.sliding_window,
                                  theta=cfg.rope_theta, mode=mode, cache=c,
                                  cache_len=cache_len)
-    x, new_cache = _run_stack(layer_fn, params["layers"], x, cache, mode)
+    x, new_cache = _run_stack(layer_fn, params["layers"], x, cache, mode,
+                              cfg, param_hook)
     return x, aux, new_cache
 
 

@@ -105,9 +105,21 @@ def test_attention_dispatch():
                       window=4)
     torch.testing.assert_close(got, flash_attention_ref(q, k, v, window=4))
     assert ops.counter.count == before   # CPU tensors: the plain version
-    for impl in ("blocked", "folded"):
-        with pytest.raises(NotImplementedError, match="LM training"):
-            L.attention(q, k, v, pos_q=pos, pos_kv=pos, impl=impl)
+    # the training attention runs and matches the reference's dispatch
+    # (folded here: 2 query blocks of 8; with a window it falls back to
+    # blocked)
+    for impl, w in (("blocked", None), ("blocked", 4), ("folded", None),
+                    ("folded", 4)):
+        got = L.attention(q, k, v, pos_q=pos, pos_kv=pos, impl=impl,
+                          window=w, block_q=8, block_kv=8)
+        want = JL.attention(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                            pos_q=pos.numpy(), pos_kv=pos.numpy(), impl=impl,
+                            window=w, block_q=8, block_kv=8)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+    assert ops.counter.count == before
+    with pytest.raises(ValueError, match="unknown attn_impl"):
+        L.attention(q, k, v, pos_q=pos, pos_kv=pos, impl="dense")
 
 
 @pytest.mark.parametrize("w", [None, 8])

@@ -39,7 +39,8 @@ Cases and tolerances:
   tolerances above (the stale copy as ω); zero-rate faults against the
   unfaulted steps bit for bit; total blackout freezes the whole state bit
   for bit (only ``step`` advances);
-- the refusals, by name (the reference's own, and the LM loss).
+- the refusals, by name (the reference's own, and the LM loss on a
+  model without a vocab head).
 """
 import os
 import pickle
@@ -683,7 +684,9 @@ REFUSALS = {
                   "multi-section layout"),
     "max_section_rows": (dict(max_section_rows=64, use_pallas_ota=False), {},
                          "splits the slab engine"),
-    "lm_loss": ({}, dict(loss_kind="lm"), "item 14.1"),
+    # the LM loss runs now (tests/test_torch_dist_lm.py); a model without
+    # a vocab head is refused it by name
+    "lm_loss": ({}, dict(loss_kind="lm"), "needs a language model"),
     "streaming": (dict(ota_streaming=True), {}, "SIMULATOR engine"),
 }
 

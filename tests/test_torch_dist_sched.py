@@ -445,12 +445,32 @@ def test_axes_registry_and_gather_refusals():
     with pytest.raises(ValueError, match="ota_mode"):
         make_ota_gather(_mesh(0), ("client", "cluster"), ("cluster",), N,
                         C * N, torch.float32, mode="tree")
-    with pytest.raises(NotImplementedError, match="item 14.1"):
-        build_model(ModelConfig(family="dense", d_model=8, n_layers=1,
-                                n_heads=1, n_kv_heads=1, d_ff=8,
-                                vocab_size=8)).trunk_apply(
-            {}, torch.zeros((1, 1), dtype=torch.int64),
-            param_hook=lambda p, *a: p)
+    # the dense trunk takes the hook now: its registry is the
+    # reference's, and the hook sees the embedding, then each layer
+    # tagged as the reference tags it, without changing the output
+    from repro.core.hota import build_axes_registry as jax_registry
+    from repro.models.model import build_model as jax_build_model
+    from repro_torch import configs
+    from repro_torch.models.params import init_params
+    for arch, tags in (("stablelm_3b", [(0,), (1,)]),
+                       ("gemma3_12b", [(0, 0), (0, 1), (0, 2), (1, 0),
+                                       (1, 1), (1, 2)])):
+        cfg = configs.get_smoke_config(arch)
+        dense = build_model(cfg)
+        reg = build_axes_registry(dense)
+        assert reg == jax_registry(jax_build_model(cfg))
+        assert [tuple(a) for a in reg["embed"]] == [("vocab", "embed")]
+        params = init_params(dense.trunk_specs(), rng.PRNGKey(1))
+        seen = []
+
+        def hook(lp, klass, *t):
+            seen.append((klass, t, len(tree_leaves(lp))))
+            return lp
+        tok = torch.arange(8).reshape(1, 8)
+        got = dense.trunk_apply(params, tok, param_hook=hook)[0]
+        assert seen == [("embed", (), 1)] + [
+            ("layers", t, len(reg["layers"])) for t in tags]
+        assert torch.equal(got, dense.trunk_apply(params, tok)[0])
 
 
 @pytest.mark.parametrize("fl_kw", [
