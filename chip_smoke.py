@@ -143,7 +143,7 @@ imports only ``repro_torch`` (never ``jax`` or the JAX package) and runs:
    (16 B per entry against one log, cos and sqrt per entry on the SFUs);
 19. the distributed step (``core.hota_step.make_hota_train_step``) at full
    width: the Table-I MLP on a (2 clusters x 2 clients) mesh of four
-   ranks sharing ``cuda:0`` (``launch.mesh.run_ranks``: spawned processes,
+   ranks sharing ``cuda:0`` (``launch.mesh.run_ranks``: one process per rank,
    gloo on the ranks' CUDA tensors; first a probe that gloo runs
    all-gather and reduce-scatter on CUDA tensors and right, each timed
    beside the same call staged through host tensors),
@@ -255,17 +255,47 @@ imports only ``repro_torch`` (never ``jax`` or the JAX package) and runs:
    in a temporary directory) and once with ``--faults --ckpt-dir <tmp>
    --ckpt-every 1``: finite loss lines for steps 0 and 2, the layout
    line, the participation in the faulted lines, the full state of step
-   2 and the final ω of step 3 restored from its checkpoints.
+   2 and the final ω of step 3 restored from its checkpoints;
+32. phase 9's Fig. 4 bank as a ``ShardedScenarioBank`` on 4 and on 2
+   scenario ranks sharing ``cuda:0`` (the first 4 and 2 ranks of phase
+   33's world of processes over gloo: one start for both
+   phases), client-folded and streaming:
+   ``BANK_ROUNDS`` counted rounds (per scenario round 10 K1 or 100 K5 and
+   1 K2; per rank the round's chunked draws once on client-folded, its
+   scenarios' on streaming; 0 plain draws), every scenario's state and
+   every round's metrics bit for bit phase 9's one-process bank's (sha256
+   of each leaf); per rank the median bank round barrier to barrier
+   (beside phase 9's one-process median and the one-process bank timed
+   again just before the ranks start), one traced round (device-busy ms
+   and launches) and the peak memory; a 4-rank save, a 2-rank restore
+   and one more round, bit for bit; ``run_sweep(scenario_ranks=2)`` of
+   ``SWEEP_ROUNDS`` rounds into a temporary directory equal to the
+   one-process sweep (the wall time aside);
+33. ``DistScenarioBank`` on phase 19's mesh and config, S=4 (σ² 0.5 and
+   2.0 in every cluster, equal weighting, OTA off) on
+   ``DIST_BANK_ROWS`` = 2 scenario rows (8 ranks) and on the first row
+   (4 ranks), all sharing ``cuda:0`` over gloo: ``DIST_STEPS`` counted
+   bank steps (``DIST_LEAVES`` K6 launches per scenario per rank per
+   step in "local", 0 plain draws), 2 rows bit for bit 1 row, each
+   scenario bit for bit phase 19's step given its ``chan``, the fault
+   bank (dropout 0/0.25/0.5, blackout 1: ``skipped``, ``n_participants``,
+   the blackout scenario the identity), a 2-row save restored into the
+   row and stepped once bit for bit, the median bank step and a
+   ``MeshStats`` split per placement beside phase 19's, the peak memory
+   per rank and the time to build the 3-axis mesh's groups.
 
 Every counted run also counts the stream draws: the card's two draw
 kernels and the plain draw, which must stay at 0 on the card.
+
+Before the last lines it stops the ranks' fork server and its resource
+tracker and fails if a process it started still runs.
 
 Any failure exits non-zero. The line before last is the card's name and
 power limit, the one before it the kernels' JSON (K1, K2, K5, K3, K4, K8,
 K6, K7 and the two stream draws, K5 and K6 also with one rank's step of
 ``lm-100m``, ``lm100m_step_ms``; each kernel's ``launches`` sums its
 counts over the main-path runs of phases 5, 9, 11, 12, 13, 16, 19, 20,
-21, 22, 24-28 and 30, over all ranks, and a kernel never launched there fails
+21, 22, 24-28, 30, 32 and 33, over all ranks, and a kernel never launched there fails
 the run; K1, K2, K5 and K6 also carry their fault-mode error); the last
 line is
 ``{"ok": true, "device": {...}}``. An earlier ``[record]`` line holds every
@@ -291,7 +321,7 @@ ROUNDS = 3                # main-path rounds with the counters on
 TIMED_ROUNDS = 10         # rounds for the median round time
 TRACED_ROUNDS = 3         # profiled rounds for the device-time breakdown
 BANK_ROUNDS = 3           # bank rounds per engine with the counters on
-TIMED_BANK_ROUNDS = 5     # bank rounds per engine for the median round
+TIMED_BANK_ROUNDS = 3     # bank rounds per engine for the median round
 ENGINES = {"client_folded": {}, "streaming": {"ota_streaming": True},
            "sectioned": {"ota_sectioned": True},
            "sectioned_streaming": {"ota_sectioned": True,
@@ -310,7 +340,7 @@ RTOL, ATOL = 1e-5, 1e-6
 K34_WIDTHS = (2_097_152, 2_099_200, 135_245)   # fc2.w, fc2 section, small
 BANK_S = 8                # scenarios of the packed and per-leaf banks
 PERLEAF_ROUNDS = 3        # per-leaf rounds with the counters on
-TIMED_PERLEAF_ROUNDS = 5  # per-leaf rounds for the median round time
+TIMED_PERLEAF_ROUNDS = 3  # per-leaf rounds for the median round time
 MASK_ULPS = 16            # per-leaf mask rule: |h² − H_th| within this
 SWEEP_ROUNDS = 2          # run_sweep rounds with the tuner on
 
@@ -334,7 +364,7 @@ DIST_SHAPE = (2, 2)           # (cluster, client): four ranks on one card
 DIST_BATCH = 24               # examples per client
 DIST_CLASSES = 8              # head width
 DIST_STEPS = 3                # counted steps per count mode
-DIST_TIMED_STEPS = 5          # timed steps per count mode
+DIST_TIMED_STEPS = 3          # timed steps per count mode
 DIST_LEAVES = 10              # K6 (or K5) launches per rank per step
 CPU_RANK_THREADS = 2          # intra-op threads of each CPU rank
 
@@ -356,20 +386,27 @@ FAULT_BANK_ROUNDS = 2         # counted fault-bank rounds per engine
 SAMPLE_CPU_POP = 4            # the card round held against the CPU's
 SAMPLE_BANK_POP = 4096        # phase 26's sampled Fig. 4 bank (S=4)
 SAMPLE_CKPT_POP = 256         # phase 26's save/restore (disk I/O kept small)
-SAMPLE_BENCH_ROUNDS = 10      # sample_bench rounds per row, interleaved
+SAMPLE_BENCH_ROUNDS = 6       # sample_bench rounds per row, interleaved
 PERLEAF_MODES = ("scatter", "naive")
 SPLIT_SECTION_ROWS = 4096     # phase 28: splits the Table-I fc2 section
-DIST_BENCH_STEPS = 5          # dist_bench timed steps per engine
+DIST_BENCH_STEPS = 3          # dist_bench timed steps per engine
 
 # phases 29-31: LM training (experiments/train_lm_federated.py's lm-100m)
 LM_BATCH = 4                  # sequences per client
 LM_SEQ = 128                  # tokens per sequence
 LM_RTOL = 1e-4                # card against CPU, float32, TF32 off
 LM_WARMUP = 1                 # warm-up steps per count mode
-LM_STEPS = 5                  # counted steps per count mode
+LM_STEPS = 3                  # counted steps per count mode
 LM_LEAVES = 11                # K6 (or K5) launches per rank per step
 LM_CUT = 2                    # layers of the cut held against CPU ranks
 LAUNCH_STEPS = 3              # launch.train steps (the smoke config)
+
+# phases 32-33: the scenario banks spread over ranks sharing the card
+SHARDED_RANKS = (4, 2)        # phase 32's placements (the world first)
+DIST_BANK_ROWS = 2            # phase 33: scenario rows of phase 19's mesh
+DIST_BANK_SCENARIOS = [dict(sigma2=(0.5,) * DIST_SHAPE[0]),   # phase 33:
+                       dict(sigma2=(2.0,) * DIST_SHAPE[0]),   # the reference
+                       dict(weighting="equal"), dict(ota=False)]  # program's
 
 # the stream draws (phase 10): the card's kernel and the plain draw
 DRAW_NAMES = ("threefry_chunked", "threefry_flat", "stream_draw_plain")
@@ -1327,10 +1364,16 @@ def tuner_phase(sim, batcher, dev, record, counters):
         else:
             os.environ[layout_tune.CACHE_ENV] = cache_prev
         shutil.rmtree(tmp, ignore_errors=True)
-    record["tuned_sweep_draws"] = take_draws("tuned sweep", launches)
+    draws = record["tuned_sweep_draws"] = take_draws("tuned sweep", launches)
     if launches != want:
         fail(f"tuned sweep on {choice.describe()}: launches {launches}, "
              f"expected {want}")
+    # one gain and one noise draw per section per round: the count follows
+    # the winner's layout, which the calibration's timings pick
+    n_draws = 0 if packer is None else 2 * len(packer.sections) * SWEEP_ROUNDS
+    if packer is not None and draws.get("threefry_chunked") != n_draws:
+        fail(f"tuned sweep on {choice.describe()}: {draws} stream draws, "
+             f"expected {n_draws} chunked ones")
     for name, r in res.items():
         if r["layout"] != choice.describe():
             fail(f"tuned sweep ran {name} on {r['layout']}, not on the "
@@ -3853,6 +3896,577 @@ def launcher_phase(dev, record):
     record["launcher"] = rec
 
 
+# --------------------------------------------------------------------------
+# phases 32-33: the scenario banks spread over ranks sharing the card
+# --------------------------------------------------------------------------
+
+def _mesh_sync(mesh):
+    """Every rank of ``mesh`` synchronized and at a barrier of the mesh's
+    own group (a mesh on the first ranks of a world leaves the others
+    out)."""
+    import torch
+    import torch.distributed as dist
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+    dist.barrier(group=mesh.group(mesh.axis_names)[0])
+
+
+def _digests(states, n_rows):
+    """Per row of a banked state, the sha256 of each leaf's bytes (bit for
+    bit comparisons across processes without moving the states)."""
+    import hashlib
+    from repro_torch.checkpoint.store import flatten
+    leaves = [t.detach().cpu().contiguous() for t in flatten(states)]
+    return [[hashlib.sha256(t[s].numpy().tobytes()).hexdigest()
+             for t in leaves] for s in range(n_rows)]
+
+
+def _timed_rounds(mesh, step, state, inputs, traced: bool):
+    """Bank rounds barrier to barrier on ``mesh`` (host ms each), and,
+    when ``traced``, one more under the profiler: (state, times, {device
+    busy ms, device launches, traced ms})."""
+    import torch
+    times = []
+    for x, y, k in inputs:
+        _mesh_sync(mesh)
+        t0 = time.perf_counter()
+        state = step(state, x, y, k)
+        _mesh_sync(mesh)
+        times.append((time.perf_counter() - t0) * 1e3)
+    trace = None
+    if traced:
+        x, y, k = inputs[-1]
+        _mesh_sync(mesh)
+        with device_trace() as prof:
+            t0 = time.perf_counter()
+            state = step(state, x, y, k)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        ev = device_events(prof)
+        trace = {"traced_ms": wall, "device_launches": sum(e.count
+                                                           for e in ev),
+                 "device_busy_ms": sum(e.self_device_time_total
+                                       for e in ev) / 1e3}
+        _mesh_sync(mesh)
+    return state, times, trace
+
+
+def _sharded_rank(meshes, fl, lr, n_cls, specs, batches, keys, timed,
+                  extra, ckpt_dir):
+    """One rank of phase 32: Fig. 4's bank split over each scenario mesh
+    of ``meshes`` that holds this rank (``SHARDED_RANKS``: 4 ranks, then
+    the first 2), on the client-folded and streaming engines: counted
+    rounds, the rows' digests, timed and traced rounds and the peak
+    memory; the 4-rank client-folded bank saves, the 2-rank one restores,
+    and both run one more round."""
+    import dataclasses
+    import torch
+    from repro_torch import rng
+    from repro_torch.common.config import ModelConfig, TrainConfig
+    from repro_torch.core.sim import HotaSim
+    from repro_torch.core.sweep import ShardedScenarioBank
+    from repro_torch.models.model import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    model = build_model(ModelConfig(family="mlp"))
+    counters = _dist_counters()
+    first, pair = meshes
+    out = {"seconds": {}}
+    for m in meshes:
+        if m is None:
+            continue
+        rec = out[m.size] = {}
+        out["seconds"][f"{m.size}_set_up"] = time.perf_counter() - t_start
+        t_start = time.perf_counter()
+        for name in ("client_folded", "streaming"):
+            sim = HotaSim(model, dataclasses.replace(fl, **ENGINES[name]),
+                          TrainConfig(lr=lr), n_cls, device=m.device)
+            bank = ShardedScenarioBank(sim, specs, m)
+            if m is pair and name == "client_folded":
+                _mesh_sync(m)
+                restored = bank.restore(ckpt_dir, BANK_ROUNDS)
+                nxt, _ = bank.step(restored, *extra)
+                out["restored_next"] = _digests(nxt, bank.n_local)
+            st = bank.init(rng.PRNGKey(0))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(m.device)
+            _mesh_sync(m)
+            for ctr in counters:
+                ctr.reset()
+            st, hist = bank.run(st, batches, keys)
+            _mesh_sync(m)
+            r = {"launches": {ctr.name: ctr.count for ctr in counters},
+                 "hist": {k: v.cpu() for k, v in hist.items()},
+                 "rows": _digests(st, bank.n_local)}
+            if m is first and name == "client_folded":
+                bank.save(ckpt_dir, BANK_ROUNDS, st)
+                nxt, _ = bank.step(st, *extra)
+                out["saved_next"] = _digests(nxt, bank.n_local)
+            t1 = time.perf_counter()
+            _, r["round_ms"], r["trace"] = _timed_rounds(
+                m, lambda s, x, y, k: bank.step(s, x, y, k)[0], st, timed,
+                traced=True)
+            r["peak_bytes"] = torch.cuda.max_memory_allocated(m.device)
+            out["seconds"][f"{m.size}_{name}_counted"] = t1 - t_start
+            out["seconds"][f"{m.size}_{name}_timed"] = time.perf_counter() - t1
+            t_start = time.perf_counter()
+            rec[name] = r
+            del bank, st
+            torch.cuda.empty_cache()
+    return out
+
+
+def _sharded_inputs(banks, batcher):
+    """Phase 32's timed and extra rounds, and phase 9's one-process banks
+    timed again on those rounds just before the ranks start (host speed
+    drifts over a call): (timed, extra, {engine: median ms})."""
+    from repro_torch import rng
+    timed = [batcher.next_stacked() + (rng.PRNGKey(200 + r),)
+             for r in range(TIMED_BANK_ROUNDS)]
+    extra = batcher.next_stacked() + (rng.PRNGKey(300),)
+    again = {}
+    for name in ("client_folded", "streaming"):
+        bank, st1 = banks[name][:2]
+        again[name] = statistics.median(host_ms(
+            lambda: bank.step(st1, x, y, k)) for x, y, k in timed)
+    return timed, extra, again
+
+
+def _check_sharded(res, sim, banks, record, n_leaves, again):
+    """Phase 32's checks on its ranks' results: the counts, every scenario
+    and every round's metrics against phase 9's one-process bank, the
+    4-rank save restored into 2 ranks. Returns the counted launches,
+    summed over the ranks."""
+    import torch
+    s_n = banks["client_folded"][0].n_scenarios
+    c = sim.fl.n_clusters
+    total, rec = {}, {"rank0_seconds": res[0]["seconds"]}
+    for name in ("client_folded", "streaming"):
+        _, st1, hist1, _ = banks[name]
+        want_rows = _digests(st1, s_n)
+        # phase 9's chunked draws per bank round: the round's streams once
+        # (client-folded), or per scenario inside its step (streaming)
+        draws1 = record["bank"][name]["draws_per_bank_round"][
+            "threefry_chunked"] * BANK_ROUNDS
+        for n_r in SHARDED_RANKS:
+            s_loc = s_n // n_r
+            ranks = [r[n_r][name] for r in res if n_r in r]
+            per = s_loc * BANK_ROUNDS
+            want = {k: 0 for k in ranks[0]["launches"]
+                    if k not in DRAW_NAMES}
+            want["masked_gradnorm"] = per
+            if name == "streaming":
+                want["ota_mask_weight"] = c * n_leaves * per
+                want_draws = draws1 * s_loc // s_n
+            else:
+                want["ota_client_fold"] = n_leaves * per
+                want_draws = draws1
+            row = {"round_ms_per_rank": [], "peak_bytes_per_rank": [],
+                   "traced_per_rank": []}
+            for r, got in enumerate(ranks):
+                launches = dict(got["launches"])
+                draws = take_draws(f"sharded bank {name} on {n_r} ranks, "
+                                   f"rank {r}", launches)
+                if launches != want or draws["threefry_chunked"] \
+                        != want_draws or draws["threefry_flat"]:
+                    fail(f"sharded bank {name} on {n_r} ranks, rank {r}: "
+                         f"launches {launches}, draws {draws}, expected "
+                         f"{want} and {want_draws} chunked draws")
+                for k, v in launches.items():
+                    total[k] = total.get(k, 0) + v
+                for k in hist1:
+                    if not torch.equal(got["hist"][k], hist1[k].cpu()):
+                        fail(f"sharded bank {name} on {n_r} ranks, rank "
+                             f"{r}: metric {k} differs from the one-process "
+                             f"bank's")
+                if got["rows"] != want_rows[r * s_loc:(r + 1) * s_loc]:
+                    fail(f"sharded bank {name} on {n_r} ranks, rank {r}: "
+                         f"its scenarios' states differ from the "
+                         f"one-process bank's")
+                row["round_ms_per_rank"].append(got["round_ms"])
+                row["peak_bytes_per_rank"].append(got["peak_bytes"])
+                row["traced_per_rank"].append(got["trace"])
+            row.update(launches_per_rank=ranks[0]["launches"],
+                       chunked_draws_per_rank=want_draws,
+                       round_ms_median=statistics.median(
+                           ranks[0]["round_ms"]),
+                       one_process_round_ms_median=record["bank"][name][
+                           "round_ms_median"],
+                       one_process_again_ms_median=again[name],
+                       one_process_device_busy_ms=record["bank"][name][
+                           "device_busy_ms"],
+                       bits_equal=True)
+            rec[f"{name}_{n_r}_ranks"] = row
+            log(f"[sharded bank] {name} on {n_r} ranks sharing the card: "
+                f"every scenario bit for bit the one-process bank's; "
+                f"launches per rank {ranks[0]['launches']}; median bank "
+                f"round {row['round_ms_median']:.2f} ms (one process "
+                f"{row['one_process_round_ms_median']:.2f} in phase 9, "
+                f"{again[name]:.2f} just before the ranks); traced per "
+                f"rank {row['traced_per_rank']}; peak bytes per rank "
+                f"{row['peak_bytes_per_rank']}")
+    log(f"[sharded bank] rank 0's seconds: {res[0]['seconds']}")
+    saved = [d for r in res for d in r["saved_next"]]
+    restored = [d for r in res if "restored_next" in r
+                for d in r["restored_next"]]
+    if saved != restored:
+        fail("sharded bank: the 2-rank restore of the 4-rank checkpoint "
+             "continued differently")
+    rec["checkpoint_4_to_2_bit_for_bit"] = True
+    record["sharded_bank"] = rec
+    return total
+
+
+def _check_sweep_on_ranks(sim, dev, record):
+    """Phase 32's last check: ``run_sweep(scenario_ranks=2)`` of
+    ``SWEEP_ROUNDS`` rounds against the one-process sweep, both into a
+    temporary directory (the results' wall time aside)."""
+    import tempfile
+    from repro_torch.experiments import paper_common
+    from repro_torch.experiments.fig4_diverse_sigma import (
+        experiments as fig4_experiments,
+    )
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        kw = dict(steps=SWEEP_ROUNDS, n_clusters=sim.fl.n_clusters,
+                  n_clients=sim.fl.n_clients, force=True, log_every=1,
+                  tune=False, device=dev)
+        one = paper_common.run_sweep(fig4_experiments(),
+                                     results_dir=os.path.join(d, "one"),
+                                     **kw)
+        t1 = time.perf_counter()
+        two = paper_common.run_sweep(fig4_experiments(),
+                                     results_dir=os.path.join(d, "two"),
+                                     scenario_ranks=2, **kw)
+        t2 = time.perf_counter()
+    for n in one:
+        a, b = dict(one[n]), dict(two[n])
+        a.pop("wall_s"), b.pop("wall_s")
+        if a != b:
+            fail(f"run_sweep(scenario_ranks=2): {n} differs from the "
+                 f"one-process sweep")
+    record["sharded_bank"]["run_sweep"] = {
+        "rounds": SWEEP_ROUNDS, "equal": True, "one_process_s": t1 - t0,
+        "two_ranks_s": t2 - t1}
+    log(f"[sharded bank] 4-rank save, 2-rank restore, one more round: bit "
+        f"for bit; run_sweep(scenario_ranks=2) of {SWEEP_ROUNDS} rounds "
+        f"equal to the one-process sweep ({t2 - t1:.1f} s against "
+        f"{t1 - t0:.1f} s, set-up included)")
+
+
+def _dist_bank_rank(mesh, ckpt_dir):
+    """One rank of phase 33: ``DistScenarioBank`` on the world's 2 rows
+    and on its first row, counted, against each other and (on the first
+    row) the 1-D step given each scenario's ``chan``; the fault bank; a
+    2-row save restored into the row; timed and split steps; the peak
+    memory and the cost of building a 3-axis mesh's groups."""
+    import torch
+    from repro_torch import rng
+    from repro_torch.common.config import FLConfig
+    from repro_torch.core.channel import channel_params
+    from repro_torch.core.hota_step import make_hota_train_step
+    from repro_torch.core.sweep import DistScenarioBank
+    from repro_torch.launch.mesh import make_dist_scenario_mesh
+    from repro_torch.sharding.collectives import MeshStats
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model, _, tcfg, x, y, keys = _dist_setup(mesh)
+    scenarios = DIST_BANK_SCENARIOS
+    fl_kw = dict(n_clusters=DIST_SHAPE[0], n_clients=DIST_SHAPE[1])
+    fl = FLConfig(**fl_kw)
+    c, n = fl.n_clusters, fl.n_clients
+    counters = _dist_counters()
+    t0 = time.perf_counter()
+    row = make_dist_scenario_mesh(c, n, 1, "cuda")
+    out = {"prefix_mesh_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    make_dist_scenario_mesh(c, n, mesh.shape["scenario"], "cuda")
+    out["world_mesh_s"] = time.perf_counter() - t0
+    s_n = len(scenarios)
+    states = {}
+    for m in (mesh, row):
+        if m is None:
+            continue
+        bank = DistScenarioBank(model, fl, tcfg, scenarios, m,
+                                loss_kind="cls", n_out=DIST_CLASSES,
+                                count_mode="local")
+        st = bank.init(rng.PRNGKey(0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(m.device)
+        _mesh_sync(m)
+        for ctr in counters:
+            ctr.reset()
+        ms = []
+        for s in range(DIST_STEPS):
+            st, mt = bank.step(st, x, y, keys[s])
+            ms.append({k: v.cpu() for k, v in mt.items()})
+        _mesh_sync(m)
+        rec = {"launches": {ctr.name: ctr.count for ctr in counters},
+               "metrics": ms}
+        # every scenario's state on every rank (a collective of the mesh)
+        rec["scenarios"] = [_digests(_one_row(
+            bank.scenario_state(st, s)), 1)[0] for s in range(s_n)]
+        if m is mesh:
+            bank.save(ckpt_dir, DIST_STEPS, st)
+        else:
+            st_r = bank.restore(ckpt_dir, DIST_STEPS)
+            rec["restored_equal"] = _digests(st_r, bank.n_local) == \
+                _digests(st, bank.n_local)
+        nxt, _ = bank.step(st if m is mesh else st_r, x, y,
+                           keys[DIST_STEPS])
+        rec["next"] = [_digests(_one_row(bank.scenario_state(nxt, s)),
+                                1)[0] for s in range(s_n)]
+        times = []
+        for s in range(DIST_TIMED_STEPS):
+            _mesh_sync(m)
+            t0 = time.perf_counter()
+            st, _ = bank.step(st, x, y, keys[DIST_STEPS + s])
+            _mesh_sync(m)
+            times.append((time.perf_counter() - t0) * 1e3)
+        m.stats = MeshStats()
+        _mesh_sync(m)
+        t0 = time.perf_counter()
+        st, _ = bank.step(st, x, y, keys[-1])
+        _mesh_sync(m)
+        rec["stats_step_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["stats"] = {"seconds": m.stats.seconds, "calls": m.stats.calls,
+                        "bytes": m.stats.bytes}
+        m.stats = None
+        rec["step_ms"] = times
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated(m.device)
+        out[m.shape["scenario"]] = rec
+        del bank, st
+    if row is not None:
+        # the 1-D step (phase 19's) given each scenario's chan
+        init_fn, step_fn, _, _ = make_hota_train_step(
+            model, row, fl, tcfg, loss_kind="cls", n_out=DIST_CLASSES,
+            count_mode="local")
+        out["oracle"] = []
+        for sc in scenarios:
+            chan = channel_params(FLConfig(**dict(fl_kw, **sc)),
+                                  device=row.device)
+            so = init_fn(rng.PRNGKey(0))
+            for s in range(DIST_STEPS):
+                so, _ = step_fn(so, x, y, keys[s], chan)
+            out["oracle"].append(_digests(_one_row(so), 1)[0])
+    # the fault bank on the 2 rows
+    fbank = DistScenarioBank(model, FLConfig(**dict(fl_kw, faults=True)),
+                             tcfg, FAULT_BANK, mesh, loss_kind="cls",
+                             n_out=DIST_CLASSES, count_mode="local")
+    st0 = fbank.init(rng.PRNGKey(0))
+    st = st0
+    fm = []
+    for s in range(FAULT_BANK_ROUNDS):
+        st, mt = fbank.step(st, x, y, keys[s])
+        fm.append({k: v.cpu() for k, v in mt.items()})
+    out["faults"] = {"metrics": fm, "identity": [
+        _digests(st._replace(step=st0.step), fbank.n_local)[i]
+        == _digests(st0, fbank.n_local)[i] for i in range(fbank.n_local)]}
+    return out
+
+
+def _one_row(state):
+    """An unbatched state with a leading axis of one row."""
+    from repro_torch.common.tree import state_map
+    return state_map(lambda t: t.unsqueeze(0), state)
+
+
+def _check_dist(res, record):
+    """Phase 33's checks on its ranks' results: the counts, 2 rows against
+    1 row and the 1-D step, the 2-row checkpoint into the row, the fault
+    bank; its timings beside phase 19's step. Returns the counted
+    launches, summed over the ranks."""
+    import torch
+    rows = DIST_BANK_ROWS
+    scenarios = DIST_BANK_SCENARIOS
+    s_n = len(scenarios)
+    per_row = DIST_SHAPE[0] * DIST_SHAPE[1]
+    total, rec = {}, {"ranks": rows * per_row,
+                      "prefix_mesh_s": res[0]["prefix_mesh_s"],
+                      "world_mesh_s": res[0]["world_mesh_s"]}
+    for n_rows in (rows, 1):
+        ranks = [r[n_rows] for r in res if n_rows in r]
+        s_loc = s_n // n_rows
+        for r, got in enumerate(ranks):
+            launches = dict(got["launches"])
+            take_draws(f"dist bank on {n_rows} rows, rank {r}", launches)
+            want = {k: 0 for k in launches}
+            want["ota_mask_count"] = DIST_LEAVES * s_loc * DIST_STEPS
+            if launches != want:
+                fail(f"dist bank on {n_rows} rows, rank {r}: launches "
+                     f"{launches}, expected {want}")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            for mt in got["metrics"]:
+                if not all(bool(torch.isfinite(v).all()) for v in mt.values()):
+                    fail(f"dist bank on {n_rows} rows: non-finite metrics")
+        g0 = ranks[0]
+        st = {k: g0["stats"]["seconds"].get(k, 0.0) * 1e3
+              for k in ("collective", "draw")}
+        rec[f"{n_rows}_rows"] = {
+            "launches_per_rank": g0["launches"],
+            "step_ms": g0["step_ms"],
+            "step_ms_median": statistics.median(g0["step_ms"]),
+            "stats_step_ms": g0["stats_step_ms"],
+            "collective_ms": st["collective"], "draw_ms": st["draw"],
+            "collective_calls": g0["stats"]["calls"].get("collective", 0),
+            "collective_bytes": g0["stats"]["bytes"].get("collective", 0),
+            "rest_ms": g0["stats_step_ms"] - st["collective"] - st["draw"],
+            "peak_bytes_per_rank": [g["peak_bytes"] for g in ranks]}
+    # 2 rows against 1 row, and against the 1-D step, on the first row
+    for r in range(per_row):
+        two, one = res[r][rows], res[r][1]
+        if two["scenarios"] != one["scenarios"] or any(
+                not torch.equal(a[k], b[k]) for a, b in zip(
+                    two["metrics"], one["metrics"]) for k in a):
+            fail(f"dist bank rank {r}: 2 rows differ from 1 row")
+        if one["scenarios"] != res[r]["oracle"]:
+            fail(f"dist bank rank {r}: a scenario differs from the 1-D step "
+                 f"given its chan")
+        if not one["restored_equal"] or one["next"] != two["next"]:
+            fail(f"dist bank rank {r}: the 1-row restore of the 2-row "
+                 f"checkpoint continued differently")
+    fm = res[0]["faults"]["metrics"][-1]
+    skipped, n_part = fm["skipped"].tolist(), fm["n_participants"].tolist()
+    # the blackout scenario (the last) on its row's ranks: the identity
+    blk_row, blk_i = divmod(len(FAULT_BANK) - 1, len(FAULT_BANK) // rows)
+    black = [r["faults"]["identity"][blk_i]
+             for i, r in enumerate(res) if i // per_row == blk_row]
+    if skipped[0] != 0.0 or skipped[-1] != 1.0 or n_part[0] != per_row \
+            or n_part[-1] != 0.0 or not all(black):
+        fail(f"dist fault bank: skipped {skipped}, participants {n_part}, "
+             f"blackout identity on its row's ranks {black}")
+    rec.update(faults={"skipped": skipped, "n_participants": n_part,
+                       "blackout_identity": True},
+               two_rows_equal_one_row=True, scenarios_equal_1d_step=True,
+               checkpoint_2_to_1_bit_for_bit=True,
+               phase19_step_ms_median=record["dist"]["local"][
+                   "step_ms_median"],
+               phase19_collective_calls=record["dist"]["local"][
+                   "collective_calls"],
+               phase19_collective_bytes=record["dist"]["local"][
+                   "collective_bytes"])
+    for n_rows in (rows, 1):
+        r = rec[f"{n_rows}_rows"]
+        log(f"[dist bank] {n_rows} row(s), {n_rows * per_row} ranks: launches "
+            f"per rank {r['launches_per_rank']}; bank step median "
+            f"{r['step_ms_median']:.2f} ms (all "
+            f"{['%.2f' % t for t in r['step_ms']]}); a split step "
+            f"{r['stats_step_ms']:.2f} ms: collectives "
+            f"{r['collective_ms']:.2f} ms in {r['collective_calls']} calls "
+            f"({r['collective_bytes'] / 1e6:.1f} MB per rank), draws "
+            f"{r['draw_ms']:.2f}, the rest {r['rest_ms']:.2f}; peak bytes "
+            f"per rank {r['peak_bytes_per_rank']}")
+    log(f"[dist bank] 2 rows == 1 row and each scenario == the 1-D step, bit "
+        f"for bit; 2-row save -> 1-row restore -> one step bit for bit; "
+        f"fault bank skipped {skipped}, participants {n_part}, blackout the "
+        f"identity; phase 19's step {rec['phase19_step_ms_median']:.2f} ms; "
+        f"groups of the 3-axis mesh on {rows * per_row} ranks "
+        f"{rec['world_mesh_s']:.2f} s (the 1-row prefix "
+        f"{rec['prefix_mesh_s']:.2f} s)")
+    record["dist_bank"] = rec
+    return total
+
+
+
+
+def _scenario_banks_rank(mesh, t_spawn, sharded_args, dist_ckpt):
+    """One rank of phases 32-33's world (``DIST_BANK_ROWS`` x 2 x 2 ranks
+    sharing the card): phase 32 on the world's first ``SHARDED_RANKS``
+    ranks (every rank builds those meshes' groups), then phase 33 on all
+    of it. Records the seconds from the call to this rank's start."""
+    from repro_torch.launch.mesh import make_scenario_mesh
+    out = {"spawn_s": time.time() - t_spawn}
+    meshes = tuple(make_scenario_mesh(n, "cuda") for n in SHARDED_RANKS)
+    t0 = time.perf_counter()
+    if meshes[0] is not None:
+        out["sharded"] = _sharded_rank(meshes, *sharded_args)
+    out["sharded_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["dist"] = _dist_bank_rank(mesh, dist_ckpt)
+    out["dist_s"] = time.perf_counter() - t0
+    return out
+
+
+def scenario_banks_phase(sim, banks, batches, keys, batcher, dev, record,
+                         n_leaves):
+    """Phases 32-33, in one world of ``DIST_BANK_ROWS`` x 2 x 2 ranks
+    sharing ``cuda:0`` over gloo (one start for both).
+
+    32: Fig. 4's S=4 bank of phase 9 as a ``ShardedScenarioBank`` on 4
+    and on 2 scenario ranks, client-folded and streaming: counted rounds
+    (per scenario round 10 K1 or 100 K5 and 1 K2, the round's stream
+    draws once per rank, 0 plain draws), every scenario bit for bit phase
+    9's one-process bank; the median bank round barrier to barrier beside
+    phase 9's one-process median and the one-process bank timed again
+    just before the ranks start, one traced round per rank and the peak
+    memory per rank; a 4-rank save, a 2-rank restore and one more round,
+    bit for bit; and ``run_sweep(scenario_ranks=2)`` against the
+    one-process sweep.
+
+    33: ``DistScenarioBank`` on phase 19's FL mesh (2 clusters x 2
+    clients, 24 examples per client, the Table-I MLP): S=4 (σ² 0.5 and
+    2.0 in every cluster, equal weighting, OTA off) on 2 scenario rows (8
+    ranks) and on 1 row (the first 4). Counted steps (``DIST_LEAVES`` K6
+    launches per scenario per rank per bank step, 0 plain draws), 2 rows
+    bit for bit 1 row, each scenario bit for bit phase 19's step given its
+    ``chan``, the fault bank (``skipped`` and ``n_participants``;
+    blackout the identity), a 2-row save restored into the row and
+    continued bit for bit, the median bank step and a ``MeshStats`` split
+    beside phase 19's step, the peak memory per rank.
+
+    Returns the counted launches of both, summed over the ranks."""
+    import tempfile
+    import torch
+    from repro_torch.experiments.fig4_diverse_sigma import (
+        experiments as fig4_experiments,
+    )
+    from repro_torch.launch.mesh import run_ranks
+    timed, extra, again = _sharded_inputs(banks, batcher)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ck32, \
+            tempfile.TemporaryDirectory() as ck33:
+        sharded_args = (sim.fl, sim.tcfg.lr, sim.n_classes.tolist(),
+                        list(fig4_experiments().values()), batches, keys,
+                        timed, extra, ck32)
+        res = run_ranks(_scenario_banks_rank,
+                        (time.time(), sharded_args, ck33),
+                        shape=(DIST_BANK_ROWS,) + DIST_SHAPE,
+                        axes=("scenario", "cluster", "client"),
+                        device="cuda", timeout_s=900)
+    world_s = time.perf_counter() - t0
+    total = _check_sharded([r["sharded"] for r in res if "sharded" in r],
+                           sim, banks, record, n_leaves, again)
+    for k, v in _check_dist([r["dist"] for r in res], record).items():
+        total[k] = total.get(k, 0) + v
+    record["scenario_banks_world"] = {
+        "world_s": world_s, "spawn_s": [r["spawn_s"] for r in res],
+        "phase32_s": res[0]["sharded_s"], "phase33_s": res[0]["dist_s"]}
+    log(f"[scenario banks] the world of {len(res)} ranks {world_s:.1f} s: "
+        f"the call to each rank's start "
+        f"{['%.1f' % r['spawn_s'] for r in res]} s, phase 32 {res[0]['sharded_s']:.1f} s and phase 33 "
+        f"{res[0]['dist_s']:.1f} s on rank 0")
+    _check_sweep_on_ranks(sim, dev, record)
+    return total
+
+
+def _stop_children() -> None:
+    """Stop the ranks' fork server and its resource tracker (they would
+    otherwise outlive the script by a second or more), then fail if any
+    process this script started still runs."""
+    from repro_torch.launch.mesh import stop_fork_server
+    stop_fork_server()
+    task = f"/proc/{os.getpid()}/task"
+    left = [c for t in os.listdir(task)
+            for c in open(f"{task}/{t}/children").read().split()]
+    if left:
+        fail(f"processes still running at the end: {left}")
+    log("[processes] the fork server and resource tracker stopped; no "
+        "child process left")
+
+
 def sc2_config():
     """StarCoder2-3B's full-size config (30 layers, d_model 3072)."""
     from repro_torch.configs import get_config
@@ -3888,9 +4502,17 @@ def main() -> None:
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    record = {"tf32": False}
+    record = {"tf32": False, "phase_s": {}}
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; TF32 off for "
         f"matmul and cuDNN")
+    t_lap = [time.perf_counter()]
+
+    def lap(phases: str) -> None:
+        """Record the wall seconds since the last lap under ``phases``."""
+        now = time.perf_counter()
+        record["phase_s"][phases] = now - t_lap[0]
+        log(f"[phase time] {phases}: {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
 
     # --- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -4215,6 +4837,8 @@ def main() -> None:
     for t, k, n in rows[:15]:
         log(f"  {t:9.4f} ms  x{n:<4} {k[:100]}")
 
+    lap("1-7")
+
     # --- 8. the four engines on one round's gradients ----------------------
     sims = engine_sims(sim, fl, dev)
     check_engines(sims, st_t, batcher.next_stacked(),
@@ -4313,6 +4937,8 @@ def main() -> None:
     if min(k5["ms"], k5["plain_ms"]) <= 0.0:
         fail("no device time measured for K5")
 
+    lap("8-9")
+
     # --- 10. the stream draws, K3 and K4 against their plain versions ------
     draw_chunked, draw_flat = check_draws(dev, c, packer, chan_key, record)
     k3_err, k4_err = check_k34(dev, c, record)
@@ -4323,34 +4949,48 @@ def main() -> None:
     for k_name, v in got.items():
         total[k_name] += v
 
+    lap("10-11")
+
     # --- 12. the per-leaf oracle's round ------------------------------------
     got = perleaf_phase(sim, batcher, key0, dev, record, counters)
     for k_name, v in got.items():
         total[k_name] += v
+
+    lap("12")
 
     # --- 13. the layout tuner and a tuned sweep -----------------------------
     got = tuner_phase(sim, batcher, dev, record, counters)
     for k_name, v in got.items():
         total[k_name] += v
 
+    lap("13")
+
     # --- 14-16. serving StarCoder2-3B at full width on K8 -------------------
     from repro_torch.kernels.flash_attention import ops as k8
     k8_err, k8_rec = k8_phase(dev, record)
+    lap("14")
     cut_phase(dev, record)
+    lap("15")
     got = serve_phase(dev, record, counters + (k8.counter,))
     for k_name, v in got.items():
         total[k_name] = total.get(k_name, 0) + v
+
+    lap("16")
 
     # --- 17-18. K6 and K7 against their plain versions ----------------------
     gen_d = torch.Generator(device=dev).manual_seed(17)
     k6, k6_err = check_k6(dev, gen_d, record)
     k7 = check_k7(dev, gen_d, record)
 
+    lap("17-18")
+
     # --- 19-20. gloo on CUDA tensors, the distributed step, the ω̃ gather ---
     gloo_probe_phase(dev, record)
     got = dist_phase(dev, record)
     for k_name, v in got.items():
         total[k_name] = total.get(k_name, 0) + v
+
+    lap("19-20")
 
     # --- 21-24. faults, the fault bank, checkpoints, the faulted step ------
     got, k2_fault_err, k5_fault_err = faults_phase(sim, batcher, key0, dev,
@@ -4364,6 +5004,8 @@ def main() -> None:
     for k_name, v in got.items():
         total[k_name] = total.get(k_name, 0) + v
 
+    lap("21-24")
+
     # --- 25-28. sampling, the sampled bank, per-leaf and sectioned steps ---
     for got in (sampled_phase(sim, batcher, key0, dev, record, counters),
                 sampled_bank_phase(sim, batcher, dev, record, counters),
@@ -4372,12 +5014,24 @@ def main() -> None:
         for k_name, v in got.items():
             total[k_name] = total.get(k_name, 0) + v
 
+    lap("25-28")
+
     # --- 29-31. LM training: the pieces, the lm-100m step, the launcher ----
     lm_pieces_phase(dev, record)
+    lap("29")
     for k_name, v in lm_dist_phase(dev, record).items():
         total[k_name] = total.get(k_name, 0) + v
     lm_kernel_timing(dev, record)
+    lap("30")
     launcher_phase(dev, record)
+    lap("31")
+
+    # --- 32-33. the scenario banks spread over ranks sharing the card -------
+    for k_name, v in scenario_banks_phase(sim, banks, bank_batches,
+                                          bank_keys, batcher, dev, record,
+                                          len(runs)).items():
+        total[k_name] = total.get(k_name, 0) + v
+    lap("32-33")
     if "jax" in sys.modules or "repro" in sys.modules:
         fail("the JAX package was imported")
 
@@ -4481,6 +5135,7 @@ def main() -> None:
     idle = [kn["name"] for kn in kernels if kn["launches"] <= 0]
     if idle:
         fail(f"kernels of the path never launched on it: {idle}")
+    _stop_children()
     record.update(card=card, kind=kind)
     log("[record] " + json.dumps(record))
     print(json.dumps({"kernels": kernels}))

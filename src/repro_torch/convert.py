@@ -17,7 +17,10 @@ A distributed ``HotaState`` (``hota_state_from_numpy``) is global; each
 rank takes its piece, and ``hota_state_to_numpy`` gathers the ranks'
 pieces back into the reference's global numpy state (a checkpoint of
 the port's launcher restores in the reference). A bank's state is the same structure with a
-leading (S,) axis on every leaf.
+leading (S,) axis on every leaf; a ``DistScenarioBank``'s global state
+(``dist_bank_state_from_numpy``/``_to_numpy``) is the distributed one
+with that axis, which each rank holds as (S/n_rows, ...) stacks of its
+shards.
 
 An LM's parameters (``init_params`` of the reference's ``trunk_specs``,
 ``final_specs`` or ``head_specs``) are nested dicts with stacked layer
@@ -36,6 +39,7 @@ from repro_torch.core.hota_step import HotaState, gather_state, shard_state
 from repro_torch.core.sampling import ClientBank, SampledSimState
 from repro_torch.core.sim import SimState
 from repro_torch.optim.adam import AdamState, SlabAdamState
+from repro_torch.sharding.mesh_utils import scenario_banked_tree
 
 
 def _tensor(x, device, dtype=None):
@@ -190,3 +194,20 @@ def hota_state_to_numpy(state, specs, mesh):
     alone, for the launcher's final checkpoint)."""
     return state_map(lambda t: t.detach().cpu().numpy(),
                      gather_state(state, specs, mesh))
+
+
+def dist_bank_state_from_numpy(states, mesh, rank: int, device, specs):
+    """Rank ``rank``'s stacks of a reference ``DistScenarioBank`` state
+    (the (S,)-banked global ``HotaState``, turned into numpy): the rows of
+    its scenario row, each cut as ``hota_state_from_numpy`` cuts a
+    distributed state (``specs`` the step's ``state_specs``, unbanked)."""
+    return hota_state_from_numpy(states, mesh, rank, device,
+                                 scenario_banked_tree(specs))
+
+
+def dist_bank_state_to_numpy(states, specs, mesh):
+    """The reference's (S,)-banked global ``HotaState`` of which
+    ``states`` is this rank's stacks (``specs`` unbanked, as above), its
+    leaves numpy arrays. Every rank of the mesh must call it
+    (all-gathers over "scenario" and the FL axes)."""
+    return hota_state_to_numpy(states, scenario_banked_tree(specs), mesh)

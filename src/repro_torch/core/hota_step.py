@@ -156,6 +156,7 @@ class HotaState(NamedTuple):
 class StepParts(NamedTuple):
     """The round body and what a harness needs to lay it on a mesh."""
     init_fn: Callable       # init_fn(key) -> this rank's HotaState
+    abstract_fn: Callable   # abstract_fn() -> its shapes, on "meta"
     step: Callable  # step(state, tokens, labels, key, chan, faults[, fast])
     state_specs: Any        # HotaState of layout tuples
     batch_spec: tuple
@@ -345,6 +346,21 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
         heads = init_params(head_specs,
                             rng.split(k2, n_total_clients)[me:me + 1],
                             device=dev)
+        return _fresh_state(omega, heads, dev)
+
+    def abstract_fn() -> HotaState:
+        """The shapes and dtypes of ``init_fn``'s state as storage-free
+        ``meta`` tensors, nothing drawn: what a checkpoint restore checks
+        against."""
+        omega = abstract_params({"final": model.final_specs(),
+                                 "trunk": model.trunk_specs()})
+        heads = tree_map(lambda t: t.expand((1,) + tuple(t.shape)),
+                         abstract_params(head_specs))
+        return _fresh_state(omega, heads, "meta")
+
+    def _fresh_state(omega, heads, dev) -> HotaState:
+        """This rank's fresh state around the global weights ``omega`` and
+        its own ``heads``, on ``dev``."""
         zc = torch.zeros((n_total_clients,), dtype=torch.float32)
         i32 = torch.zeros((), dtype=torch.int32)
         zeros = lambda t: tree_map(torch.zeros_like, t)   # noqa: E731
@@ -638,7 +654,8 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
         return new_state, metrics
 
     return StepParts(
-        init_fn=init_fn, step=_step, state_specs=state_specs,
+        init_fn=init_fn, abstract_fn=abstract_fn, step=_step,
+        state_specs=state_specs,
         batch_spec=batch_spec, chan_all=chan_all,
         n_total_clusters=n_total_clusters,
         has_fast=(fl.weighting == "equal" and fl.tau_h == 0

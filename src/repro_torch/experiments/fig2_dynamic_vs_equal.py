@@ -15,13 +15,13 @@ from repro_torch.experiments.paper_common import main, run_sweep, summarize
 
 def run(steps: int = 800, force: bool = False,
         ota_streaming: bool = False, ota_sectioned: bool = False,
-        max_section_rows: int = 0, device="cuda"):
+        max_section_rows: int = 0, device="cuda", scenario_ranks: int = 1):
     results = run_sweep({
         "fig2_hota_fgn": dict(weighting="fedgradnorm"),
         "fig2_equal": dict(weighting="equal"),
     }, steps=steps, force=force, ota_streaming=ota_streaming,
         ota_sectioned=ota_sectioned, max_section_rows=max_section_rows,
-        device=device)
+        device=device, scenario_ranks=scenario_ranks)
     print(summarize(results, "Fig. 2 — dynamic vs equal (sigma²=1)"))
     return results
 

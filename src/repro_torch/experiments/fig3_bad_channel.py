@@ -14,14 +14,14 @@ from repro_torch.experiments.paper_common import main, run_sweep, summarize
 
 def run(steps: int = 800, force: bool = False,
         ota_streaming: bool = False, ota_sectioned: bool = False,
-        max_section_rows: int = 0, device="cuda"):
+        max_section_rows: int = 0, device="cuda", scenario_ranks: int = 1):
     sigma2 = (0.5,) + (1.0,) * 9
     results = run_sweep({
         "fig3_hota_fgn": dict(weighting="fedgradnorm", sigma2=sigma2),
         "fig3_equal": dict(weighting="equal", sigma2=sigma2),
     }, steps=steps, force=force, ota_streaming=ota_streaming,
         ota_sectioned=ota_sectioned, max_section_rows=max_section_rows,
-        device=device)
+        device=device, scenario_ranks=scenario_ranks)
     print(summarize(results, "Fig. 3 — bad channel sigma1²=0.5"))
     return results
 

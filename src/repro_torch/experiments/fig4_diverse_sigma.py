@@ -27,11 +27,12 @@ def experiments() -> Dict[str, Dict]:
 
 def run(steps: int = 800, force: bool = False,
         ota_streaming: bool = False, ota_sectioned: bool = False,
-        max_section_rows: int = 0, device="cuda"):
+        max_section_rows: int = 0, device="cuda", scenario_ranks: int = 1):
     results = run_sweep(experiments(), steps=steps, force=force,
                         ota_streaming=ota_streaming,
                         ota_sectioned=ota_sectioned,
-                        max_section_rows=max_section_rows, device=device)
+                        max_section_rows=max_section_rows, device=device,
+                        scenario_ranks=scenario_ranks)
     print(summarize(results, "Fig. 4 — diverse sigma"))
     return results
 

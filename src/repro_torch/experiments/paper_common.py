@@ -15,6 +15,15 @@ its JSON results under ``results/repro_torch/`` at the checkout's root
 (or ``results_dir``). Each result records the sweep's settings (``run``)
 and the layout it ran on; a cached result is reused only for the same
 settings, so a short sweep never stands in for a longer one.
+
+``run_sweep(..., scenario_ranks=R)`` splits the bank's scenarios over R
+rank processes (``launch.mesh.run_ranks`` on a ("scenario",) mesh; on
+one card the ranks share it), each running a ``ShardedScenarioBank`` of
+its S/R scenarios on the same data and keys; rank 0 writes the same
+results as the one-process sweep. ``make_bank`` picks the bank for the
+caller's scenario mesh, as the reference's picks it for the visible
+devices; a rank count that does not divide S is refused, before any
+rank starts, rather than run as R copies of the whole bank.
 """
 from __future__ import annotations
 
@@ -29,16 +38,31 @@ import numpy as np
 
 from repro_torch import rng
 from repro_torch.common.config import FLConfig
+from repro_torch.common.device import resolve_device
 from repro_torch.common.layout_tune import layout_of, tuned_fl
 from repro_torch.common.tree import tree_map
 from repro_torch.core.paper_setup import paper_mlp_setup
 from repro_torch.core.sim import HotaSim
-from repro_torch.core.sweep import ScenarioBank
+from repro_torch.core.sweep import (
+    ScenarioBank, ShardedScenarioBank, check_scenario_split,
+)
 from repro_torch.data.radcom import TASKS
+from repro_torch.launch.mesh import run_ranks
+from repro_torch.sharding.mesh_utils import SCENARIO_AXIS, scenario_axis_size
 
 RESULTS_DIR = str(Path(__file__).resolve().parents[3] / "results"
                   / "repro_torch")
 EPOCH_STEPS = 10
+
+
+def make_bank(sim, specs, mesh=None):
+    """Pick the bank for a scenario list: the one-process bank without a
+    scenario mesh or on a mesh of one rank, else a ``ShardedScenarioBank``
+    over the mesh (the scenario axis goes on the mesh, DESIGN.md §3.8),
+    which refuses a mesh whose size does not divide S."""
+    if mesh is None or scenario_axis_size(mesh) == 1:
+        return ScenarioBank(sim, specs)
+    return ShardedScenarioBank(sim, specs, mesh)
 
 
 def _scenario_result(name: str, spec: Dict, losses: np.ndarray,
@@ -112,6 +136,7 @@ def run_sweep(
     max_section_rows: int = 0,
     device="cuda",
     results_dir: Optional[str] = None,
+    scenario_ranks: int = 1,
 ) -> Dict[str, Dict]:
     """Run ALL experiments as one ScenarioBank sweep.
 
@@ -130,7 +155,12 @@ def run_sweep(
     which would otherwise override the explicit choice. The weights start
     from ``bank.init(rng.PRNGKey(seed))``, as the reference's sweep does,
     so a sweep of the same seed starts from the reference's weights and
-    sees its data, keys and channel streams."""
+    sees its data, keys and channel streams. ``scenario_ranks`` > 1 runs
+    the bank on that many rank processes (see the module docstring); the
+    results do not depend on it, and a count that does not divide the
+    number of experiments raises before anything runs."""
+    if scenario_ranks > 1:
+        check_scenario_split(len(experiments), scenario_ranks)
     results_dir = results_dir or RESULTS_DIR
     os.makedirs(results_dir, exist_ok=True)
     paths = {n: os.path.join(results_dir, n + ".json") for n in experiments}
@@ -150,30 +180,68 @@ def run_sweep(
                        ota_streaming=ota_streaming,
                        ota_sectioned=ota_sectioned,
                        max_section_rows=max_section_rows)
-    sim, batcher = paper_mlp_setup(base_fl, batch=batch, seed=seed,
-                                   device=device)
-    if tune and not explicit_engine:
-        model = sim.model
-        template = tree_map(lambda spec: spec.shape,
-                            {"final": model.final_specs(),
-                             "trunk": model.trunk_specs()})
-        tuned = tuned_fl(base_fl, template, device=sim.device)
-        print(f"  layout: {layout_of(tuned).describe()} (tuned on "
-              f"{sim.device})", flush=True)
-        sim = HotaSim(model, tuned, sim.tcfg, sim.n_classes.tolist(),
-                      max_classes=sim.max_classes, device=sim.device)
-    else:
-        why = ("explicit engine flags, autotuner skipped" if explicit_engine
-               else "autotuner off")
-        print(f"  layout: {base_fl.ota_sections} ({why}), engine: "
-              f"{_engine_name(ota_streaming, ota_sectioned, max_section_rows)}",
-              flush=True)
     names = list(experiments)
     specs = [dict(experiments[n]) for n in names]
     for sp in specs:
         if "sigma2" in sp:
             sp["sigma2"] = tuple(sp["sigma2"])
-    bank = ScenarioBank(sim, specs)
+    args = (specs, base_fl, steps, batch, seed, log_every,
+            bool(run["tune"]), explicit_engine)
+    if scenario_ranks > 1:
+        dev = resolve_device(device)
+        if dev.type == "cuda":      # built once, before the ranks start
+            from repro_torch.kernels import _build
+            _build.library()
+        losses, ps, wall_s, layout = run_ranks(
+            _sweep, args, shape=(scenario_ranks,), axes=(SCENARIO_AXIS,),
+            device=dev.type)[0]
+    else:
+        losses, ps, wall_s, layout = _sweep(None, *args, device=device)
+
+    out = {}
+    for s, name in enumerate(names):
+        out[name] = _scenario_result(
+            name, specs[s], losses[:, s], ps[:, s], steps, n_clients,
+            wall_s, len(specs), run, layout)
+        with open(paths[name], "w") as f:
+            json.dump(out[name], f)
+    return out
+
+
+def _sweep(mesh, specs, base_fl, steps, batch, seed, log_every, tune,
+           explicit_engine, device=None):
+    """The sweep's rounds in this process: the only one (``mesh`` None),
+    or a rank of a scenario mesh, whose rank 0 tunes the layout for all.
+    Returns the (steps, S, C, N) losses and loss weights, the wall
+    seconds and the layout's name."""
+    import torch.distributed as dist
+    first = mesh is None or mesh.rank == 0
+    sim, batcher = paper_mlp_setup(
+        base_fl, batch=batch, seed=seed,
+        device=device if mesh is None else mesh.device)
+    if tune:
+        fl = [None]
+        if first:
+            model = sim.model
+            template = tree_map(lambda spec: spec.shape,
+                                {"final": model.final_specs(),
+                                 "trunk": model.trunk_specs()})
+            fl[0] = tuned_fl(base_fl, template, device=sim.device)
+        if mesh is not None and mesh.size > 1:
+            dist.broadcast_object_list(fl, src=0)
+        if first:
+            print(f"  layout: {layout_of(fl[0]).describe()} (tuned on "
+                  f"{sim.device})", flush=True)
+        sim = HotaSim(sim.model, fl[0], sim.tcfg, sim.n_classes.tolist(),
+                      max_classes=sim.max_classes, device=sim.device)
+    elif first:
+        why = ("explicit engine flags, autotuner skipped" if explicit_engine
+               else "autotuner off")
+        engine = _engine_name(base_fl.ota_streaming, base_fl.ota_sectioned,
+                              base_fl.max_section_rows)
+        print(f"  layout: {base_fl.ota_sections} ({why}), engine: {engine}",
+              flush=True)
+    bank = make_bank(sim, specs, mesh)
     states = bank.init(rng.PRNGKey(seed))
 
     losses, ps = [], []
@@ -184,22 +252,13 @@ def run_sweep(
                               rng.PRNGKey(seed * 7919 + step))
         losses.append(m["loss"].cpu().numpy())    # (S, C, N)
         ps.append(m["p"].cpu().numpy())
-        if step % log_every == 0:
+        if first and step % log_every == 0:
             print(f"  [sweep x{bank.n_scenarios} on {sim.device}] step "
                   f"{step}/{steps} loss {losses[-1].mean():.4f} "
                   f"({(time.time()-t0)/(step+1):.2f}s/step)", flush=True)
     wall_s = time.time() - t0
-
-    losses = np.stack(losses)   # (steps, S, C, N)
-    ps = np.stack(ps)
-    out = {}
-    for s, name in enumerate(names):
-        out[name] = _scenario_result(
-            name, specs[s], losses[:, s], ps[:, s], steps, n_clients,
-            wall_s, bank.n_scenarios, run, layout_of(sim.fl).describe())
-        with open(paths[name], "w") as f:
-            json.dump(out[name], f)
-    return out
+    return (np.stack(losses), np.stack(ps), wall_s,
+            layout_of(sim.fl).describe())
 
 
 def summarize(results: Dict[str, Dict], label: str) -> str:
@@ -216,7 +275,8 @@ def summarize(results: Dict[str, Dict], label: str) -> str:
 
 def main(run: Callable, argv=None):
     """Command line of a figure runner: ``[steps] [--streaming]
-    [--sectioned] [--max-section-rows R] [--device D] [--force]``."""
+    [--sectioned] [--max-section-rows R] [--device D]
+    [--scenario-ranks R] [--force]``."""
     ap = argparse.ArgumentParser(description=run.__module__)
     ap.add_argument("steps", nargs="?", type=int, default=800)
     ap.add_argument("--streaming", action="store_true",
@@ -226,9 +286,13 @@ def main(run: Callable, argv=None):
     ap.add_argument("--max-section-rows", type=int, default=0,
                     help="split trunk sections above this many 128-rows")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--scenario-ranks", type=int, default=1,
+                    help="split the bank's scenarios over this many rank "
+                         "processes (ShardedScenarioBank)")
     ap.add_argument("--force", action="store_true",
                     help="run again even if cached results exist")
     a = ap.parse_args(argv)
     return run(steps=a.steps, force=a.force, ota_streaming=a.streaming,
                ota_sectioned=a.sectioned,
-               max_section_rows=a.max_section_rows, device=a.device)
+               max_section_rows=a.max_section_rows, device=a.device,
+               scenario_ranks=a.scenario_ranks)

@@ -10,13 +10,21 @@ over ("client", "cluster") is client-major.
 
 Every collective takes the rank's tensors where they lie: NCCL (one card
 per rank) and gloo (ranks sharing a card, or on the CPU) both run
-all-reduce, all-gather and reduce-scatter on CUDA tensors, gloo through
-its own host buffers (``chip_smoke.py`` checks that gloo does).
+all-reduce, all-gather, reduce-scatter and broadcast on CUDA tensors,
+gloo through its own host buffers (``chip_smoke.py`` checks that gloo
+does). ``gather_to_host`` stages through the host under gloo, whose
+gather takes host tensors only.
+
+The sweep banks' collectives over the "scenario" axis:
+``all_gather_rows`` gathers a rank's (S/n, ...) metric rows of any
+dtypes into the global (S, ...) ones in one call, ``broadcast`` hands one
+scenario's state from its owner to every rank (``scenario_state``) and
+``gather_to_host`` collects a banked state on one rank for a checkpoint.
 """
 from __future__ import annotations
 
 import time
-from typing import Dict
+from typing import Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -129,3 +137,58 @@ def reduce_scatter(x: torch.Tensor, mesh: Mesh, axes,
            lambda: dist.reduce_scatter_tensor(out, src, group=group))
     moved = (shape[dim],) + tuple(s for d, s in enumerate(shape) if d != dim)
     return out.reshape(moved).movedim(0, dim)
+
+
+def all_gather_rows(xs: List[torch.Tensor], mesh: Mesh,
+                    axes) -> List[torch.Tensor]:
+    """``all_gather(x, mesh, axes, 0)`` of every tensor of ``xs`` (leading
+    dims equal, any dtypes) in one call: the rows travel as bytes, so
+    every value comes back bit for bit."""
+    if not _names(axes) or mesh.axis_size(axes) == 1:
+        return list(xs)
+    rows = xs[0].shape[0]
+    raw = [x.contiguous().reshape(rows, -1).view(torch.uint8) for x in xs]
+    got = all_gather(torch.cat(raw, dim=1), mesh, axes, 0)
+    out, at = [], 0
+    for x, r in zip(xs, raw):
+        piece = got[:, at:at + r.shape[1]].contiguous()
+        out.append(piece.view(x.dtype).reshape(
+            (got.shape[0],) + tuple(x.shape[1:])))
+        at += r.shape[1]
+    return out
+
+
+def broadcast(x: torch.Tensor, mesh: Mesh, axes, index: int) -> torch.Tensor:
+    """The tensor of the rank at ``index`` along ``axes`` (``x``'s shape
+    and dtype on every rank), on every rank of the slice."""
+    if not _names(axes) or mesh.axis_size(axes) == 1:
+        return x
+    group, members = mesh.group(axes)
+    src = next(r for r in members if mesh.axis_index(axes, r) == index)
+    buf = x.contiguous().clone() if mesh.rank == src else torch.empty_like(
+        x, memory_format=torch.contiguous_format)
+    timed(mesh, "collective", buf.numel() * buf.element_size(),
+          lambda: dist.broadcast(buf, src=src, group=group))
+    return buf
+
+
+def gather_to_host(x: torch.Tensor, mesh: Mesh, axes, dim: int,
+                   root: int = 0) -> Optional[torch.Tensor]:
+    """The pieces of every rank along ``axes`` concatenated along ``dim``
+    in the axes' order, as a host tensor on the rank at index ``root``
+    (None on the others): a banked state collected for a checkpoint."""
+    if not _names(axes) or mesh.axis_size(axes) == 1:
+        return x.detach().cpu()
+    group, members = mesh.group(axes)
+    dst = next(r for r in members if mesh.axis_index(axes, r) == root)
+    src = x.detach().contiguous()
+    if mesh.backend != "nccl":
+        src = src.cpu()
+    bufs = ([torch.empty_like(src) for _ in members] if mesh.rank == dst
+            else None)
+    timed(mesh, "collective", src.numel() * src.element_size() * len(members),
+          lambda: dist.gather(src, gather_list=bufs, dst=dst, group=group))
+    if bufs is None:
+        return None
+    pieces = [bufs[p].cpu() for p in _order(mesh, axes, members)]
+    return torch.cat(pieces, dim=dim)

@@ -15,6 +15,14 @@ A leaf's layout across the mesh is written like a ``PartitionSpec``: a
 tuple with one entry per leading dim, each None (not split) or an axis
 name or tuple of names (split over those axes, major to minor);
 ``shard_slices`` cuts a rank's piece of a global array by it.
+
+The scenario axis (DESIGN.md §3.8) is orthogonal to the FL axes: a sweep
+bank's (S,) leading dim lies on a ("scenario",) axis
+(``launch.mesh.make_scenario_mesh``, or ahead of the FL axes in
+``make_dist_scenario_mesh``). ``bank_sharding`` and
+``replicated_sharding`` are the two layouts a sharded bank uses: its
+(S, ...) leaves split over the scenario axis, and the batch and key
+whole on every rank (common random numbers).
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import numpy as np
 import torch
 
 FL_AXES = ("pod", "cluster", "client")
+SCENARIO_AXIS = "scenario"
 
 
 class Mesh:
@@ -125,3 +134,57 @@ def shard_slices(shape, spec, mesh: Mesh, rank: Optional[int] = None):
         i = mesh.axis_index(axes, rank)
         out.append(slice(i * (size // k), (i + 1) * (size // k)))
     return tuple(out)
+
+
+# --------------------------------------------------------------------------
+# the scenario axis (sharded sweep banks, DESIGN.md §3.8)
+# --------------------------------------------------------------------------
+
+def scenario_axis_size(mesh: Mesh) -> int:
+    """Ranks along the scenario axis of a sweep mesh."""
+    if SCENARIO_AXIS not in mesh.axis_names:
+        raise ValueError(f"a sweep mesh needs a {SCENARIO_AXIS!r} axis, got "
+                         f"{mesh.axis_names}")
+    return mesh.shape[SCENARIO_AXIS]
+
+
+def scenario_banked_spec(spec) -> tuple:
+    """A single-scenario layout with the scenario axis prepended: the
+    bank leaf (S, *dims) of an FL-sharded leaf laid out by ``spec``."""
+    return (SCENARIO_AXIS,) + tuple(spec)
+
+
+def prepend_axis(specs, axes):
+    """A state's layout tree (dicts and named tuples of layout tuples; a
+    None field stays None) with ``axes`` (an axis name, a tuple of them,
+    or None for a dim no axis splits) laid on a new leading dim."""
+    if specs is None:
+        return None
+    if isinstance(specs, dict):
+        return {k: prepend_axis(v, axes) for k, v in specs.items()}
+    if isinstance(specs, tuple) and hasattr(specs, "_fields"):
+        return type(specs)(*[prepend_axis(v, axes) for v in specs])
+    return (axes,) + tuple(specs)
+
+
+def scenario_banked_tree(specs):
+    """``scenario_banked_spec`` over a state's layout tree."""
+    return prepend_axis(specs, SCENARIO_AXIS)
+
+
+def bank_sharding(mesh: Mesh) -> tuple:
+    """Layout of an (S, ...) bank leaf: its leading dim split over the
+    scenario axis (each rank holds the rows of its S/n scenarios)."""
+    scenario_axis_size(mesh)
+    return (SCENARIO_AXIS,)
+
+
+def replicated_sharding(mesh: Mesh) -> tuple:
+    """Layout of the shared batch and key: every rank holds all of it,
+    so every scenario shard reads the same data and keys."""
+    return ()
+
+
+def bank_rows(n_scenarios: int, mesh: Mesh) -> slice:
+    """The rows of an (S, ...) bank leaf that this rank holds."""
+    return shard_slices((n_scenarios,), bank_sharding(mesh), mesh)[0]

@@ -296,12 +296,12 @@ def test_runner_command_line():
         seen.update(kw)
         return "done"
     argv = ["20", "--streaming", "--sectioned", "--max-section-rows", "64",
-            "--device", "cpu", "--force"]
+            "--device", "cpu", "--scenario-ranks", "2", "--force"]
     assert paper_common.main(fake_run, argv) == "done"
     assert seen == dict(steps=20, force=True, ota_streaming=True,
                         ota_sectioned=True, max_section_rows=64,
-                        device="cpu")
+                        device="cpu", scenario_ranks=2)
     paper_common.main(fake_run, [])
     assert seen == dict(steps=800, force=False, ota_streaming=False,
                         ota_sectioned=False, max_section_rows=0,
-                        device="cuda")
+                        device="cuda", scenario_ranks=1)
