@@ -231,9 +231,11 @@ imports only ``repro_torch`` (never ``jax`` or the JAX package) and runs:
    entry), StarCoder2-3B's smoke window (32 in blocks of 16: whole key
    blocks masked) with finite gradients, ``chunked_lm_loss`` in one piece
    (S=128) and in recomputed chunks (S=1024; loss rtol ``LM_RTOL``,
-   gradients relative L2 1e-4), and one ``lm-100m`` train-mode forward and
-   backward with no FL (loss rtol ``LM_RTOL``, gradient relative L2 1e-3)
-   and its time;
+   gradients relative L2 1e-4), Mixtral-8x22B's smoke config (4 experts
+   top-2) in train mode at capacity factor 1.25 and 0.1 (tokens drop)
+   forward and backward (loss and aux rtol ``LM_RTOL``, gradient relative
+   L2 1e-4), and one ``lm-100m`` train-mode forward and backward with no
+   FL (loss rtol ``LM_RTOL``, gradient relative L2 1e-3) and its time;
 30. the distributed LM step at ``lm-100m``'s full depth and width on
    phase 19's four ranks sharing the card, the example's FL settings
    (FedGradNorm, noise std 0.5, lr 3e-4), 4 sequences of 128 tokens per
@@ -282,7 +284,27 @@ imports only ``repro_torch`` (never ``jax`` or the JAX package) and runs:
    the blackout scenario the identity), a 2-row save restored into the
    row and stepped once bit for bit, the median bank step and a
    ``MeshStats`` split per placement beside phase 19's, the peak memory
-   per rank and the time to build the 3-axis mesh's groups.
+   per rank and the time to build the 3-axis mesh's groups;
+34. the MoE layer and the audio and vision stub frontends: (d) K8 against
+   its plain version at Mixtral-8x22B's layer (B=1, S=8192, 48 heads over
+   8, D=128, window 4096: the Hopper kernel) and Phi-3-vision-4.2B's (B=1,
+   S=4096, 32 over 32, D=96, causal: the mma.sync kernel), each batch
+   element within 2e-2 and every row within ``K8_ROW_LIMIT``, its time
+   beside its bound, the plain version and SDPA; (b) one full-width
+   Mixtral layer (8 experts of 6144 x 16384) drawn on the card, float32,
+   B=1 S=64 prefill and 2 decode steps on the card against the CPU within
+   ``CUT_F32_LIMIT``; (a) ``serve`` on Mixtral-8x22B at full width cut to
+   ``MOE_LAYERS`` layers (bf16, B=2 x 8192 + 16 decode steps: exactly 4 K8
+   launches, 0 plain draws, finite logits; init s and peak, prefill and
+   decode ms, peak memory, a traced prefill and decode step;
+   prefill(8192) + decode(1) against prefill(8193) within
+   ``PREFILL_DECODE_LIMIT``); (c) ``serve`` on Phi-3-vision-4.2B at full
+   depth and width from a (1, 4096, 3072) embedding prompt (32 K8
+   launches on mma.sync, the embeddings' prefill equal to the tokens'
+   bit for bit, 8 finite decode steps, the same timings); (e) the four
+   new smoke configs (Mixtral, Phi-3.5-MoE, MusicGen, Phi-3-vision) with
+   seeded weights through ``convert``, B=2 prefill of 40 and 4 decode
+   steps, card against CPU within ``CUT_F32_LIMIT``.
 
 Every counted run also counts the stream draws: the card's two draw
 kernels and the plain draw, which must stay at 0 on the card.
@@ -293,11 +315,11 @@ tracker and fails if a process it started still runs.
 Any failure exits non-zero. The line before last is the card's name and
 power limit, the one before it the kernels' JSON (K1, K2, K5, K3, K4, K8,
 K6, K7 and the two stream draws, K5 and K6 also with one rank's step of
-``lm-100m``, ``lm100m_step_ms``; each kernel's ``launches`` sums its
-counts over the main-path runs of phases 5, 9, 11, 12, 13, 16, 19, 20,
-21, 22, 24-28, 30, 32 and 33, over all ranks, and a kernel never launched there fails
-the run; K1, K2, K5 and K6 also carry their fault-mode error); the last
-line is
+``lm-100m``, ``lm100m_step_ms``, K8 also at phase 34's two layer shapes;
+each kernel's ``launches`` sums its counts over the main-path runs of
+phases 5, 9, 11, 12, 13, 16, 19, 20, 21, 22, 24-28, 30, 32, 33 and 34,
+over all ranks, and a kernel never launched there fails the run; K1, K2,
+K5 and K6 also carry their fault-mode error); the last line is
 ``{"ok": true, "device": {...}}``. An earlier ``[record]`` line holds every
 number measured, as JSON.
 """
@@ -407,6 +429,20 @@ DIST_BANK_ROWS = 2            # phase 33: scenario rows of phase 19's mesh
 DIST_BANK_SCENARIOS = [dict(sigma2=(0.5,) * DIST_SHAPE[0]),   # phase 33:
                        dict(sigma2=(2.0,) * DIST_SHAPE[0]),   # the reference
                        dict(weighting="equal"), dict(ota=False)]  # program's
+
+# phase 34: the MoE layer and the stub frontends
+MOE_LAYERS = 4                # Mixtral-8x22B's depth cut (widths unchanged)
+MOE_BATCH = 2
+MOE_DECODE_STEPS = 16         # decode-step calls after the prefill
+MOE_CUT_SEQ, MOE_CUT_STEPS = 64, 2   # one full-width layer, card vs CPU
+VISION_SEQ = 4096             # Phi-3-vision's embedding prompt
+VISION_DECODE_STEPS = 8
+NEW_SMOKE = ("mixtral_8x22b", "phi3_5_moe_42b", "musicgen_medium",
+             "phi3_vision_4_2b")
+NEW_SMOKE_BATCH, NEW_SMOKE_SEQ, NEW_SMOKE_STEPS = 2, 40, 4
+# K8 at the new layers' shapes: (B, S, H, KV, D, window)
+K8_NEW_SHAPES = {"mixtral_layer": (1, 8192, 48, 8, 128, 4096),
+                 "phi3_vision_layer": (1, 4096, 32, 32, 96, None)}
 
 # the stream draws (phase 10): the card's kernel and the plain draw
 DRAW_NAMES = ("threefry_chunked", "threefry_flat", "stream_draw_plain")
@@ -1600,6 +1636,45 @@ def lm_logit_check(name, got, want, limit, record):
     return rel
 
 
+def serve_logits(model, wts, d, prompt, steps, cache_len, forced=None):
+    """Logits (B, V) of a prefill of ``prompt`` and of each of ``steps``
+    decode steps on device ``d``, greedy or fed ``forced`` tokens."""
+    import torch
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    s = prompt.shape[1]
+    lg, cache = make_prefill_step(model, cache_len=cache_len)(
+        *wts, prompt.to(d))
+    out = [lg]
+    decode = make_decode_step(model)
+    for i in range(steps):
+        tok = (lg.argmax(-1) if forced is None else forced[i]).to(d)
+        pos = torch.full((prompt.shape[0],), s + i, dtype=torch.int32,
+                         device=d)
+        _, lg, cache = decode(*wts, cache, tok[:, None].long(), pos)
+        out.append(lg)
+    return out
+
+
+def card_vs_cpu(name, model, w_dev, w_cpu, prompt, steps, limit, rec, dev):
+    """A prefill and ``steps`` decode steps on the card against the same
+    on the CPU, the card fed the CPU's greedy tokens: every step's logits
+    within ``limit`` relative L2 (``lm_logit_check``). Returns the
+    relative L2 per step."""
+    import torch
+    cache_len = prompt.shape[1] + steps + 1
+    t0 = time.perf_counter()
+    cpu = serve_logits(model, w_cpu, torch.device("cpu"), prompt, steps,
+                       cache_len)
+    rec[f"{name}_cpu_s"] = time.perf_counter() - t0
+    card = serve_logits(model, w_dev, dev, prompt, steps, cache_len,
+                        forced=[lg.argmax(-1) for lg in cpu])
+    torch.cuda.synchronize()
+    rels = [lm_logit_check(f"{name}_step{i}", g, c, limit, rec)
+            for i, (g, c) in enumerate(zip(card, cpu))]
+    rec[f"{name}_rel_l2"] = rels
+    return rels
+
+
 def cut_phase(dev, record):
     """Phase 15: a 2-layer cut of full-width StarCoder2-3B, prefill and 4
     decode steps on the card against the same on the CPU, in float32 and
@@ -1607,23 +1682,8 @@ def cut_phase(dev, record):
     import torch
     from repro_torch.common.tree import tree_map
     from repro_torch.launch import serve as serve_mod
-    from repro_torch.launch.steps import make_decode_step, make_prefill_step
     rec = {}
     s, steps = CUT_SEQ, CUT_STEPS
-
-    def run(model, wts, d, prompt, forced=None):
-        """Logits of the prefill and each decode step, (B, V) each."""
-        lg, cache = make_prefill_step(model, cache_len=s + steps + 1)(
-            *wts, prompt.to(d))
-        out = [lg]
-        for i in range(steps):
-            tok = (lg.argmax(-1) if forced is None else forced[i]).to(d)
-            pos = torch.full((1,), s + i, dtype=torch.int32, device=d)
-            _, lg, cache = make_decode_step(model)(*wts, cache,
-                                                   tok[:, None].long(), pos)
-            out.append(lg)
-        return out
-
     for cdt, limit in (("float32", CUT_F32_LIMIT),
                        ("bfloat16", CUT_BF16_LIMIT)):
         cfg = sc2_config().replace(n_layers=CUT_LAYERS, compute_dtype=cdt)
@@ -1631,68 +1691,54 @@ def cut_phase(dev, record):
         w_dev = serve_mod.init_weights(model, 0, dev)
         w_cpu = tuple(tree_map(lambda t: t.cpu(), w) for w in w_dev)
         prompt = serve_mod.draw_prompt(cfg, 1, s, 0)
-        t0 = time.perf_counter()
-        cpu = run(model, w_cpu, torch.device("cpu"), prompt)
-        rec[f"{cdt}_cpu_s"] = time.perf_counter() - t0
-        card = run(model, w_dev, dev, prompt,
-                   forced=[lg.argmax(-1) for lg in cpu])
-        torch.cuda.synchronize()
-        rels = [lm_logit_check(f"cut_{cdt}_step{i}", g, c, limit, rec)
-                for i, (g, c) in enumerate(zip(card, cpu))]
-        rec[f"{cdt}_rel_l2"] = rels
+        rels = card_vs_cpu(f"cut_{cdt}", model, w_dev, w_cpu, prompt, steps,
+                           limit, rec, dev)
         log(f"[cut] {CUT_LAYERS}-layer StarCoder2-3B at full width, B=1, "
             f"S={s}, {cdt} compute: card vs CPU relative L2 of the logits "
             f"(prefill, then {steps} decode steps) "
             f"{['%.3e' % r for r in rels]} (limit {limit:g}); CPU "
-            f"{rec[f'{cdt}_cpu_s']:.1f} s")
-        del w_dev, w_cpu, card
+            f"{rec[f'cut_{cdt}_cpu_s']:.1f} s")
+        del w_dev, w_cpu
         torch.cuda.empty_cache()
     record["cut"] = rec
 
 
-def serve_phase(dev, record, counters):
-    """Phase 16: ``serve`` at full depth and width, B=4 x 8192 + 32 decode
-    steps, counted; timings, a traced prefill and decode step, peak memory;
-    prefill(8192) + decode(1) against prefill(8193) at B=1."""
+def serve_cell(dev, label, model, weights, b, s, n_dec, counters, rec,
+               prompt=None):
+    """``serve`` of (b, s) + ``n_dec`` decode steps, counted (one K8
+    launch per layer in the prefill, none in decode, no other kernel, 0
+    plain draws; finite logits); a second run for the prefill time (time
+    to first token), the decode time per step (host clock ending in a
+    synchronize) and the peak device memory; one traced prefill and one
+    traced decode step. ``prompt`` defaults to ``serve``'s draw from seed
+    0. Returns the counted run's launches."""
     import torch
-    from repro_torch.kernels.flash_attention import ops as k8
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
-    from repro_torch.models.params import param_count
-    cfg, b, s, n_dec = (sc2_config(), SERVE_BATCH, K8_SEQ,
-                        SERVE_DECODE_STEPS)
-    model = serve_mod.serving_model(cfg)
-    n_params = (param_count(model.backbone_specs())
-                + param_count(model.head_specs()))
-    t0 = time.perf_counter()
-    weights = serve_mod.init_weights(model, 0, dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    rec = {"params": n_params, "init_s": init_s,
-           "allocated_after_init_bytes": torch.cuda.memory_allocated(dev)}
-    log(f"[serve] StarCoder2-3B full width: {n_params:,} parameters, "
-        f"float32 weights drawn on the card in {init_s:.2f} s")
+    cfg = model.cfg
 
     def run():
         return serve_mod.serve(cfg, b, s, n_dec + 1, seed=0, device=dev,
-                               weights=weights, log=lambda m: None)
+                               weights=weights, prompt=prompt,
+                               log=lambda m: None)
     for ctr in counters:
         ctr.reset()
     res = run()
     torch.cuda.synchronize()
     launches = {ctr.name: ctr.count for ctr in counters}
-    take_draws("serve", launches, draws_words=False)
+    take_draws(label, launches, draws_words=False)
     want = {ctr.name: 0 for ctr in counters if ctr.name not in DRAW_NAMES}
     want["flash_attention"] = cfg.n_layers
     if launches != want:
-        fail(f"serve launches {launches}, expected {want} (one prefill, "
+        fail(f"{label}: launches {launches}, expected {want} (one prefill, "
              f"{n_dec} decode steps)")
     if not (torch.isfinite(res.prefill_logits).all()
             and torch.isfinite(res.last_logits).all()):
-        fail("serve: non-finite logits")
+        fail(f"{label}: non-finite logits")
     rec.update(launches=launches, first_prefill_s=res.prefill_s,
                first_decode_ms=[1e3 * t for t in res.decode_s],
-               tokens=res.tokens[:, :8].tolist())
+               tokens=res.tokens[:, :8].tolist(),
+               prefill_logits=res.prefill_logits)
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
     res = run()
@@ -1701,7 +1747,7 @@ def serve_phase(dev, record, counters):
     rec["prefill_ms"] = 1e3 * res.prefill_s
     rec["decode_ms"] = [1e3 * t for t in res.decode_s]
     rec["decode_ms_median"] = statistics.median(rec["decode_ms"])
-    log(f"[serve] B={b}, prefill {s}, {n_dec} decode steps: launches "
+    log(f"[{label}] B={b}, prefill {s}, {n_dec} decode steps: launches "
         f"{launches}; prefill (time to first token) {rec['prefill_ms']:.1f} "
         f"ms (first call {1e3 * rec['first_prefill_s']:.1f}), decode median "
         f"{rec['decode_ms_median']:.2f} ms per step (min "
@@ -1711,7 +1757,9 @@ def serve_phase(dev, record, counters):
     # where the time goes: one traced prefill and one traced decode step
     prefill = make_prefill_step(model, cache_len=s + n_dec + 2)
     decode = make_decode_step(model)
-    prompt = serve_mod.draw_prompt(cfg, b, s, 0).to(dev)
+    if prompt is None:
+        prompt = serve_mod.draw_prompt(cfg, b, s, 0)
+    prompt = prompt.to(dev)
     for what in ("prefill", "decode"):
         torch.cuda.synchronize()
         with device_trace() as prof:
@@ -1731,30 +1779,70 @@ def serve_phase(dev, record, counters):
             "k8_ms": sum(t for t, k_, _ in rows if "flash_" in k_),
             "top": [{"kernel": k_[:90], "ms": t, "count": n}
                     for t, k_, n in rows[:10]]}
-        log(f"[trace] one {what}: {wall:.2f} ms wall, device busy "
+        log(f"[trace] {label}, one {what}: {wall:.2f} ms wall, device busy "
             f"{busy:.2f} ms ({100 * busy / wall:.1f} %), K8 "
             f"{rec[f'trace_{what}']['k8_ms']:.2f} ms")
         for t, k_, n in rows[:8]:
             log(f"  {t:9.3f} ms  x{n:<4} {k_[:90]}")
     del cache, lg
+    torch.cuda.empty_cache()
+    return launches
 
-    # prefill(S) + decode(1) against prefill(S + 1), B=1
-    prompt = serve_mod.draw_prompt(cfg, 1, s + 1, 1).to(dev)
+
+def prefill_decode_check(dev, label, model, weights, s, rec):
+    """At B=1, prefill(s) + decode(1) against prefill(s + 1): relative L2
+    of the logits within ``PREFILL_DECODE_LIMIT`` and the argmax rule of
+    ``lm_logit_check``, K8 once per layer in each prefill."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as k8
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    prompt = serve_mod.draw_prompt(model.cfg, 1, s + 1, 1).to(dev)
     before = k8.counter.count
     _, cache = make_prefill_step(model, cache_len=s + 2)(*weights,
                                                          prompt[:, :s])
     pos = torch.full((1,), s, dtype=torch.int32, device=dev)
-    _, dec, _ = decode(*weights, cache, prompt[:, s:], pos)
+    _, dec, _ = make_decode_step(model)(*weights, cache, prompt[:, s:], pos)
     full, _ = make_prefill_step(model)(*weights, prompt)
     torch.cuda.synchronize()
-    if k8.counter.count - before != 2 * cfg.n_layers:
-        fail("prefill(S) and prefill(S + 1) did not run K8 once per layer")
+    if k8.counter.count - before != 2 * model.cfg.n_layers:
+        fail(f"{label}: prefill(S) and prefill(S + 1) did not run K8 once "
+             f"per layer")
     rel = lm_logit_check("prefill_decode_vs_prefill", dec, full,
                          PREFILL_DECODE_LIMIT, rec)
-    log(f"[serve] B=1: prefill({s}) + decode(1) vs prefill({s + 1}): "
+    log(f"[{label}] B=1: prefill({s}) + decode(1) vs prefill({s + 1}): "
         f"relative L2 {rel:.3e} (limit {PREFILL_DECODE_LIMIT:g}), "
         f"{rec['prefill_decode_vs_prefill']}")
-    del weights, cache
+    del cache
+    torch.cuda.empty_cache()
+    return rel
+
+
+def serve_phase(dev, record, counters):
+    """Phase 16: ``serve`` at full depth and width, B=4 x 8192 + 32 decode
+    steps, counted; timings, a traced prefill and decode step, peak memory;
+    prefill(8192) + decode(1) against prefill(8193) at B=1."""
+    import torch
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models.params import param_count
+    cfg, b, s, n_dec = (sc2_config(), SERVE_BATCH, K8_SEQ,
+                        SERVE_DECODE_STEPS)
+    model = serve_mod.serving_model(cfg)
+    n_params = (param_count(model.backbone_specs())
+                + param_count(model.head_specs()))
+    t0 = time.perf_counter()
+    weights = serve_mod.init_weights(model, 0, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rec = {"params": n_params, "init_s": init_s,
+           "allocated_after_init_bytes": torch.cuda.memory_allocated(dev)}
+    log(f"[serve] StarCoder2-3B full width: {n_params:,} parameters, "
+        f"float32 weights drawn on the card in {init_s:.2f} s")
+    launches = serve_cell(dev, "serve", model, weights, b, s, n_dec,
+                          counters, rec)
+    del rec["prefill_logits"]
+    prefill_decode_check(dev, "serve", model, weights, s, rec)
+    del weights
     torch.cuda.empty_cache()
     record["serve"] = rec
     return launches
@@ -3394,11 +3482,10 @@ def lm_pieces_phase(dev, record):
     each against the CPU, TF32 off."""
     import torch
     from repro_torch import configs, rng
-    from repro_torch.common.tree import tree_leaves, tree_unflatten
     from repro_torch.core.hota_step import LOSS_CHUNK, chunked_lm_loss
     from repro_torch.data.lm import synthetic_lm_batches
     from repro_torch.experiments.train_lm_federated import LM_100M
-    from repro_torch.models.model import build_model, lm_loss
+    from repro_torch.models.model import build_model
     from repro_torch.models.params import init_params
     rec = {}
     cfg = LM_100M
@@ -3449,6 +3536,8 @@ def lm_pieces_phase(dev, record):
             f"): card {float(got[0]):.6f} vs CPU {float(want[0]):.6f}; "
             f"gradient relative L2 (head, feats) {errs}")
 
+    moe_train_cases(dev, rec)
+
     # one lm-100m train-mode forward and backward, no FL
     keys = rng.split(rng.PRNGKey(29), 3)
     backbone = {"trunk": init_params(model.trunk_specs(), keys[0],
@@ -3460,16 +3549,9 @@ def lm_pieces_phase(dev, record):
                                            LM_SEQ, seed=29))
 
     def fwd_bwd(device):
-        leaves = [t.detach().to(device).requires_grad_(True)
-                  for t in tree_leaves(backbone) + tree_leaves(head)]
-        n_bb = len(tree_leaves(backbone))
-        bb = tree_unflatten(backbone, leaves[:n_bb])
-        hd = tree_unflatten(head, leaves[n_bb:])
-        logits, aux, _ = model.forward_logits(
-            bb, hd, torch.from_numpy(toks).long().to(device), mode="train")
-        loss = lm_loss(logits, torch.from_numpy(labs).to(device)) + aux
-        grads = torch.autograd.grad(loss, leaves)
-        return float(loss.detach()), grads
+        loss, _, grads = train_fwd_bwd(model, backbone, head, toks, labs,
+                                       device)
+        return loss, grads
     loss_g, grads_g = fwd_bwd(dev)
     card_ms = host_ms(lambda: fwd_bwd(dev))
     loss_c, grads_c = fwd_bwd("cpu")
@@ -3487,6 +3569,75 @@ def lm_pieces_phase(dev, record):
         f"{loss_g:.6f} vs CPU {loss_c:.6f}, gradient relative L2 "
         f"{err:.3e} over {g_g.numel()} entries; {card_ms:.2f} ms on the card")
     record["lm_pieces"] = rec
+
+
+def train_fwd_bwd(model, backbone, head, toks, labs, device):
+    """One train-mode forward and backward of ``lm_loss + aux`` on
+    ``device`` from copies of the weights: (loss, aux, the gradient of
+    every backbone and head leaf)."""
+    import torch
+    from repro_torch.common.tree import tree_leaves, tree_unflatten
+    from repro_torch.models.model import lm_loss
+    leaves = [t.detach().to(device).requires_grad_(True)
+              for t in tree_leaves(backbone) + tree_leaves(head)]
+    n_bb = len(tree_leaves(backbone))
+    bb = tree_unflatten(backbone, leaves[:n_bb])
+    hd = tree_unflatten(head, leaves[n_bb:])
+    logits, aux, _ = model.forward_logits(
+        bb, hd, torch.from_numpy(toks).long().to(device), mode="train")
+    loss = lm_loss(logits, torch.from_numpy(labs).to(device)) + aux
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), float(aux.detach()), grads
+
+
+def moe_train_cases(dev, rec):
+    """Phase 29, the MoE layer: Mixtral-8x22B's smoke config (4 experts
+    top-2, 2 layers, d_model 96) in train mode, B=4 S=128 (one group of
+    128), forward and backward on the card against the CPU, float32:
+    loss and aux rtol ``LM_RTOL``, the whole gradient relative L2 1e-4;
+    at capacity factor 1.25 (the config's) and 0.1, where each expert
+    keeps 7 of a group's 256 routed slots."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs, rng
+    from repro_torch.data.lm import synthetic_lm_batches
+    from repro_torch.models.model import build_model
+    from repro_torch.models.moe import capacity
+    from repro_torch.models.params import init_params
+    base = configs.get_smoke_config("mixtral_8x22b")
+    for cf in (base.moe.capacity_factor, 0.1):
+        cfg = base.replace(moe=dataclasses.replace(base.moe,
+                                                   capacity_factor=cf))
+        model = build_model(cfg)
+        keys = rng.split(rng.PRNGKey(29), 3)
+        backbone = {"trunk": init_params(model.trunk_specs(), keys[0]),
+                    "final": init_params(model.final_specs(), keys[1])}
+        head = init_params(model.head_specs(), keys[2])
+        toks, labs = next(synthetic_lm_batches(cfg.vocab_size, LM_BATCH,
+                                               LM_SEQ, seed=29))
+        loss_g, aux_g, grads_g = train_fwd_bwd(model, backbone, head, toks,
+                                               labs, dev)
+        loss_c, aux_c, grads_c = train_fwd_bwd(model, backbone, head, toks,
+                                               labs, "cpu")
+        g_g = torch.cat([g.reshape(-1).cpu() for g in grads_g])
+        g_c = torch.cat([g.reshape(-1) for g in grads_c])
+        err = rel_l2(g_g, g_c)
+        name = f"mixtral_smoke_train_cf{cf:g}"
+        if (abs(loss_g - loss_c) > LM_RTOL * abs(loss_c)
+                or abs(aux_g - aux_c) > LM_RTOL * abs(aux_c) or err > 1e-4
+                or not bool(torch.isfinite(g_g).all())):
+            fail(f"{name}: loss card {loss_g} vs CPU {loss_c}, aux {aux_g} "
+                 f"vs {aux_c}, gradient relative L2 {err:.3e}")
+        cap = capacity(cfg.moe.top_k, LM_SEQ, cfg.moe.n_experts, cf)
+        rec[name] = {"loss": loss_g, "loss_cpu": loss_c, "aux": aux_g,
+                     "aux_cpu": aux_c, "grad_rel_l2": err, "capacity": cap}
+        log(f"[lm train] {name}: capacity {cap} tokens per expert per "
+            f"group of {LM_SEQ} ({cfg.moe.n_experts} x {cap} expert slots "
+            f"for {cfg.moe.top_k * LM_SEQ} routed tokens); loss "
+            f"card {loss_g:.6f} vs CPU {loss_c:.6f}, aux {aux_g:.6e} vs "
+            f"{aux_c:.6e}, gradient relative L2 {err:.3e} over "
+            f"{g_g.numel()} entries")
 
 
 def _lm_setup(mesh, n_layers):
@@ -4452,6 +4603,236 @@ def scenario_banks_phase(sim, banks, batches, keys, batcher, dev, record,
     return total
 
 
+# --------------------------------------------------------------------------
+# phase 34: the MoE layer and the audio and vision stub frontends
+# --------------------------------------------------------------------------
+
+def k8_layer_case(dev, name, shape, gen, record):
+    """K8 at one layer's shape (bf16, the kernel ``kernel_for`` picks),
+    each batch element against the plain version (``k8_compare``); its
+    time (CUDA events over 5 launches) beside its bound, the plain
+    version's and SDPA's (with the window as a mask, or causal)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as k8
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    b, s, h, kv, d, w = shape
+    q, k, v = (torch.randn((b, s, n, d), generator=gen, device=dev
+                           ).to(torch.bfloat16) for n in (h, kv, kv))
+    got = k8.flash_attention(q, k, v, window=w)
+    torch.cuda.synchronize()
+
+    def plain():
+        return [flash_attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                    window=w) for i in range(b)]
+    checks = {}
+    for i, want in enumerate(plain()):
+        k8_compare(f"{name} b{i}", got[i:i + 1], want, 2e-2, checks)
+    del want
+    torch.cuda.empty_cache()
+    out = torch.empty_like(q)
+    ms = cuda_ms(lambda: k8.launch(q, k, v, out, w), 5, warmup=1)
+    plain_ms = cuda_ms(plain, 2, warmup=1)
+    torch.cuda.empty_cache()
+    bound, bound_by, flops, nbytes = k8_bound(b, s, h, kv, d, w, 2)
+    try:
+        lib = sdpa_ms(q, k, v, w, causal_only=w is None)
+    except torch.cuda.OutOfMemoryError:
+        lib = None
+    rec = {"shape": list(shape), "kernel": k8.kernel_for(torch.bfloat16, d),
+           "checks": checks,
+           "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
+           "max_row_rel_l2": max(c["max_row_rel_l2"]
+                                 for c in checks.values()),
+           "ms": ms, "bound_ms": bound, "bound_by": bound_by,
+           "flops": flops, "bytes": nbytes,
+           "tflops_per_s": flops / ms / 1e9, "plain_ms": plain_ms,
+           "sdpa_ms": lib,
+           "sdpa_mask": "causal" if w is None else "window mask"}
+    record[name] = rec
+    del q, k, v, out, got
+    torch.cuda.empty_cache()
+    lib_txt = "out of memory" if lib is None else f"{lib:.4f}"
+    log(f"[K8] {name} (B, S, H, KV, D, W) = {shape}, bf16, {rec['kernel']}: "
+        f"max abs err {rec['max_abs_err']:.3e}, max row relative L2 "
+        f"{rec['max_row_rel_l2']:.3e}; {ms:.4f} ms per launch "
+        f"({rec['tflops_per_s']:.1f} TFLOP/s), bound {bound:.4f} ms "
+        f"({bound_by}), plain version {plain_ms:.4f}, SDPA "
+        f"({rec['sdpa_mask']}) {lib_txt}")
+    return rec
+
+
+def moe_layer_phase(dev, record):
+    """Phase 34b: one full-width Mixtral-8x22B layer drawn on the card and
+    copied to the host, float32 compute, B=1 S=64 prefill and 2 decode
+    steps on the card against the CPU (the card fed the CPU's tokens)."""
+    import torch
+    from repro_torch.common.tree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    rec = {}
+    cfg = get_config("mixtral_8x22b").replace(n_layers=1,
+                                              compute_dtype="float32")
+    model = serve_mod.serving_model(cfg)
+    w_dev = serve_mod.init_weights(model, 0, dev)
+    w_cpu = tuple(tree_map(lambda t: t.cpu(), w) for w in w_dev)
+    prompt = serve_mod.draw_prompt(cfg, 1, MOE_CUT_SEQ, 0)
+    rels = card_vs_cpu("mixtral_layer_f32", model, w_dev, w_cpu, prompt,
+                       MOE_CUT_STEPS, CUT_F32_LIMIT, rec, dev)
+    log(f"[moe] one full-width Mixtral-8x22B layer (8 experts of 6144 x "
+        f"16384, top-2), B=1, S={MOE_CUT_SEQ}, float32: card vs CPU "
+        f"relative L2 of the logits (prefill, then {MOE_CUT_STEPS} decode "
+        f"steps) {['%.3e' % r for r in rels]} (limit {CUT_F32_LIMIT:g}); "
+        f"CPU {rec['mixtral_layer_f32_cpu_s']:.1f} s")
+    del w_dev, w_cpu
+    torch.cuda.empty_cache()
+    record["moe_layer"] = rec
+
+
+def moe_serve_phase(dev, record, counters):
+    """Phase 34a: ``serve`` on Mixtral-8x22B at full width cut to
+    ``MOE_LAYERS`` layers, bf16 compute, B=2 x 8192 + 16 decode steps,
+    counted (``serve_cell``), the weights' init time and peak; then
+    prefill(8192) + decode(1) against prefill(8193) at B=1."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models.params import param_count
+    cfg = get_config("mixtral_8x22b").replace(n_layers=MOE_LAYERS)
+    model = serve_mod.serving_model(cfg)
+    n_params = (param_count(model.backbone_specs())
+                + param_count(model.head_specs()))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)   # earlier phases' tensors
+    t0 = time.perf_counter()
+    weights = serve_mod.init_weights(model, 0, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rec = {"params": n_params, "init_s": init_s,
+           "allocated_before_init_bytes": before,
+           "init_peak_bytes": torch.cuda.max_memory_allocated(dev) - before,
+           "weights_bytes": torch.cuda.memory_allocated(dev) - before}
+    log(f"[moe serve] Mixtral-8x22B at full width, {MOE_LAYERS} layers: "
+        f"{n_params:,} parameters, float32 weights "
+        f"({rec['weights_bytes'] / 1e9:.2f} GB) drawn on the card in "
+        f"{init_s:.2f} s, init peak {rec['init_peak_bytes'] / 1e9:.2f} GB "
+        f"above the {before / 1e9:.2f} GB the card held before")
+    launches = serve_cell(dev, "moe serve", model, weights, MOE_BATCH,
+                          K8_SEQ, MOE_DECODE_STEPS, counters, rec)
+    del rec["prefill_logits"]
+    prefill_decode_check(dev, "moe serve", model, weights, K8_SEQ, rec)
+    del weights
+    torch.cuda.empty_cache()
+    record["moe_serve"] = rec
+    return launches
+
+
+def vision_phase(dev, record, counters):
+    """Phase 34c: ``serve`` on Phi-3-vision-4.2B at full depth and width,
+    bf16, B=1, from a (1, 4096, 3072) embedding prompt (the stub vision
+    frontend's patch embeddings: rows of the embedding table), counted:
+    32 K8 launches on the mma.sync route (D = 96); the prefill of the
+    embeddings equal to the prefill of their tokens bit for bit; 8
+    decode steps, finite."""
+    import torch
+    from repro_torch.common.tree import tree_flatten_with_path
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as k8
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.params import param_count
+    cfg = get_config("phi3_vision_4_2b")
+    model = serve_mod.serving_model(cfg)
+    route = k8.kernel_for(torch.bfloat16, cfg.resolved_head_dim)
+    if route != "mma_sync":
+        fail(f"Phi-3-vision's D={cfg.resolved_head_dim} takes K8's {route} "
+             f"kernel, not mma_sync")
+    n_params = (param_count(model.backbone_specs())
+                + param_count(model.head_specs()))
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    weights = serve_mod.init_weights(model, 0, dev)
+    torch.cuda.synchronize()
+    rec = {"params": n_params, "init_s": time.perf_counter() - t0,
+           "init_peak_bytes": torch.cuda.max_memory_allocated(dev) - before,
+           "k8_kernel": route}
+    tokens = serve_mod.draw_prompt(cfg, 1, VISION_SEQ, 0).to(dev)
+    embeds = weights[0]["trunk"]["embed"][tokens]      # (1, S, 3072) f32
+    log(f"[vision] Phi-3-vision-4.2B full depth and width: {n_params:,} "
+        f"parameters drawn on the card in {rec['init_s']:.2f} s; an "
+        f"embedding prompt {tuple(embeds.shape)}")
+    launches = serve_cell(dev, "vision serve", model, weights, 1, VISION_SEQ,
+                          VISION_DECODE_STEPS, counters, rec, prompt=embeds)
+    prefill = make_prefill_step(model,
+                                cache_len=VISION_SEQ + VISION_DECODE_STEPS + 1)
+    lg_e, c_e = prefill(*weights, embeds)
+    lg_t, c_t = prefill(*weights, tokens)
+    torch.cuda.synchronize()
+    same = torch.equal(lg_e, lg_t) and torch.equal(
+        lg_e, rec.pop("prefill_logits")) and all(
+        torch.equal(a, b_) for (_, a), (_, b_) in zip(
+            tree_flatten_with_path(c_e), tree_flatten_with_path(c_t)))
+    if not same:
+        fail("Phi-3-vision: the prefill of embed[tokens] differs from the "
+             "prefill of the tokens")
+    rec["embeds_equal_tokens_bit_for_bit"] = True
+    log(f"[vision] prefill of embed[tokens] equal to the prefill of the "
+        f"tokens bit for bit (logits and every cache leaf); "
+        f"{VISION_DECODE_STEPS} decode steps finite")
+    del weights, embeds, c_e, c_t
+    torch.cuda.empty_cache()
+    record["vision_serve"] = rec
+    return launches
+
+
+def new_smoke_phase(dev, record):
+    """Phase 34e: the four new smoke configs (Mixtral, Phi-3.5-MoE,
+    MusicGen, Phi-3-vision), the reference's seeded weights carried
+    through ``convert.lm_params_from_numpy`` onto the card and the CPU,
+    float32, B=2 prefill of 40 tokens (past the smoke window of 32) and 4
+    decode steps, card against CPU within ``CUT_F32_LIMIT``."""
+    import torch
+    from repro_torch.common.tree import tree_map
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.launch import serve as serve_mod
+    rec = {}
+    for arch in NEW_SMOKE:
+        cfg = get_smoke_config(arch)
+        model = serve_mod.serving_model(cfg)
+        as_np = [tree_map(lambda t: t.numpy(), w)
+                 for w in serve_mod.init_weights(model, 0, "cpu")]
+        w_cpu = tuple(lm_params_from_numpy(w) for w in as_np)
+        w_dev = tuple(lm_params_from_numpy(w, dev) for w in as_np)
+        prompt = serve_mod.draw_prompt(cfg, NEW_SMOKE_BATCH, NEW_SMOKE_SEQ, 0)
+        rels = card_vs_cpu(arch, model, w_dev, w_cpu, prompt,
+                           NEW_SMOKE_STEPS, CUT_F32_LIMIT, rec, dev)
+        log(f"[smoke] {arch} smoke config, B={NEW_SMOKE_BATCH}, "
+            f"S={NEW_SMOKE_SEQ}, float32: card vs CPU relative L2 "
+            f"{['%.3e' % r for r in rels]} (limit {CUT_F32_LIMIT:g})")
+    record["new_smoke"] = rec
+
+
+def moe_phase(dev, record, counters):
+    """Phase 34: K8 at the new layers' shapes (d), one full-width Mixtral
+    layer card vs CPU (b), Mixtral-8x22B served at full width cut in
+    depth (a), Phi-3-vision-4.2B served from embeddings (c), and the new
+    smoke configs card vs CPU (e). Returns the counted runs' launches."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(34)
+    k8_new = {name: k8_layer_case(dev, name, shape, gen, record)
+              for name, shape in K8_NEW_SHAPES.items()}
+    moe_layer_phase(dev, record)
+    total = {}
+    for got in (moe_serve_phase(dev, record, counters),
+                vision_phase(dev, record, counters)):
+        for k_name, v in got.items():
+            total[k_name] = total.get(k_name, 0) + v
+    new_smoke_phase(dev, record)
+    return total, k8_new
+
+
 def _stop_children() -> None:
     """Stop the ranks' fork server and its resource tracker (they would
     otherwise outlive the script by a second or more), then fail if any
@@ -5032,6 +5413,12 @@ def main() -> None:
                                           len(runs)).items():
         total[k_name] = total.get(k_name, 0) + v
     lap("32-33")
+
+    # --- 34. the MoE layer and the audio and vision stub frontends ---------
+    got, k8_new = moe_phase(dev, record, counters + (k8.counter,))
+    for k_name, v in got.items():
+        total[k_name] = total.get(k_name, 0) + v
+    lap("34")
     if "jax" in sys.modules or "repro" in sys.modules:
         fail("the JAX package was imported")
 
@@ -5087,10 +5474,15 @@ def main() -> None:
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:92",
-         "launches": total["flash_attention"], "max_abs_err": k8_err,
+         "launches": total["flash_attention"],
+         "max_abs_err": max([k8_err] + [r["max_abs_err"]
+                                        for r in k8_new.values()]),
          "ms": k8_rec["ms"], "plain_ms": k8_rec["plain_ms"],
          "bound_ms": k8_rec["bound_ms"], "bound_by": k8_rec["bound_by"],
-         "library_ms": k8_rec["sdpa_window_mask_ms"]},
+         "library_ms": k8_rec["sdpa_window_mask_ms"],
+         **{f"{name}_{key}": rec[key] for name, rec in k8_new.items()
+            for key in ("kernel", "max_abs_err", "ms", "plain_ms",
+                        "bound_ms", "bound_by", "sdpa_ms")}},
         {"name": "ota_mask_count", "route": "cuda",
          "source": "src/repro_torch/kernels/ota_channel/csrc/"
                    "ota_mask_count.cu",

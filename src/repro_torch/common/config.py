@@ -2,8 +2,10 @@
 ``repro.common.config`` so the port depends on nothing there.
 
 ``FLConfig`` describes the HOTA-FedGradNorm topology and channel,
-``ModelConfig`` a backbone (the port builds only the ``mlp`` family so
-far), ``TrainConfig`` the step-level knobs. Field names, defaults and
+``ModelConfig`` a backbone (the port builds the ``mlp`` family and the
+dense LM family with its MoE layer), ``TrainConfig`` the step-level
+knobs, ``InputShape`` and ``INPUT_SHAPES`` the assigned input shapes
+(``launch.steps.input_specs``). Field names, defaults and
 meanings are the reference's, so a config written for one package means
 the same thing to the other.
 """
@@ -197,3 +199,20 @@ class TrainConfig:
     steps: int = 100
     seed: int = 0
     fl: FLConfig = field(default_factory=FLConfig)
+
+
+# --- input shapes assigned to this paper ------------------------------------
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str   # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}

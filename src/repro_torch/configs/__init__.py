@@ -1,5 +1,5 @@
-"""Architecture configs the port builds: the dense text family and the
-paper's MLP.
+"""Architecture configs the port builds: the dense family (text, the MoE
+layer, the audio and vision stub frontends) and the paper's MLP.
 
 Copied from the JAX package's ``repro.configs`` so the port depends on
 nothing there: ids, aliases, full-size ``CONFIG`` and reduced
@@ -18,19 +18,19 @@ from repro_torch.common.config import ModelConfig
 ARCH_IDS: List[str] = [
     "starcoder2_3b",
     "stablelm_3b",
+    "musicgen_medium",
+    "phi3_vision_4_2b",
     "gemma3_12b",
+    "phi3_5_moe_42b",
+    "mixtral_8x22b",
     "qwen2_5_14b",
     "paper_mlp",
 ]
 
 # the reference's architectures whose family the port does not build yet
 NOT_PORTED: Dict[str, str] = {
-    "musicgen_medium": "item 14 (audio and vision stub frontends)",
-    "phi3_vision_4_2b": "item 14 (audio and vision stub frontends)",
     "zamba2_1_2b": "item 14 (mamba2, xlstm and hybrid)",
     "xlstm_1_3b": "item 14 (mamba2, xlstm and hybrid)",
-    "phi3_5_moe_42b": "item 14 (MoE)",
-    "mixtral_8x22b": "item 14 (MoE)",
 }
 
 # CLI-friendly aliases, as in the reference

@@ -25,8 +25,11 @@ shards.
 An LM's parameters (``init_params`` of the reference's ``trunk_specs``,
 ``final_specs`` or ``head_specs``) are nested dicts with stacked layer
 dims (``layers``, or gemma3's ``local`` (n_super, r, ...) and ``global``
-(n_super, ...)); the port's dense model reads the same trees, so
-``lm_params_from_numpy`` only turns each leaf into a tensor.
+(n_super, ...)); an MoE layer's ``mlp`` holds ``norm`` (d,), ``router``
+(d, E) and the stacked experts ``w_gate``/``w_up`` (E, d, d_ff) and
+``w_down`` (E, d_ff, d), each behind the layer dim. The port's dense
+model reads the same trees, so ``lm_params_from_numpy`` only turns each
+leaf into a tensor.
 """
 from __future__ import annotations
 
@@ -54,8 +57,9 @@ def _tree(tree, device):
 
 
 def lm_params_from_numpy(params, device="cpu"):
-    """The port's copy of a reference LM parameter tree (numpy leaves):
-    the same nesting and stacked shapes, each leaf a float32 tensor."""
+    """The port's copy of a reference LM parameter tree (numpy leaves),
+    dense or MoE: the same nesting and stacked shapes, each leaf a
+    float32 tensor."""
     if isinstance(params, dict):
         return {k: lm_params_from_numpy(v, device) for k, v in params.items()}
     return _tensor(np.asarray(params, np.float32), device, torch.float32)

@@ -18,6 +18,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.common.config import FLConfig
+from repro_torch.common.tree import tree_leaves
 
 
 class FGNState(NamedTuple):
@@ -33,6 +34,12 @@ def fgn_init(n: int, n_clusters: int, device="cpu") -> FGNState:
     return FGNState(step=torch.zeros((n_clusters,), dtype=torch.int32,
                                      device=device),
                     mu=z, nu=z.clone())
+
+
+def fgrad_value(p, norms, gbar, targets) -> torch.Tensor:
+    """F_grad (eq. 5) given the masked norms and the targets Ḡ·r^γ,
+    summed over the last (client) axis."""
+    return torch.sum(torch.abs(p * norms - gbar * targets), dim=-1)
 
 
 def fgn_targets(loss_ratios: torch.Tensor, gamma: float) -> torch.Tensor:
@@ -87,3 +94,13 @@ def fgn_update_gated(p, norms, loss_ratios, state: FGNState, fl: FLConfig,
                       nu=torch.where(on_cn, st_fgn.nu, state.nu))
     return (torch.where(on_cn, p_fgn, p), st_new,
             torch.where(on, fval, torch.zeros_like(fval)))
+
+
+def masked_tree_norm(grad_tree, mask_tree) -> torch.Tensor:
+    """‖M ∘ g‖ over a tree (the n_i of eq. 6): boolean (or 0/1) masks
+    shaped like, or broadcasting to, their gradient leaves."""
+    total = torch.zeros((), dtype=torch.float32)
+    for g, m in zip(tree_leaves(grad_tree), tree_leaves(mask_tree)):
+        sq = torch.sum(torch.where(m.bool(), g.to(torch.float32), 0.0) ** 2)
+        total = total.to(sq.device) + sq
+    return torch.sqrt(total)

@@ -104,3 +104,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"unsupported device {q.device}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     return launch(q, k, v, torch.empty_like(q), window)
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *,
+                              window: Optional[int] = None) -> torch.Tensor:
+    """``flash_attention`` through its plain version, on q's device (the
+    reference's oracle name)."""
+    return flash_attention_ref(q, k, v, window=window)

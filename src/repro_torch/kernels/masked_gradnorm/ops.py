@@ -101,3 +101,10 @@ def masked_gradnorm(g: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"unsupported device {g.device}")
     out = torch.empty(g.shape[:2], dtype=torch.float32, device=g.device)
     return launch(g, mask, out)
+
+
+def masked_gradnorm_reference(g: torch.Tensor,
+                              mask: torch.Tensor) -> torch.Tensor:
+    """``masked_gradnorm`` through its plain version, on g's device (the
+    reference's oracle name)."""
+    return masked_gradnorm_ref(g, mask)

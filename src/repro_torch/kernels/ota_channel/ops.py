@@ -744,3 +744,12 @@ def ota_channel_reference(x: torch.Tensor, key, sigma2, h_th, ota_on=1.0):
     bits = _padded_bits(key, x.numel(), x.device).reshape(x.shape)
     out, mask, _ = ota_channel_ref(x, bits, sigma2, h_th, ota_on)
     return out, mask
+
+
+def ota_aggregate_reference(wg: torch.Tensor, bits: torch.Tensor,
+                            nbits: torch.Tensor, sigma2, h_th, noise_std,
+                            ota_on, n_clients: int) -> torch.Tensor:
+    """``ota_aggregate`` through its plain version on the same words, on
+    wg's device (the reference's oracle name)."""
+    return ota_aggregate_slab_ref(wg, bits, nbits, sigma2, h_th, noise_std,
+                                  ota_on, n_clients)

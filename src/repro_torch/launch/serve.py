@@ -1,4 +1,8 @@
-"""Serving entry point: prefill + batched greedy decode for a dense --arch.
+"""Serving entry point: prefill + batched greedy decode for any ported
+--arch: the dense text models, the MoE pair (mixtral-8x22b,
+phi3.5-moe-42b-a6.6b: dropless inference, every expert weighted by the
+top-k gates) and the audio and vision stub frontends (musicgen-medium,
+phi-3-vision-4.2b).
 
 Port of ``repro.launch.serve``: the same flags and output lines, on the
 card unless ``--device cpu``. It serves with ``attn_impl="pallas"``, the
@@ -10,7 +14,11 @@ as the reference does)::
         --batch 4 --prefill-len 32 --decode-steps 16
 
 ``main()`` serves the reduced (smoke) config, as the reference does;
-``serve(cfg, ...)`` takes any dense config, the full-size one included.
+``serve(cfg, ...)`` takes any ported config, the full-size one included
+(Mixtral-8x22B cut in depth: ``get_config("mixtral_8x22b").replace(
+n_layers=4)`` holds 41.7 GB of float32 weights), and a ``prompt`` of
+token ids (B, S) or, for the vision frontend, (B, S, d_model) float
+embeddings (the decode steps take the greedy token ids).
 Weights and prompt follow the reference's keys: ``split(PRNGKey(seed),
 4)`` gives the trunk, final, head and prompt keys, the weights are
 ``init_params`` of the first three (drawn on the serving device: 12.7 GB

@@ -1,4 +1,5 @@
-"""Model facade over the families the port builds: ``mlp`` and ``dense``.
+"""Model facade over the families the port builds: ``mlp`` and ``dense``
+(with ``moe``, its alias in the reference).
 
 Port of ``repro.models.model``. The personalized-FL split of eq. (2) is
 structural: trunk (shared) -> ``final``, the last shared layer ω̃ that
@@ -10,10 +11,15 @@ FedGradNorm differentiates -> a per-client head.
   matching the input's (the simulator's (C, N) clients each hold their
   own copy) or without them (one shared copy broadcast over the batch),
   so the reference's (C, N) ``vmap`` is a batched matmul here.
-* ``dense``: the decoder LM of ``models/transformer.py`` (embedding and
-  stacked layers) -> final RMSNorm -> a vocab head with float32 logits,
-  for training, prefill and decode. MoE, SSM, xLSTM and hybrid families
-  wait for ROADMAP Queue 1, items 14.2-14.4.
+* ``dense`` (and ``moe``): the decoder LM of ``models/transformer.py``
+  (embedding and stacked layers) -> final RMSNorm -> a vocab head with
+  float32 logits, for training, prefill and decode. ``cfg.moe`` puts the
+  MoE block of ``models/moe.py`` in every layer (Mixtral, Phi-3.5-MoE);
+  ``cfg.modality`` "audio" (EnCodec token ids) or "vision" (projected
+  patch embeddings, (B, S, d_model) floats) selects the stub frontend's
+  inputs (``launch.steps.input_specs``): the trunk takes token ids or
+  float embeddings alike. SSM, xLSTM and hybrid families wait for
+  ROADMAP Queue 1, item 14.4.
 
 ``trunk_apply`` returns (hidden, aux_loss, new_cache) for both families,
 as the reference's does; ``lm_loss`` and ``cls_loss`` are the
@@ -46,14 +52,14 @@ class Model:
     dims: Tuple[int, ...] = field(default=PAPER_MLP_DIMS)
 
     def __post_init__(self):
-        if self.cfg.family not in ("mlp", "dense"):
+        if self.cfg.family not in ("mlp", "dense", "moe"):
             raise NotImplementedError(
-                f"the port builds the 'mlp' and 'dense' families, got "
+                f"the port builds the 'mlp', 'dense' and 'moe' families, got "
                 f"{self.cfg.family!r} (ROADMAP Queue 1, item 14)")
 
     @property
     def is_lm(self) -> bool:
-        return self.cfg.family == "dense"
+        return self.cfg.family in ("dense", "moe")
 
     # ---------------- specs ----------------
     def trunk_specs(self):

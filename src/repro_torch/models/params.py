@@ -59,11 +59,15 @@ def _normal(key, shape, device) -> torch.Tensor:
     """``rng.normal(key, shape)`` for each key of a (..., 2) table, its
     words drawn on ``device`` (the card's stream kernel there). The keys
     are drawn a slice of rows at a time (at most ``MAX_DRAW_KEYS``, one
-    launch's) and the words turned into floats a slice at a time, so the
-    transient word buffers stay near ``_NORMAL_SLICE`` entries however
-    many keys the table holds (a population bank's heads: one key per
-    client). Each key's words
-    depend on that key alone, so the values are those of one draw."""
+    launch's, and no more than fit ``_NORMAL_SLICE`` entries, but always
+    one) and the words turned into floats a slice at a time. A table of
+    many small leaves (a population bank's heads: one key per client)
+    thus keeps the transient word buffer near ``_NORMAL_SLICE`` entries;
+    one key's words are drawn whole, so a leaf of n entries holds n words
+    (4n bytes) beside its n floats while it is drawn: 12.9 GB for one
+    stacked expert leaf of Mixtral-8x22B cut to 4 layers (4 x 8 x 6144 x
+    16384 entries). Each key's words depend on that key alone, so the
+    values are those of one draw."""
     n = math.prod(shape)
     batch = tuple(key.shape[:-1])
     keys = key.reshape(-1, 2)
@@ -112,6 +116,10 @@ def init_params(specs, key, device="cpu"):
 def param_count(specs) -> int:
     return sum(math.prod(s.shape) for s in tree_leaves(specs))
 
+
+def spec_shapes(specs):
+    """The spec tree's shape tuples, in the same structure."""
+    return tree_unflatten(specs, [tuple(s.shape) for s in tree_leaves(specs)])
 
 
 def logical_axes(specs):

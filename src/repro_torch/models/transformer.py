@@ -2,9 +2,13 @@
 
 Port of ``repro.models.transformer`` for training (``train``) and
 inference (``prefill`` and ``decode``). Covers starcoder2 (sliding
-window), stablelm, qwen2.5 (qkv bias) and gemma3's local:global pattern
+window), stablelm, qwen2.5 (qkv bias), musicgen (audio tokens),
+phi-3-vision (embeddings in), mixtral and phi-3.5-moe (an MoE block in
+place of the MLP, ``models/moe.py``) and gemma3's local:global pattern
 (stacks ``local`` of shape (n_super, r, ...) and ``global`` of shape
-(n_super, ...)). MoE layers are refused (ROADMAP Queue 1, item 14.2).
+(n_super, ...)). Each layer returns an auxiliary loss (the MoE block's
+load-balance loss, 0 for a dense MLP) and the trunk sums them over the
+layers in layer order, as the reference's scan carry does.
 
 Training runs each layer under ``cfg.remat_policy`` (``_remat``): the
 backward recomputes the layer (``"nothing_saveable"``), recomputes all
@@ -42,6 +46,7 @@ from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import resolve_device
 from repro_torch.common.tree import tree_leaves, tree_map
 from repro_torch.models import layers as L
+from repro_torch.models.moe import moe_apply, moe_specs
 from repro_torch.models.params import ParamSpec
 
 
@@ -89,8 +94,7 @@ def mlp_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 def dense_layer_specs(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.moe is not None:
-        raise NotImplementedError("MoE layers are not ported yet (ROADMAP "
-                                  "Queue 1, item 14.2: MoE)")
+        return {"attn": attn_specs(cfg), "mlp": moe_specs(cfg)}
     return {"attn": attn_specs(cfg), "mlp": mlp_specs(cfg)}
 
 
@@ -213,11 +217,17 @@ def mlp_block_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def dense_layer_apply(p, x, cfg: ModelConfig, *, positions, window, theta,
                       mode, cache=None, cache_len=None):
-    """Returns (x, new_cache); a dense layer has no auxiliary loss."""
+    """Returns (x, aux_loss, new_cache): the MoE block's load-balance loss
+    (capacity dropping in training only), or 0 for a dense MLP."""
     x, new_cache = attn_apply(p["attn"], x, cfg, positions=positions,
                               window=window, theta=theta, mode=mode,
                               cache=cache, cache_len=cache_len)
-    return mlp_block_apply(p["mlp"], x, cfg), new_cache
+    if cfg.moe is not None:
+        x, aux = moe_apply(p["mlp"], x, cfg, train=(mode == "train"))
+    else:
+        x = mlp_block_apply(p["mlp"], x, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux, new_cache
 
 
 # --------------------------------------------------------------------------
@@ -238,7 +248,9 @@ def _save_dots(ctx, op, *args, **kwargs):
 def _remat(fn, cfg: ModelConfig):
     """``fn`` under ``cfg.remat_policy`` when autograd records: "none"
     runs it plainly, "dots" recomputes all but the matmul outputs in the
-    backward, "nothing_saveable" recomputes it whole."""
+    backward, "nothing_saveable" recomputes it whole. The layer's aux
+    loss is one of ``fn``'s tensor outputs, so its gradient flows back
+    through the recomputed layer like the hidden state's."""
     if cfg.remat_policy == "none":
         return fn
     if cfg.remat_policy not in ("dots", "nothing_saveable"):
@@ -265,8 +277,8 @@ def _stack_caches(caches: List[Dict[str, torch.Tensor]]):
 
 
 def _hooked(layer_fn, param_hook, tags):
-    """``layer_fn`` with the hook on its parameters: ``fn(lp, i, h, c)``
-    hooks ``lp`` as ("layers", *tags, i)."""
+    """``layer_fn`` with the hook on its parameters: ``fn(lp, i, h, c) ->
+    (h, aux, c)`` hooks ``lp`` as ("layers", *tags, i)."""
     def fn(lp, i, h, c):
         if param_hook is not None:
             lp = param_hook(lp, "layers", *tags, i)
@@ -274,12 +286,13 @@ def _hooked(layer_fn, param_hook, tags):
     return fn
 
 
-def _run_stack(layer_fn, stack_params, x, cache, mode: str,
+def _run_stack(layer_fn, stack_params, x, aux, cache, mode: str,
                cfg: ModelConfig, param_hook=None, hook_tags=()):
-    """Run ``layer_fn(lp, h, c) -> (h, c)`` over a stacked param tree
+    """Run ``layer_fn(lp, h, c) -> (h, aux, c)`` over a stacked param tree
     (and, in decode, the matching stacked cache), each layer under the
-    remat policy in training. Returns (x, new_cache): None in training,
-    the layers' caches stacked in prefill, the updated input cache in
+    remat policy in training, adding each layer's aux loss to ``aux`` in
+    layer order. Returns (x, aux, new_cache): None in training, the
+    layers' caches stacked in prefill, the updated input cache in
     decode."""
     fn = _hooked(layer_fn, param_hook, hook_tags)
     if mode == "train":
@@ -288,13 +301,14 @@ def _run_stack(layer_fn, stack_params, x, cache, mode: str,
     caches = []
     for i in range(n):
         c = _index(cache, i) if mode == "decode" else None
-        x, c2 = fn(_index(stack_params, i), i, x, c)
+        x, a, c2 = fn(_index(stack_params, i), i, x, c)
+        aux = aux + a
         caches.append(c2)
     if mode == "train":
-        return x, None
+        return x, aux, None
     if mode == "decode":
-        return x, cache
-    return x, _stack_caches(caches)
+        return x, aux, cache
+    return x, aux, _stack_caches(caches)
 
 
 def _cdt(cfg: ModelConfig) -> torch.dtype:
@@ -304,8 +318,9 @@ def _cdt(cfg: ModelConfig) -> torch.dtype:
 def dense_trunk_apply(params, tokens_or_embeds, cfg: ModelConfig, *,
                       positions, mode: str = "train", cache=None,
                       cache_len=None, param_hook=None):
-    """Returns (hidden_pre_final, aux_loss, new_cache), aux_loss 0 as no
-    ported layer has one. ``param_hook(params, klass, *tags)`` sees the
+    """Returns (hidden_pre_final, aux_loss, new_cache), aux_loss the sum
+    of the layers' (the MoE blocks' load-balance losses; 0 for a dense
+    model). ``param_hook(params, klass, *tags)`` sees the
     embedding table as "embed" and each layer's parameters as "layers"
     with tags (layer,), or gemma3's (super-block, layer in it), the
     global layer of a super-block being layer r."""
@@ -338,14 +353,16 @@ def dense_trunk_apply(params, tokens_or_embeds, cfg: ModelConfig, *,
         loc, glob = [], []
         for si in range(n_super):
             c_l = _index(cache["local"], si) if mode == "decode" else None
-            x, nc_l = _run_stack(local_fn, _index(params["local"], si), x,
-                                 c_l, mode, cfg, param_hook, (si,))
+            x, aux, nc_l = _run_stack(local_fn, _index(params["local"], si),
+                                      x, aux, c_l, mode, cfg, param_hook,
+                                      (si,))
             c_g = _index(cache["global"], si) if mode == "decode" else None
             # the global layer is hooked as ("layers", si, r)
             g_fn = _hooked(global_fn, param_hook, (si,))
             if mode == "train":
                 g_fn = _remat(g_fn, cfg)
-            x, nc_g = g_fn(_index(params["global"], si), r, x, c_g)
+            x, a, nc_g = g_fn(_index(params["global"], si), r, x, c_g)
+            aux = aux + a
             loc.append(nc_l)
             glob.append(nc_g)
         if mode == "train":
@@ -360,9 +377,8 @@ def dense_trunk_apply(params, tokens_or_embeds, cfg: ModelConfig, *,
                                  window=cfg.sliding_window,
                                  theta=cfg.rope_theta, mode=mode, cache=c,
                                  cache_len=cache_len)
-    x, new_cache = _run_stack(layer_fn, params["layers"], x, cache, mode,
-                              cfg, param_hook)
-    return x, aux, new_cache
+    return _run_stack(layer_fn, params["layers"], x, aux, cache, mode, cfg,
+                      param_hook)
 
 
 # --------------------------------------------------------------------------

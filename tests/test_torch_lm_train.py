@@ -8,8 +8,10 @@
   libraries sum in other orders): windows None and 8, shapes on both
   sides of the folded fallback, and a window that masks whole key
   blocks (finite gradients on both sides);
-- ``forward_logits(mode="train")``, ``lm_loss`` and the gradient of the
-  whole backbone and head for the four dense smoke configs, with the
+- ``forward_logits(mode="train")``, the summed aux loss, ``lm_loss +
+  aux`` and the gradient of the whole backbone and head for the eight
+  dense-family smoke configs (the MoE pair drops by capacity in
+  training; mixtral also at capacity factor 0.1, so tokens drop), with the
   reference's weights carried across (``convert.lm_params_from_numpy``):
   rtol 1e-4 (atol 1e-4 of a leaf's largest entry); the three remat
   policies give the same gradient;
@@ -18,6 +20,8 @@
 - ``lm_loss`` and ``cls_loss``; ``common.tree``'s arithmetic helpers;
   ``LM_100M`` against the reference example's model.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,7 +43,13 @@ from repro_torch.data.lm import synthetic_lm_batches
 from repro_torch.models import layers as L
 from repro_torch.models.model import build_model, cls_loss, lm_loss
 
-ARCHS = ["starcoder2_3b", "stablelm_3b", "qwen2_5_14b", "gemma3_12b"]
+ARCHS = ["starcoder2_3b", "stablelm_3b", "qwen2_5_14b", "gemma3_12b",
+         "mixtral_8x22b", "phi3_5_moe_42b", "musicgen_medium",
+         "phi3_vision_4_2b"]
+# the smoke config's overrides of each case: mixtral at capacity factor
+# 0.1 drops tokens in every group
+TRAIN_CASES = {a: {} for a in ARCHS}
+TRAIN_CASES["mixtral_8x22b_cf0.1"] = {"capacity_factor": 0.1}
 B, S = 2, 64            # S = 64 crosses the smoke windows of 32
 
 
@@ -127,10 +137,21 @@ def _tokens(cfg, seed):
             r.integers(0, cfg.vocab_size, (B, S)).astype(np.int32))
 
 
+def _smoke(get, case):
+    """The smoke config of ``case``: an arch, or an arch with MoE
+    overrides (``TRAIN_CASES``)."""
+    arch = case.split("_cf")[0]
+    cfg = get(arch)
+    over = TRAIN_CASES[case]
+    if over:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, **over))
+    return cfg
+
+
 def _jax_train(arch):
-    """The reference's weights, batch, train-mode logits, loss and its
-    gradient in the backbone and head (numpy)."""
-    cfg = jax_smoke_config(arch)
+    """The reference's weights, batch, train-mode logits, aux, loss and
+    its gradient in the backbone and head (numpy)."""
+    cfg = _smoke(jax_smoke_config, arch)
     m = jax_build_model(cfg)
     backbone = jax_init_params(m.backbone_specs(), jax.random.PRNGKey(0))
     head = jax_init_params(m.head_specs(), jax.random.PRNGKey(1))
@@ -139,13 +160,14 @@ def _jax_train(arch):
     def loss(bb, hd):
         logits, aux, _ = m.forward_logits(bb, hd, jnp.asarray(tokens),
                                           mode="train")
-        return jax_model.lm_loss(logits, jnp.asarray(labels)) + aux, logits
-    (val, logits), grads = jax.value_and_grad(loss, argnums=(0, 1),
-                                              has_aux=True)(backbone, head)
+        return (jax_model.lm_loss(logits, jnp.asarray(labels)) + aux,
+                (logits, aux))
+    (val, (logits, aux)), grads = jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True)(backbone, head)
     np_ = lambda t: jax.tree.map(np.asarray, t)   # noqa: E731
     return {"backbone": np_(backbone), "head": np_(head), "tokens": tokens,
             "labels": labels, "logits": np.asarray(logits),
-            "loss": float(val), "grads": np_(grads)}
+            "aux": float(aux), "loss": float(val), "grads": np_(grads)}
 
 
 def _port_train(ref, cfg):
@@ -157,7 +179,12 @@ def _port_train(ref, cfg):
         t.requires_grad_(True)
     logits, aux, cache = model.forward_logits(
         bb, hd, torch.from_numpy(ref["tokens"]).long(), mode="train")
-    assert cache is None and float(aux) == 0.0
+    assert cache is None
+    if cfg.moe is None:
+        assert float(aux) == 0.0
+    else:
+        np.testing.assert_allclose(float(aux.detach()), ref["aux"],
+                                   rtol=1e-4)
     loss = lm_loss(logits, torch.from_numpy(ref["labels"])) + aux
     grads = torch.autograd.grad(loss, leaves)
     names = ["/".join(("bb",) + p) for p, _ in tree_flatten_with_path(bb)] \
@@ -165,10 +192,10 @@ def _port_train(ref, cfg):
     return logits.detach(), float(loss.detach()), dict(zip(names, grads))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", sorted(TRAIN_CASES))
 def test_train_logits_loss_and_gradient_match_jax(arch):
     ref = _jax_train(arch)
-    cfg = configs.get_smoke_config(arch)
+    cfg = _smoke(configs.get_smoke_config, arch)
     logits, loss, grads = _port_train(ref, cfg)
     _close(logits.numpy(), ref["logits"], 1e-4, "logits")
     np.testing.assert_allclose(loss, ref["loss"], rtol=1e-4)

@@ -1,5 +1,8 @@
 """The port's dense LM serving path against the JAX package's, on the
-smoke configs of the dense text family.
+smoke configs of the dense family: text, the MoE layer (mixtral,
+phi-3.5-moe: dropless inference) and the audio and vision stub
+frontends (musicgen's token ids; phi-3-vision also from float
+embeddings).
 
 Both sides run ``attn_impl="pallas"``: JAX's flash attention kernel in
 interpret mode (as its suite runs it on the CPU), the port's K8 through
@@ -32,7 +35,10 @@ from repro_torch.launch import serve as serve_mod
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models.model import build_model
 
-ARCHS = ["starcoder2_3b", "stablelm_3b", "qwen2_5_14b", "gemma3_12b"]
+ARCHS = ["starcoder2_3b", "stablelm_3b", "qwen2_5_14b", "gemma3_12b",
+         "mixtral_8x22b", "phi3_5_moe_42b", "musicgen_medium",
+         "phi3_vision_4_2b"]
+PORTED = ARCHS + ["paper_mlp"]
 B, S, STEPS = 2, 40, 4          # S=40 crosses the smoke windows of 32
 CACHE_LEN = S + STEPS + 1
 RTOL, ATOL = 1e-4, 1e-5
@@ -106,16 +112,24 @@ def _check_cache(got, want, where):
 
 
 def test_smoke_configs_are_the_references():
-    for arch in ARCHS:
-        for port, ref in ((configs.get_config, jax_config),
-                          (configs.get_smoke_config, jax_smoke_config)):
-            assert dataclasses.asdict(port(arch)) == \
-                dataclasses.asdict(ref(arch))
+    """The eight ported LM configs (and the paper's MLP) are the
+    reference's, full size and smoke, by id and by alias; only the
+    mamba2/xlstm/hybrid families still raise."""
+    assert sorted(configs.ARCH_IDS) == sorted(PORTED)
+    aliases = {v: k for k, v in configs.ALIASES.items()}
+    for arch in PORTED:
+        for name in (arch, aliases[arch]):
+            for port, ref in ((configs.get_config, jax_config),
+                              (configs.get_smoke_config, jax_smoke_config)):
+                assert dataclasses.asdict(port(name)) == \
+                    dataclasses.asdict(ref(name))
     assert configs.get_config("paper-mlp").family == "mlp"
-    with pytest.raises(NotImplementedError, match="MoE"):
-        configs.get_config("mixtral-8x22b")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        configs.get_smoke_config("zamba2-1.2b")
+    assert configs.get_config("mixtral-8x22b").moe.n_experts == 8
+    assert configs.get_config("phi-3-vision-4.2b").modality == "vision"
+    assert sorted(configs.NOT_PORTED) == ["xlstm_1_3b", "zamba2_1_2b"]
+    for name in ("zamba2-1.2b", "xlstm-1.3b"):
+        with pytest.raises(NotImplementedError, match="item 14"):
+            configs.get_smoke_config(name)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -255,3 +269,49 @@ def test_serve_on_cuda_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_mod.main(["--arch", "stablelm-3b", "--batch", "1",
                         "--prefill-len", "4", "--decode-steps", "2"])
+
+
+@functools.lru_cache(maxsize=None)
+def reference_embeds(arch):
+    """The reference's train-mode logits from float embeddings (the vision
+    stub frontend, as ``tests/test_models.py::test_embeds_input_vlm_path``)
+    and its prefill logits and cache from them (numpy)."""
+    ref = reference(arch)
+    m = jax_build_model(jax_smoke_config(arch).replace(attn_impl="pallas"))
+    bb = jax.tree.map(jnp.asarray, ref["backbone"])
+    hd = jax.tree.map(jnp.asarray, ref["head"])
+    embeds = np.random.default_rng(3).normal(
+        size=(B, S, m.cfg.d_model)).astype(np.float32)
+    train, _, _ = jax.jit(lambda b, h, e: m.forward_logits(
+        b, h, e, mode="train"))(bb, hd, jnp.asarray(embeds))
+    last, cache = jax.jit(jax_prefill_step(m, cache_len=CACHE_LEN))(
+        bb, hd, jnp.asarray(embeds))
+    return {"embeds": embeds, "train": np.asarray(train),
+            "last": np.asarray(last), "cache": _np(cache)}
+
+
+def test_vision_embeddings_match_jax():
+    """Phi-3-vision's stub frontend: (B, S, d_model) float embeddings in
+    place of token ids, in training and prefill; and the prefill of the
+    embedding table's rows equals the prefill of the tokens bit for bit."""
+    arch = "phi3_vision_4_2b"
+    want = reference_embeds(arch)
+    ref, model, backbone, head = _port(arch)
+    embeds = torch.from_numpy(want["embeds"])
+    logits, aux, _ = model.forward_logits(backbone, head, embeds,
+                                          mode="train")
+    assert logits.shape == (B, S, model.cfg.vocab_size) and float(aux) == 0
+    np.testing.assert_allclose(logits.detach().numpy(), want["train"],
+                               rtol=RTOL, atol=ATOL)
+    prefill = make_prefill_step(model, cache_len=CACHE_LEN)
+    last, cache = prefill(backbone, head, embeds)
+    np.testing.assert_allclose(last.numpy(), want["last"], rtol=RTOL,
+                               atol=ATOL)
+    _check_cache(cache, want["cache"], "embeddings prefill")
+    tokens = torch.from_numpy(ref["tokens"]).long()
+    rows = backbone["trunk"]["embed"][tokens]
+    a, ca = prefill(backbone, head, rows)
+    b, cb = prefill(backbone, head, tokens)
+    assert torch.equal(a, b)
+    for x, y in zip(tree_flatten_with_path(ca), tree_flatten_with_path(cb)):
+        assert torch.equal(x[1], y[1])
