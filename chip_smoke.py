@@ -100,10 +100,15 @@ imports only ``repro_torch`` (never ``jax`` or the JAX package) and runs:
    the winner's layout;
 14. K8 ``flash_attention`` against its plain version on the card: small
    shapes in float32 (rtol/atol 2e-5, the reference's own test) and
-   bfloat16 (2e-2) covering D 64/128/240, 1/2/12 query heads per KV head,
-   no window and windows under a key tile, ragged S, S = 8193 with no
-   window at D 64 and 128 (bfloat16 at D 64 and 128 runs the Hopper
-   kernel, TMA + wgmma; D 240 the mma.sync one); then StarCoder2-3B's
+   bfloat16 (2e-2, every (s, h) row within ``K8_ROW_LIMIT``) covering D
+   64/128/240, 1/2/12 query heads per KV head, no window and windows
+   under a key tile, ragged S, S = 8193 with no window at D 64 and 128;
+   in bfloat16 also every head dim the rule sends to the Hopper kernel
+   (64, 80, ..., 256) at S = 300 with window 37, S = 8193 at D 96 and 240,
+   S = 1000 with no window at D 112 and 176, and D 72 at S = 300 and 1000
+   (bfloat16 at a multiple of 16 from 64 to 256 runs the Hopper
+   kernel, TMA + wgmma: 128-key tiles up to D 128, 64-key tiles above;
+   D 72 the mma.sync one, ``k8_small_cases``); then StarCoder2-3B's
    layer at the serve's B=4 (S=8192, 24 heads over 2, D=128, window 4096,
    bfloat16), each batch element against the plain version (a 6.4 GB
    score matrix each) within 2e-2 and every (s, h) row within relative
@@ -287,10 +292,14 @@ imports only ``repro_torch`` (never ``jax`` or the JAX package) and runs:
    per rank and the time to build the 3-axis mesh's groups;
 34. the MoE layer and the audio and vision stub frontends: (d) K8 against
    its plain version at Mixtral-8x22B's layer (B=1, S=8192, 48 heads over
-   8, D=128, window 4096: the Hopper kernel) and Phi-3-vision-4.2B's (B=1,
-   S=4096, 32 over 32, D=96, causal: the mma.sync kernel), each batch
-   element within 2e-2 and every row within ``K8_ROW_LIMIT``, its time
-   beside its bound, the plain version and SDPA; (b) one full-width
+   8, D=128, window 4096), Phi-3-vision-4.2B's (B=1, S=4096, 32 over 32,
+   D=96, causal), StableLM-3B's (D=80, otherwise Phi-3-vision's) and
+   Gemma-3-12B's local and global layers (B=1, S=8192, 16 over 8, D=240,
+   window 1024 and none), all on the Hopper kernel, each batch element
+   within 2e-2 and every row within ``K8_ROW_LIMIT``, its time beside its
+   bound, the mma.sync design (checked against the plain version in the
+   same way, then timed in turns with it: new, old, old, new), the plain
+   version and SDPA; (b) one full-width
    Mixtral layer (8 experts of 6144 x 16384) drawn on the card, float32,
    B=1 S=64 prefill and 2 decode steps on the card against the CPU within
    ``CUT_F32_LIMIT``; (a) ``serve`` on Mixtral-8x22B at full width cut to
@@ -300,8 +309,15 @@ imports only ``repro_torch`` (never ``jax`` or the JAX package) and runs:
    prefill(8192) + decode(1) against prefill(8193) within
    ``PREFILL_DECODE_LIMIT``); (c) ``serve`` on Phi-3-vision-4.2B at full
    depth and width from a (1, 4096, 3072) embedding prompt (32 K8
-   launches on mma.sync, the embeddings' prefill equal to the tokens'
-   bit for bit, 8 finite decode steps, the same timings); (e) the four
+   launches on the Hopper kernel, the embeddings' prefill equal to the
+   tokens' bit for bit, 8 finite decode steps, the same timings); (f)
+   ``serve`` on Gemma-3-12B at full width (d_model 3840, 16/8 heads of
+   240, vocab 262,144) cut to ``GEMMA_LAYERS`` = 6 layers, one 5:1
+   local:global group (bf16, B=1 x 8192 + 8 decode steps: exactly 6 K8
+   launches on the Hopper kernel, 0 plain draws, finite logits; init s
+   and peak, prefill and decode ms, peak memory, a traced prefill and
+   decode step; prefill(8192) + decode(1) against prefill(8193) within
+   ``PREFILL_DECODE_LIMIT``); (e) the four
    new smoke configs (Mixtral, Phi-3.5-MoE, MusicGen, Phi-3-vision) with
    seeded weights through ``convert``, B=2 prefill of 40 and 4 decode
    steps, card against CPU within ``CUT_F32_LIMIT``.
@@ -315,7 +331,7 @@ tracker and fails if a process it started still runs.
 Any failure exits non-zero. The line before last is the card's name and
 power limit, the one before it the kernels' JSON (K1, K2, K5, K3, K4, K8,
 K6, K7 and the two stream draws, K5 and K6 also with one rank's step of
-``lm-100m``, ``lm100m_step_ms``, K8 also at phase 34's two layer shapes;
+``lm-100m``, ``lm100m_step_ms``, K8 also at phase 34's five layer shapes;
 each kernel's ``launches`` sums its counts over the main-path runs of
 phases 5, 9, 11, 12, 13, 16, 19, 20, 21, 22, 24-28, 30, 32, 33 and 34,
 over all ranks, and a kernel never launched there fails the run; K1, K2,
@@ -442,7 +458,13 @@ NEW_SMOKE = ("mixtral_8x22b", "phi3_5_moe_42b", "musicgen_medium",
 NEW_SMOKE_BATCH, NEW_SMOKE_SEQ, NEW_SMOKE_STEPS = 2, 40, 4
 # K8 at the new layers' shapes: (B, S, H, KV, D, window)
 K8_NEW_SHAPES = {"mixtral_layer": (1, 8192, 48, 8, 128, 4096),
-                 "phi3_vision_layer": (1, 4096, 32, 32, 96, None)}
+                 "phi3_vision_layer": (1, 4096, 32, 32, 96, None),
+                 "stablelm_layer": (1, 4096, 32, 32, 80, None),
+                 "gemma3_local_layer": (1, 8192, 16, 8, 240, 1024),
+                 "gemma3_global_layer": (1, 8192, 16, 8, 240, None)}
+# phase 34f: Gemma-3-12B at full width, one 5:1 local:global group
+GEMMA_LAYERS = 6
+GEMMA_DECODE_STEPS = 8
 
 # the stream draws (phase 10): the card's kernel and the plain draw
 DRAW_NAMES = ("threefry_chunked", "threefry_flat", "stream_draw_plain")
@@ -1494,6 +1516,38 @@ def k8_compare(name, got, want, tol, record):
     return err
 
 
+def k8_small_cases():
+    """Phase 14's small cases, (dtype, (B, S, H, KV, D, window)).
+
+    In both dtypes: D 64/128/240, G 1/2/12, no window and windows under a
+    key tile, ragged S, and S = 8193 (one row past a 128-row tile) with no
+    window at D 64 and 128. In bfloat16 alone: every head dim the rule
+    sends to the Hopper kernel (64, 80, ..., 256: tiling A up to 128,
+    tiling B above) at a ragged S with a window under a key tile (37 < 64),
+    S = 8193 at D 96 and 240, S = 1000 with no window at D 112 (tiling A)
+    and 176 (tiling B), so that the key-tile ring refills at head dims no
+    config uses, and D 72, which stays on mma.sync, at S = 300 and at
+    S = 1000 over several key tiles. bfloat16
+    at a Hopper head dim runs the Hopper kernel (TMA + wgmma), other
+    bfloat16 head dims the mma.sync one, float32 the FMA kernel
+    (ops.kernel_for)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as k8
+    both = [(2, 256, 4, 4, 64, None), (2, 256, 4, 2, 128, 64),
+            (1, 300, 24, 2, 128, 5), (1, 129, 4, 2, 240, 17),
+            (2, 77, 12, 1, 64, None), (1, 1, 24, 2, 128, None),
+            (1, 1000, 8, 4, 240, 100), (1, 8193, 4, 2, 64, None),
+            (1, 8193, 4, 2, 128, None)]
+    bf16 = [(1, 300, 4, 2, d, 37)
+            for d in range(k8.HOPPER_MIN_HEAD_DIM, k8.MAX_HEAD_DIM + 1,
+                           k8.HOPPER_HEAD_DIM_STEP)]
+    bf16 += [(1, 8193, 4, 2, 96, None), (1, 8193, 4, 2, 240, None),
+             (1, 1000, 4, 2, 112, None), (1, 1000, 4, 2, 176, None),
+             (1, 300, 4, 2, 72, 37), (1, 1000, 8, 4, 72, 100)]
+    return ([(torch.float32, c) for c in both]
+            + [(torch.bfloat16, c) for c in both + bf16])
+
+
 def k8_phase(dev, record):
     """Phase 14: K8 against its plain version on the card, then its time at
     the full-width prefill shape (the serve's B=4) beside its bound, its
@@ -1510,28 +1564,16 @@ def k8_phase(dev, record):
         return tuple(torch.randn((b, s, n, dd), generator=gen, device=dev
                                  ).to(dtype) for n in (hh, kv, kv))
 
-    # (B, S, H, KV, D, window): D 64/128/240, G 1/2/12, no window and
-    # windows under a key tile, ragged S, and S = 8193 (one row past a
-    # 128-row tile) with no window at D 64 and 128. In bfloat16, D 64 and
-    # 128 run the Hopper kernel (TMA + wgmma), D 240 the mma.sync one;
-    # float32 runs the FMA kernel (ops.kernel_for)
-    cases = [(2, 256, 4, 4, 64, None), (2, 256, 4, 2, 128, 64),
-             (1, 300, 24, 2, 128, 5), (1, 129, 4, 2, 240, 17),
-             (2, 77, 12, 1, 64, None), (1, 1, 24, 2, 128, None),
-             (1, 1000, 8, 4, 240, 100), (1, 8193, 4, 2, 64, None),
-             (1, 8193, 4, 2, 128, None)]
     tols = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     checks = {}
-    for dtype, tol in tols.items():
-        for case in cases:
-            q, k, v = inputs(*case[:5], dtype)
-            got = k8.flash_attention(q, k, v, window=case[5])
-            torch.cuda.synchronize()
-            want = flash_attention_ref(q, k, v, window=case[5])
-            name = (f"{case} {str(dtype)[6:]} "
-                    f"{k8.kernel_for(dtype, case[4])}")
-            k8_compare(name, got, want, tol, checks)
-            del q, k, v, got, want
+    for dtype, case in k8_small_cases():
+        q, k, v = inputs(*case[:5], dtype)
+        got = k8.flash_attention(q, k, v, window=case[5])
+        torch.cuda.synchronize()
+        want = flash_attention_ref(q, k, v, window=case[5])
+        name = f"{case} {str(dtype)[6:]} {k8.kernel_for(dtype, case[4])}"
+        k8_compare(name, got, want, tols[dtype], checks)
+        del q, k, v, got, want
     log(f"[K8] small shapes, float32 within 2e-5, bfloat16 within 2e-2 "
         f"and rows within relative L2 {K8_ROW_LIMIT:g}: {json.dumps(checks)}")
 
@@ -4608,14 +4650,20 @@ def scenario_banks_phase(sim, banks, batches, keys, batcher, dev, record,
 # --------------------------------------------------------------------------
 
 def k8_layer_case(dev, name, shape, gen, record):
-    """K8 at one layer's shape (bf16, the kernel ``kernel_for`` picks),
-    each batch element against the plain version (``k8_compare``); its
-    time (CUDA events over 5 launches) beside its bound, the plain
-    version's and SDPA's (with the window as a mask, or causal)."""
+    """K8 at one layer's shape (bf16, which ``kernel_for`` must send to
+    the Hopper kernel) and the mma.sync design, each batch element against
+    the plain version (``k8_compare``); its time (CUDA events over 5
+    launches) beside its
+    bound, the mma.sync design's (timed in turns with it: new, old, old,
+    new, as phase 14 does at D = 128), the plain version's and SDPA's
+    (with the window as a mask, or causal)."""
     import torch
     from repro_torch.kernels.flash_attention import ops as k8
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     b, s, h, kv, d, w = shape
+    route = k8.kernel_for(torch.bfloat16, d)
+    if route != "hopper":
+        fail(f"{name}: D={d} takes K8's {route} kernel, not the Hopper one")
     q, k, v = (torch.randn((b, s, n, d), generator=gen, device=dev
                            ).to(torch.bfloat16) for n in (h, kv, kv))
     got = k8.flash_attention(q, k, v, window=w)
@@ -4624,13 +4672,27 @@ def k8_layer_case(dev, name, shape, gen, record):
     def plain():
         return [flash_attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1],
                                     window=w) for i in range(b)]
-    checks = {}
-    for i, want in enumerate(plain()):
+    checks, checks_mma_sync = {}, {}
+    wants = plain()
+    for i, want in enumerate(wants):
         k8_compare(f"{name} b{i}", got[i:i + 1], want, 2e-2, checks)
-    del want
-    torch.cuda.empty_cache()
     out = torch.empty_like(q)
-    ms = cuda_ms(lambda: k8.launch(q, k, v, out, w), 5, warmup=1)
+    k8.launch(q, k, v, out, w, kernel="mma_sync")
+    torch.cuda.synchronize()
+    for i, want in enumerate(wants):
+        k8_compare(f"{name} mma_sync b{i}", out[i:i + 1], want, 2e-2,
+                   checks_mma_sync)
+    del wants, want
+    torch.cuda.empty_cache()
+
+    def new():
+        k8.launch(q, k, v, out, w)
+
+    def old():
+        k8.launch(q, k, v, out, w, kernel="mma_sync")
+    turns = [cuda_ms(new, 5, warmup=1), cuda_ms(old, 5, warmup=1),
+             cuda_ms(old, 5, warmup=1), cuda_ms(new, 5, warmup=1)]
+    ms, ms_mma_sync = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     plain_ms = cuda_ms(plain, 2, warmup=1)
     torch.cuda.empty_cache()
     bound, bound_by, flops, nbytes = k8_bound(b, s, h, kv, d, w, 2)
@@ -4638,13 +4700,15 @@ def k8_layer_case(dev, name, shape, gen, record):
         lib = sdpa_ms(q, k, v, w, causal_only=w is None)
     except torch.cuda.OutOfMemoryError:
         lib = None
-    rec = {"shape": list(shape), "kernel": k8.kernel_for(torch.bfloat16, d),
-           "checks": checks,
+    rec = {"shape": list(shape), "kernel": route, "checks": checks,
            "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
            "max_row_rel_l2": max(c["max_row_rel_l2"]
                                  for c in checks.values()),
-           "ms": ms, "bound_ms": bound, "bound_by": bound_by,
-           "flops": flops, "bytes": nbytes,
+           "ms": ms, "ms_mma_sync": ms_mma_sync,
+           "checks_mma_sync": checks_mma_sync,
+           "ms_turns_new_old_old_new": turns,
+           "bound_ms": bound, "bound_by": bound_by,
+           "bound_share": bound / ms, "flops": flops, "bytes": nbytes,
            "tflops_per_s": flops / ms / 1e9, "plain_ms": plain_ms,
            "sdpa_ms": lib,
            "sdpa_mask": "causal" if w is None else "window mask"}
@@ -4652,12 +4716,16 @@ def k8_layer_case(dev, name, shape, gen, record):
     del q, k, v, out, got
     torch.cuda.empty_cache()
     lib_txt = "out of memory" if lib is None else f"{lib:.4f}"
-    log(f"[K8] {name} (B, S, H, KV, D, W) = {shape}, bf16, {rec['kernel']}: "
+    log(f"[K8] {name} (B, S, H, KV, D, W) = {shape}, bf16, {route}: "
         f"max abs err {rec['max_abs_err']:.3e}, max row relative L2 "
         f"{rec['max_row_rel_l2']:.3e}; {ms:.4f} ms per launch "
-        f"({rec['tflops_per_s']:.1f} TFLOP/s), bound {bound:.4f} ms "
-        f"({bound_by}), plain version {plain_ms:.4f}, SDPA "
-        f"({rec['sdpa_mask']}) {lib_txt}")
+        f"({rec['tflops_per_s']:.1f} TFLOP/s, {100 * bound / ms:.1f} % of "
+        f"the bound {bound:.4f} ms, {bound_by}), the mma.sync design "
+        f"{ms_mma_sync:.4f} (max abs err "
+        f"{max(c['max_abs_err'] for c in checks_mma_sync.values()):.3e}; "
+        f"turns new/old/old/new "
+        f"{['%.4f' % t for t in turns]}), plain version {plain_ms:.4f}, "
+        f"SDPA ({rec['sdpa_mask']}) {lib_txt}")
     return rec
 
 
@@ -4731,7 +4799,7 @@ def vision_phase(dev, record, counters):
     """Phase 34c: ``serve`` on Phi-3-vision-4.2B at full depth and width,
     bf16, B=1, from a (1, 4096, 3072) embedding prompt (the stub vision
     frontend's patch embeddings: rows of the embedding table), counted:
-    32 K8 launches on the mma.sync route (D = 96); the prefill of the
+    32 K8 launches on the Hopper route (D = 96); the prefill of the
     embeddings equal to the prefill of their tokens bit for bit; 8
     decode steps, finite."""
     import torch
@@ -4744,9 +4812,9 @@ def vision_phase(dev, record, counters):
     cfg = get_config("phi3_vision_4_2b")
     model = serve_mod.serving_model(cfg)
     route = k8.kernel_for(torch.bfloat16, cfg.resolved_head_dim)
-    if route != "mma_sync":
+    if route != "hopper":
         fail(f"Phi-3-vision's D={cfg.resolved_head_dim} takes K8's {route} "
-             f"kernel, not mma_sync")
+             f"kernel, not the Hopper one")
     n_params = (param_count(model.backbone_specs())
                 + param_count(model.head_specs()))
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4786,6 +4854,54 @@ def vision_phase(dev, record, counters):
     return launches
 
 
+def gemma_serve_phase(dev, record, counters):
+    """Phase 34f: ``serve`` on Gemma-3-12B at full width (d_model 3840,
+    16/8 heads of 240, d_ff 15360, vocab 262,144) cut to ``GEMMA_LAYERS``
+    layers, one 5:1 local:global group: bf16, B=1 x 8192 +
+    ``GEMMA_DECODE_STEPS`` decode steps, counted (``serve_cell``: exactly 6
+    K8 launches, all on the Hopper route, 5 with window 1024 and 1
+    without), the weights' init time and peak; then prefill(8192) +
+    decode(1) against prefill(8193) at B=1."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as k8
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models.params import param_count
+    cfg = get_config("gemma3_12b").replace(n_layers=GEMMA_LAYERS)
+    route = k8.kernel_for(torch.bfloat16, cfg.resolved_head_dim)
+    if route != "hopper":
+        fail(f"Gemma-3's D={cfg.resolved_head_dim} takes K8's {route} "
+             f"kernel, not the Hopper one")
+    model = serve_mod.serving_model(cfg)
+    n_params = (param_count(model.backbone_specs())
+                + param_count(model.head_specs()))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)   # earlier phases' tensors
+    t0 = time.perf_counter()
+    weights = serve_mod.init_weights(model, 0, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rec = {"params": n_params, "init_s": init_s, "k8_kernel": route,
+           "allocated_before_init_bytes": before,
+           "init_peak_bytes": torch.cuda.max_memory_allocated(dev) - before,
+           "weights_bytes": torch.cuda.memory_allocated(dev) - before}
+    log(f"[gemma serve] Gemma-3-12B at full width, {GEMMA_LAYERS} layers "
+        f"(5 local with window {cfg.local_window}, 1 global): {n_params:,} "
+        f"parameters, float32 weights ({rec['weights_bytes'] / 1e9:.2f} GB) "
+        f"drawn on the card in {init_s:.2f} s, init peak "
+        f"{rec['init_peak_bytes'] / 1e9:.2f} GB above the "
+        f"{before / 1e9:.2f} GB the card held before; K8 on {route}")
+    launches = serve_cell(dev, "gemma serve", model, weights, 1, K8_SEQ,
+                          GEMMA_DECODE_STEPS, counters, rec)
+    del rec["prefill_logits"]
+    prefill_decode_check(dev, "gemma serve", model, weights, K8_SEQ, rec)
+    del weights
+    torch.cuda.empty_cache()
+    record["gemma_serve"] = rec
+    return launches
+
+
 def new_smoke_phase(dev, record):
     """Phase 34e: the four new smoke configs (Mixtral, Phi-3.5-MoE,
     MusicGen, Phi-3-vision), the reference's seeded weights carried
@@ -4817,8 +4933,9 @@ def new_smoke_phase(dev, record):
 def moe_phase(dev, record, counters):
     """Phase 34: K8 at the new layers' shapes (d), one full-width Mixtral
     layer card vs CPU (b), Mixtral-8x22B served at full width cut in
-    depth (a), Phi-3-vision-4.2B served from embeddings (c), and the new
-    smoke configs card vs CPU (e). Returns the counted runs' launches."""
+    depth (a), Phi-3-vision-4.2B served from embeddings (c), Gemma-3-12B
+    served at full width cut in depth (f), and the new smoke configs card
+    vs CPU (e). Returns the counted runs' launches."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(34)
     k8_new = {name: k8_layer_case(dev, name, shape, gen, record)
@@ -4826,7 +4943,8 @@ def moe_phase(dev, record, counters):
     moe_layer_phase(dev, record)
     total = {}
     for got in (moe_serve_phase(dev, record, counters),
-                vision_phase(dev, record, counters)):
+                vision_phase(dev, record, counters),
+                gemma_serve_phase(dev, record, counters)):
         for k_name, v in got.items():
             total[k_name] = total.get(k_name, 0) + v
     new_smoke_phase(dev, record)
@@ -5481,8 +5599,8 @@ def main() -> None:
          "bound_ms": k8_rec["bound_ms"], "bound_by": k8_rec["bound_by"],
          "library_ms": k8_rec["sdpa_window_mask_ms"],
          **{f"{name}_{key}": rec[key] for name, rec in k8_new.items()
-            for key in ("kernel", "max_abs_err", "ms", "plain_ms",
-                        "bound_ms", "bound_by", "sdpa_ms")}},
+            for key in ("kernel", "max_abs_err", "ms", "ms_mma_sync",
+                        "plain_ms", "bound_ms", "bound_by", "sdpa_ms")}},
         {"name": "ota_mask_count", "route": "cuda",
          "source": "src/repro_torch/kernels/ota_channel/csrc/"
                    "ota_mask_count.cu",

@@ -27,17 +27,45 @@
 // S >= 1 works: rows and keys past S are zero-filled and never written.
 // Three kernels; ops.launch picks one by dtype and head dim (a rule, not a
 // fallback):
-//   bfloat16, D in {64, 128}: flash_hopper_kernel, for Hopper. 3
-//   warpgroups: a TMA producer and two wgmma consumers of 64 query rows
-//   each, 128-row query tiles against 128-key tiles in a 2-stage ring
-//   guarded by mbarriers (its own comment below).
-//   bfloat16, other D (StableLM's 80, Gemma-3's 240, up to 256):
-//   flash_bf16_kernel, 4 warps, 64 query rows (16 per warp) against 64-key
-//   tiles staged in shared memory with synchronous loads and two barriers
-//   per key tile; S = QK^T and O += PV on mma.sync m16n8k16 (float32
-//   accumulate, fragments by ldmatrix), D zero-filled to the next of
-//   64/128/256 in shared memory only. At StarCoder2-3B's shape it ran at
-//   18 % of the bound; it stays for these head dims.
+//   bfloat16, D = 64, 80, ..., 256 (a multiple of 16): flash_hopper_kernel
+//   (flash_hopper.cuh), for Hopper. 3 warpgroups: a TMA producer and two
+//   wgmma consumers of 64 query rows each, 128-row query tiles against key
+//   tiles in a 2-stage ring guarded by mbarriers. One instantiation per D,
+//   in two sources compiled in parallel, with two tilings:
+//   - tiling A, D <= 128 (flash_hopper_narrow.cu): 128-key tiles. Q and K
+//     are 64-column panels with the 128-byte swizzle (two at D > 64: 32 KB
+//     a tile); TMA zero-fills the columns past D, and S = Q K^T runs D / 16
+//     k-slices of m64n128k16, none over those zeros. V is panels of the
+//     widest swizzle atom that divides D (64 columns at D 64/128, 32 with
+//     the 64-byte swizzle at 96, 16 with the 32-byte one at 80 and 112),
+//     so P V runs at N = D (m64n{D}k16; V 24 KB at D = 96, 20 KB at 80).
+//     Shared memory Q + 2 stages of K and V: at most 160 KB. Registers per
+//     consumer thread: S 64 floats, P 32, O D / 2: at most 160 live under
+//     setmaxnreg's 240.
+//   - tiling B, 128 < D <= 256 (flash_hopper_wide.cu): 64-key tiles, since
+//     128-key tiles would take 64 + 2 * 2 * 64 = 320 KB. Q is four 128-row
+//     panels (64 KB), K and V 64-row panels (32 KB each a stage): 192 KB
+//     of the 227 KB. S per consumer is 64 x 64 (m64n64k16: 32 floats, P
+//     16); P V runs as n128 chunks over V's 128-byte-swizzled panel pairs
+//     ({0, 1}, then {2, 3} or {2} as n64), the columns past D TMA's zeros
+//     (N = 256 at D = 240: x 1.07 on P V). O holds 128 floats, about 176
+//     live in all (ptxas spills a few bytes at D 240 and 256). A warp
+//     whose rows all kept their running max skips O's rescale (D / 2
+//     multiplies a thread, more than the tile's 32 scores cost).
+//   Tiling A's P V at N = D, not at N = 128 over V's two 128-byte-swizzled
+//   panels with TMA's zeros past D (x 1.33 on P V at D = 96, x 1.6 at
+//   80), because it is faster: the two tilings, timed once on an H100
+//   80GB HBM3 at 700 W, took 0.2462 ms against 0.3177 at Phi-3-vision-
+//   4.2B's layer (B=1, S=4096, 32 heads, D=96, causal) and 0.2321 against
+//   0.2998 at StableLM-3B's (D=80). Only N = D is built.
+//   bfloat16, other D (below 64, or not a multiple of 16): flash_bf16_kernel,
+//   4 warps, 64 query rows (16 per warp) against 64-key tiles staged in
+//   shared memory with synchronous loads and two barriers per key tile;
+//   S = QK^T and O += PV on mma.sync m16n8k16 (float32 accumulate,
+//   fragments by ldmatrix), D zero-filled to the next of 64/128/256 in
+//   shared memory only. It ran StarCoder2-3B's layer at 18 % of the bound
+//   and Phi-3-vision's (D = 96) at 10 %; ops.launch(kernel="mma_sync")
+//   still runs it at a Hopper head dim, to time the two designs.
 //   float32: flash_f32_kernel, plain FMA, 32 query rows of 4 threads each
 //   (a quarter of D per thread) against 32-key tiles, every product in
 //   float32.
@@ -56,7 +84,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "hopper.cuh"
+#include "flash_hopper.cuh"
 
 namespace {
 
@@ -311,323 +339,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ------------------------------------------------- bf16 path for Hopper
-// One CTA of 3 warpgroups owns one (b, h) and a 128-row query tile.
-// Warpgroup 0 is the producer: one thread issues every TMA load (Q once, then
-// the K and V tiles of each key tile into a ring of kStages stages) and its
-// warpgroup gives up registers (setmaxnreg). Warpgroups 1 and 2 are the
-// consumers, 64 query rows each: S = Q K^T by wgmma from shared memory, the
-// online softmax in float32 registers, P rounded to bfloat16 in registers,
-// O += P V by wgmma with P from registers. A consumer overlaps the two
-// products: with O rescaled to tile i - 1's running max, it issues S of key
-// tile i, then P V of tile i - 1, waits for S alone and runs tile i's
-// softmax (one FFMA and one ex2.approx per score) while P V is still on the
-// tensor cores, and packs P once P V is done. K and V each have a "full"
-// barrier per stage
-// (the TMA's transaction count) and an "empty" one that every consumer
-// thread arrives on once the wgmma reading it is done, so a K slot refills
-// while its stage's V is still in use. Operands are read in place through
-// 4-D tensor maps over (D, heads, S, B), in 64-column panels of 128 bytes
-// with the 128-byte swizzle that wgmma reads; TMA zero-fills rows past S.
-// Key tiles are walked from the diagonal down, so the masked ones come
-// first.
-constexpr int kWgThreads = 128;
-constexpr int kHopperThreads = 3 * kWgThreads;
-constexpr int kHBq = 128;     // query rows per CTA, 64 per consumer
-constexpr int kHBkv = 128;    // keys per tile
-constexpr int kStages = 2;
-constexpr int kPanelBytes = 128 * 128;  // 128 rows x 64 bf16 columns
-constexpr int kProducerRegs = 24;
-constexpr int kConsumerRegs = 240;
-
-template <int D>
-struct HopperSmem {
-  static constexpr int kPanels = D / 64;
-  static constexpr int kTile = kPanels * kPanelBytes;  // Q, K or V tile
-  static constexpr int kQ = 0;
-  static constexpr int kK = kTile;                     // + stage * 2 * kTile
-  static constexpr int kBar = kTile + kStages * 2 * kTile;
-  // q_full, then per stage k_full, v_full, k_empty, v_empty
-  static constexpr int kBytes = kBar + 8 * (1 + 4 * kStages);
-};
-
-__device__ __forceinline__ float ex2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// One consumer's softmax step on a tile of raw scores s (64 rows x 128 keys
-// of the accumulator layout: this thread's rows row0 and row0 + 8): mask,
-// new running max in log2 units, and s becomes the probabilities
-// exp2(s * scale_log2 - m), one FFMA and one ex2 an entry; alpha is the
-// factor that rescales the old l (here) and O (by the caller).
-__device__ __forceinline__ void hopper_softmax_p(
-    float (&s)[64], float (&m_run)[2], float (&l_run)[2], float (&alpha)[2],
-    bool edge, int row0, int k0, int t4, int S, int window,
-    float scale_log2) {
-  if (edge) {
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row0 + (e >> 1) * 8;
-        const int col = k0 + 8 * j + 2 * t4 + (e & 1);
-        const int diff = row - col;
-        const bool live = diff >= 0 && col < S &&
-                          (window <= 0 || diff < window);
-        if (!live) s[4 * j + e] = -INFINITY;
-      }
-    }
-  }
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int i = 0; i < 64; ++i) {
-    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-  }
-  float neg_m[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
-    // scale_log2 > 0, so the max of the scaled scores is the scaled max
-    const float m_new = fmaxf(m_run[r], mx[r] * scale_log2);
-    const float m_use = m_new == -INFINITY ? 0.f : m_new;
-    alpha[r] = ex2_approx(m_run[r] - m_use);
-    m_run[r] = m_new;
-    l_run[r] *= alpha[r];
-    neg_m[r] = -m_use;
-  }
-#pragma unroll
-  for (int i = 0; i < 64; ++i) {
-    s[i] = ex2_approx(fmaf(s[i], scale_log2, neg_m[(i >> 1) & 1]));
-    l_run[(i >> 1) & 1] += s[i];
-  }
-}
-
-// The probabilities in bfloat16 as the A fragments of P V: the accumulator
-// fragments of S are the A fragments, k-slice kk (keys 16 kk .. 16 kk + 15)
-// in pa[4 kk .. 4 kk + 3].
-__device__ __forceinline__ void hopper_pack_p(const float (&s)[64],
-                                              uint32_t (&pa)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
-}
-
-template <int D>
-__device__ __forceinline__ void hopper_issue_s(float (&s)[64], uint32_t q_rows,
-                                               uint32_t k_tile) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
-    hopper::wgmma_ss_n128(s, hopper::sw128_desc(q_rows + off, 16, 1024),
-                          hopper::sw128_desc(k_tile + off, 16, 1024), kk > 0);
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void hopper_issue_pv(float (&acc)[D / 2],
-                                                const uint32_t (&pa)[32],
-                                                uint32_t v_tile) {
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
-                           pa[4 * kk + 3]};
-    const uint64_t dv =
-        hopper::sw128_desc(v_tile + kk * 16 * 128, kPanelBytes, 1024);
-    if constexpr (D == 128) {
-      hopper::wgmma_rs_n128(acc, a, dv);
-    } else {
-      hopper::wgmma_rs_n64(acc, a, dv);
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kHopperThreads, 1)
-    flash_hopper_kernel(const __grid_constant__ CUtensorMap tm_q,
-                        const __grid_constant__ CUtensorMap tm_k,
-                        const __grid_constant__ CUtensorMap tm_v,
-                        __nv_bfloat16* __restrict__ o, int S, int H, int KV,
-                        int window, float scale_log2) {
-  using L = HopperSmem<D>;
-  constexpr int kDn = D / 8;  // n8 blocks of the output
-  extern __shared__ unsigned char smem_raw[];
-  // the swizzle atoms must sit on 1024-byte boundaries of shared memory
-  const uint32_t raw = hopper::smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;
-  const uint32_t bar = base + L::kBar;
-  const uint32_t q_full = bar;
-  auto k_full = [&](int st) { return bar + 8u * (1 + 4 * st); };
-  auto v_full = [&](int st) { return bar + 8u * (2 + 4 * st); };
-  auto k_empty = [&](int st) { return bar + 8u * (3 + 4 * st); };
-  auto v_empty = [&](int st) { return bar + 8u * (4 + 4 * st); };
-  auto k_tile = [&](int st) { return base + L::kK + st * 2 * L::kTile; };
-  auto v_tile = [&](int st) { return k_tile(st) + L::kTile; };
-
-  const int q0 = (gridDim.x - 1 - (int)blockIdx.x) * kHBq;  // longest first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (H / KV);
-  const int q_last = min(q0 + kHBq, S) - 1;
-  const int kv_first = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int t_lo = kv_first / kHBkv;
-  const int t_hi = q_last / kHBkv;
-  const int n_tiles = t_hi - t_lo + 1;
-
-  if (threadIdx.x == 0) {
-    hopper::mbar_init(q_full, 1);
-    for (int st = 0; st < kStages; ++st) {
-      hopper::mbar_init(k_full(st), 1);
-      hopper::mbar_init(v_full(st), 1);
-      hopper::mbar_init(k_empty(st), 2 * kWgThreads);
-      hopper::mbar_init(v_empty(st), 2 * kWgThreads);
-    }
-    hopper::mbar_init_fence();
-  }
-  __syncthreads();
-
-  const int wg = threadIdx.x / kWgThreads;
-  if (wg == 0) {
-    // ---------------------------------------------------------- producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    if (threadIdx.x == 0) {
-      hopper::mbar_arrive_tx(q_full, L::kTile);
-      for (int p = 0; p < L::kPanels; ++p)
-        hopper::tma_load_4d(base + L::kQ + p * kPanelBytes, &tm_q, q_full,
-                            64 * p, h, q0, b);
-      for (int i = 0; i < n_tiles; ++i) {
-        const int st = i % kStages;
-        const uint32_t free_parity = (i / kStages - 1) & 1;
-        const int k0 = (t_hi - i) * kHBkv;
-        if (i >= kStages) hopper::mbar_wait(k_empty(st), free_parity);
-        hopper::mbar_arrive_tx(k_full(st), L::kTile);
-        for (int p = 0; p < L::kPanels; ++p)
-          hopper::tma_load_4d(k_tile(st) + p * kPanelBytes, &tm_k, k_full(st),
-                              64 * p, hk, k0, b);
-        if (i >= kStages) hopper::mbar_wait(v_empty(st), free_parity);
-        hopper::mbar_arrive_tx(v_full(st), L::kTile);
-        for (int p = 0; p < L::kPanels; ++p)
-          hopper::tma_load_4d(v_tile(st) + p * kPanelBytes, &tm_v, v_full(st),
-                              64 * p, hk, k0, b);
-      }
-    }
-  } else {
-    // --------------------------------------------------------- consumers
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    const int cw = wg - 1;
-    const int tid = threadIdx.x - wg * kWgThreads;
-    const int warp = tid >> 5;
-    const int lane = tid & 31;
-    const int t4 = lane & 3;
-    const int wg_row0 = q0 + 64 * cw;
-    const int row0 = wg_row0 + 16 * warp + (lane >> 2);  // and row0 + 8
-    const uint32_t q_rows = base + L::kQ + cw * 64 * 128;
-    auto edge = [&](int k0) {
-      return (k0 + kHBkv - 1 > wg_row0) ||
-             (window > 0 && wg_row0 + 63 - k0 >= window) || (k0 + kHBkv > S);
-    };
-
-    float acc[D / 2];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-    float m_run[2] = {-INFINITY, -INFINITY};
-    float l_run[2] = {0.f, 0.f};
-    float alpha[2] = {1.f, 1.f};
-    float s[64];
-    uint32_t pa[32];
-
-    // tile 0: S, its softmax, P
-    hopper::mbar_wait(q_full, 0);
-    hopper::mbar_wait(k_full(0), 0);
-    hopper::wgmma_fence();
-    hopper_issue_s<D>(s, q_rows, k_tile(0));
-    hopper::wgmma_commit();
-    hopper::fence_regs(s);
-    hopper::wgmma_wait_all();
-    hopper::fence_regs(s);
-    hopper::mbar_arrive(k_empty(0));
-    hopper_softmax_p(s, m_run, l_run, alpha, edge(t_hi * kHBkv), row0,
-                     t_hi * kHBkv, t4, S, window, scale_log2);
-    hopper_pack_p(s, pa);
-
-    for (int i = 1; i < n_tiles; ++i) {
-      const int st = i % kStages;
-      const int prev = (i - 1) % kStages;
-      const int k0 = (t_hi - i) * kHBkv;
-      // O to tile i - 1's max, then S of tile i and P V of tile i - 1 in
-      // flight together
-#pragma unroll
-      for (int j = 0; j < kDn; ++j) {
-        acc[4 * j + 0] *= alpha[0];
-        acc[4 * j + 1] *= alpha[0];
-        acc[4 * j + 2] *= alpha[1];
-        acc[4 * j + 3] *= alpha[1];
-      }
-      hopper::mbar_wait(k_full(st), (i / kStages) & 1);
-      hopper::mbar_wait(v_full(prev), ((i - 1) / kStages) & 1);
-      hopper::fence_regs(acc);
-      hopper::fence_regs(pa);
-      hopper::wgmma_fence();
-      hopper_issue_s<D>(s, q_rows, k_tile(st));
-      hopper::wgmma_commit();
-      hopper::fence_regs(s);
-      hopper_issue_pv<D>(acc, pa, v_tile(prev));
-      hopper::wgmma_commit();
-      hopper::fence_regs(acc);
-      hopper::fence_regs(pa);
-      // S done (the older group); P V may still run
-      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-      hopper::fence_regs(s);
-      hopper::mbar_arrive(k_empty(st));
-      hopper_softmax_p(s, m_run, l_run, alpha, edge(k0), row0, k0, t4, S,
-                       window, scale_log2);
-      hopper::wgmma_wait_all();
-      hopper::fence_regs(acc);
-      hopper::fence_regs(pa);
-      hopper::mbar_arrive(v_empty(prev));
-      hopper_pack_p(s, pa);
-    }
-    // P V of the last tile
-#pragma unroll
-    for (int j = 0; j < kDn; ++j) {
-      acc[4 * j + 0] *= alpha[0];
-      acc[4 * j + 1] *= alpha[0];
-      acc[4 * j + 2] *= alpha[1];
-      acc[4 * j + 3] *= alpha[1];
-    }
-    const int last = (n_tiles - 1) % kStages;
-    hopper::mbar_wait(v_full(last), ((n_tiles - 1) / kStages) & 1);
-    hopper::fence_regs(acc);
-    hopper::fence_regs(pa);
-    hopper::wgmma_fence();
-    hopper_issue_pv<D>(acc, pa, v_tile(last));
-    hopper::wgmma_commit();
-    hopper::fence_regs(acc);
-    hopper::wgmma_wait_all();
-    hopper::fence_regs(acc);
-    hopper::fence_regs(pa);
-
-    // o = acc / l: the row sums over the four lanes of each row
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l_run[r] += __shfl_xor_sync(kFull, l_run[r], 1);
-      l_run[r] += __shfl_xor_sync(kFull, l_run[r], 2);
-      l_run[r] = fmaxf(l_run[r], 1e-30f);
-      const int row = row0 + 8 * r;
-      if (row >= S) continue;
-      __nv_bfloat16* orow = o + ((int64_t)b * S + row) * ((int64_t)H * D) +
-                            (int64_t)h * D;
-#pragma unroll
-      for (int j = 0; j < kDn; ++j) {
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t4) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * r] / l_run[r],
-                                  acc[4 * j + 2 * r + 1] / l_run[r]);
-      }
-    }
-  }
-}
-
 // ----------------------------------------------------------------- f32 path
 constexpr int kBqF = 32;   // query rows per block, 4 threads per row
 constexpr int kBkvF = 32;  // keys per tile
@@ -787,85 +498,6 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no -lcuda
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-    }
-  }
-  return fn;
-}
-
-// (B, S, heads, D) bf16, contiguous: 4-D map over (D, heads, S, B), boxes of
-// 64 columns x 1 head x `rows` rows x 1, 128-byte swizzle, zero fill
-bool tensor_map_bshd(EncodeTiledFn encode, CUtensorMap* map, const void* ptr,
-                     int B, int S, int heads, int D, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
-                              (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
-                                 (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <int D>
-int launch_hopper(const void* q, const void* k, const void* v, void* o,
-                  int B, int S, int H, int KV, int window, float scale,
-                  cudaStream_t stream) {
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
-  CUtensorMap tm_q, tm_k, tm_v;
-  if (!tensor_map_bshd(encode, &tm_q, q, B, S, H, D, kHBq) ||
-      !tensor_map_bshd(encode, &tm_k, k, B, S, KV, D, kHBkv) ||
-      !tensor_map_bshd(encode, &tm_v, v, B, S, KV, D, kHBkv)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  // setmaxnreg moves registers inside the CTA's allocation: the producer's
-  // release has to cover the consumers' request
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, flash_hopper_kernel<D>);
-  if (err != cudaSuccess) return (int)err;
-  if (kWgThreads * (attr.numRegs - kProducerRegs) <
-      2 * kWgThreads * (kConsumerRegs - attr.numRegs)) {
-    return (int)cudaErrorInvalidConfiguration;
-  }
-  const int smem = HopperSmem<D>::kBytes + 1024;  // + alignment slack
-  err = cudaFuncSetAttribute(flash_hopper_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + kHBq - 1) / kHBq, H, B);
-  flash_hopper_kernel<D><<<grid, kHopperThreads, smem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), S, H, KV, window,
-      scale * 1.4426950408889634f);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // q, o (B, S, H, D) and k, v (B, S, KV, D), contiguous; window 0 = none
@@ -895,16 +527,17 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
   return launch_f32<64>(q, k, v, o, B, S, H, KV, D, window, scale, stream);
 }
 
-// The Hopper path (TMA + wgmma) for bf16 at D in {64, 128}: q, k, v 16-byte
-// aligned with the layout above
+// The Hopper path (TMA + wgmma, flash_hopper.cuh) for bf16 at D = 64, 80,
+// ..., 256: q, k, v 16-byte aligned with the layout above
 extern "C" int flash_attention_bf16_hopper(const void* q, const void* k,
                                            const void* v, void* o, int B,
                                            int S, int H, int KV, int D,
                                            int window, float scale,
                                            cudaStream_t stream) {
-  if (D == 64)
-    return launch_hopper<64>(q, k, v, o, B, S, H, KV, window, scale, stream);
-  if (D == 128)
-    return launch_hopper<128>(q, k, v, o, B, S, H, KV, window, scale, stream);
-  return (int)cudaErrorInvalidValue;
+  if (D % 16 != 0 || D < 64 || D > 256) return (int)cudaErrorInvalidValue;
+  if (D <= 128)
+    return k8_hopper::launch_narrow(q, k, v, o, B, S, H, KV, D, window, scale,
+                                    stream);
+  return k8_hopper::launch_wide(q, k, v, o, B, S, H, KV, D, window, scale,
+                                stream);
 }

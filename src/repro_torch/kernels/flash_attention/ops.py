@@ -11,9 +11,12 @@ runs the plain version (``ref.py``); for CUDA tensors it launches
 ``csrc/flash_attention.cu`` once for the whole (B, H, S) or raises.
 
 Which kernel runs is a rule of the shape (``kernel_for``), not a
-fallback: bfloat16 at head dim 64 or 128 takes the Hopper kernel (TMA and
-wgmma); bfloat16 at any other head dim (StableLM's 80, Gemma-3's 240)
-takes the ``mma.sync`` kernel, and float32 the FMA kernel.
+fallback: bfloat16 at a head dim that is a multiple of 16 from 64 to 256
+(every LM config of the port: 64, 80, 96, 128, 240) takes the Hopper
+kernel (TMA and wgmma); bfloat16 at any other head dim (below 64 or not a
+multiple of 16, such as the smoke configs' 20, 24 and 30) takes the
+``mma.sync`` kernel, and float32 the FMA kernel. A Hopper launch that
+fails raises; it never falls back to another kernel.
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 counter = _build.LaunchCounter("flash_attention")
 
 MAX_HEAD_DIM = 256
-HOPPER_HEAD_DIMS = (64, 128)
+HOPPER_MIN_HEAD_DIM = 64      # the Hopper kernel: D a multiple of
+HOPPER_HEAD_DIM_STEP = 16     # HOPPER_HEAD_DIM_STEP in [64, MAX_HEAD_DIM]
 _ENTRIES = {"hopper": "flash_attention_bf16_hopper",
             "mma_sync": "flash_attention_bf16",
             "fma": "flash_attention_f32"}
@@ -36,10 +40,12 @@ _ENTRIES = {"hopper": "flash_attention_bf16_hopper",
 
 def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     """Which kernel ``launch`` runs: "hopper" (TMA + wgmma) for bfloat16 at
-    a head dim of 64 or 128, "mma_sync" for bfloat16 at any other head dim,
-    "fma" for float32."""
+    a head dim that is a multiple of 16 from 64 to 256, "mma_sync" for
+    bfloat16 at any other head dim, "fma" for float32."""
     if dtype == torch.bfloat16:
-        return "hopper" if head_dim in HOPPER_HEAD_DIMS else "mma_sync"
+        hopper = (HOPPER_MIN_HEAD_DIM <= head_dim <= MAX_HEAD_DIM
+                  and head_dim % HOPPER_HEAD_DIM_STEP == 0)
+        return "hopper" if hopper else "mma_sync"
     if dtype == torch.float32:
         return "fma"
     raise ValueError(f"flash_attention takes bfloat16 or float32, got "

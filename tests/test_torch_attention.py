@@ -45,12 +45,16 @@ def _t(x, dtype=torch.float32):
     return torch.from_numpy(np.array(x, np.float32)).to(dtype)
 
 
-# the four shapes of tests/test_kernels.py::test_flash_attention_matches_ref
+# the four shapes of tests/test_kernels.py::test_flash_attention_matches_ref,
+# then two head dims of the port's configs
 @pytest.mark.parametrize("b,s,h,kv,d,w", [
     (2, 256, 4, 2, 64, None),
     (1, 512, 4, 4, 128, 128),
     (2, 256, 8, 2, 96, 64),
     (1, 128, 2, 1, 32, None),
+    # StableLM-3B's and Gemma-3-12B's head dims (K8's Hopper tilings A, B)
+    (1, 256, 4, 2, 80, None),
+    (1, 128, 2, 1, 240, 32),
 ])
 def test_k8_plain_matches_jax_kernel_and_reference(b, s, h, kv, d, w):
     q, k, v = _qkv(b, s, h, kv, d, seed=s + d)

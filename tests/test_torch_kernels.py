@@ -153,13 +153,15 @@ def test_wrappers_refuse_other_devices():
 
 def test_kernel_sources_and_build_without_nvcc(monkeypatch, tmp_path):
     names = sorted(s.name for s in _build.sources())
-    assert names == ["flash_attention.cu", "masked_gradnorm.cu",
+    assert names == ["flash_attention.cu", "flash_hopper_narrow.cu",
+                     "flash_hopper_wide.cu", "masked_gradnorm.cu",
                      "ota_aggregate.cu", "ota_aggregate_fused.cu",
                      "ota_channel.cu", "ota_client_fold.cu",
                      "ota_mask_count.cu", "ota_mask_weight.cu",
                      "threefry_stream.cu"]
     assert sorted(h.name for h in _build.headers()) == [
-        "hopper.cuh", "ota_estimate.cuh", "threefry.cuh"]
+        "flash_hopper.cuh", "hopper.cuh", "ota_estimate.cuh",
+        "threefry.cuh"]
     for src in _build.sources():
         text = src.read_text()
         assert "cudaGetLastError" in text
@@ -179,9 +181,15 @@ def test_kernel_sources_and_build_without_nvcc(monkeypatch, tmp_path):
     stream = next(s for s in _build.sources()
                   if s.name == "threefry_stream.cu").read_text()
     assert '#include "threefry.cuh"' in stream
-    flash = next(s for s in _build.sources()
-                 if s.name == "flash_attention.cu").read_text()
-    assert '#include "hopper.cuh"' in flash
+    # K8's Hopper kernel sits in flash_hopper.cuh (on hopper.cuh's
+    # building blocks), instantiated by the narrow and wide sources
+    for name in ("flash_attention.cu", "flash_hopper_narrow.cu",
+                 "flash_hopper_wide.cu"):
+        text = next(s for s in _build.sources() if s.name == name).read_text()
+        assert '#include "flash_hopper.cuh"' in text
+    hopper = next(h for h in _build.headers()
+                  if h.name == "flash_hopper.cuh").read_text()
+    assert '#include "hopper.cuh"' in hopper
     for entry in ("ota_aggregate_f32", "ota_aggregate_fused_f32",
                   "threefry_chunked_u32", "threefry_flat_u32",
                   "flash_attention_bf16", "flash_attention_bf16_hopper",

@@ -294,18 +294,48 @@ def test_draw_dispatchers_on_the_host_are_the_plain_draws(threefry_mode):
     assert (ops.stream_counter.count, ops.bits_counter.count) == launches
 
 
-def test_k8_kernel_rule():
-    assert k8.kernel_for(torch.bfloat16, 64) == "hopper"
-    assert k8.kernel_for(torch.bfloat16, 128) == "hopper"
-    for d in (32, 80, 96, 240, 256):
-        assert k8.kernel_for(torch.bfloat16, d) == "mma_sync"
-    assert k8.kernel_for(torch.float32, 128) == "fma"
-    with pytest.raises(ValueError):
-        k8.kernel_for(torch.float16, 128)
-    q = torch.zeros((1, 4, 2, 80), dtype=torch.bfloat16)
-    kv = torch.zeros((1, 4, 1, 80), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="does not take"):
-        k8.launch(q, kv, kv, torch.empty_like(q), None, kernel="hopper")
+@pytest.mark.parametrize("dtype,d,kernel", [
+    *[(torch.bfloat16, d, "hopper") for d in (64, 80, 96, 128, 240, 256)],
+    *[(torch.bfloat16, d, "mma_sync") for d in (20, 24, 30, 32, 48, 72)],
+    (torch.float32, 128, "fma"), (torch.float32, 96, "fma"),
+    (torch.float16, 128, None)])
+def test_k8_kernel_rule(dtype, d, kernel):
+    """bf16 at a multiple of 16 from 64 to 256 takes the Hopper kernel,
+    other bf16 head dims mma.sync, float32 the FMA kernel; float16 is
+    refused."""
+    if kernel is None:
+        with pytest.raises(ValueError):
+            k8.kernel_for(dtype, d)
+    else:
+        assert k8.kernel_for(dtype, d) == kernel
+
+
+@pytest.mark.parametrize("d,kernel,match", [
+    (72, "hopper", "does not take"),      # stays on mma_sync
+    (80, "fma", "does not take"),         # bf16 is never the FMA kernel's
+    (272, None, "not supported"),         # past MAX_HEAD_DIM
+])
+def test_k8_launch_refusals(d, kernel, match):
+    """``launch`` refuses a kernel the rule does not give that shape (the
+    mma.sync design aside, which it runs at a Hopper shape for timing) and
+    head dims past 256, before touching a device."""
+    q = torch.zeros((1, 4, 2, d), dtype=torch.bfloat16)
+    kv = torch.zeros((1, 4, 1, d), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=match):
+        k8.launch(q, kv, kv, torch.empty_like(q), None, kernel=kernel)
+
+
+@pytest.mark.parametrize("arch", [
+    "starcoder2_3b", "stablelm_3b", "qwen2_5_14b", "gemma3_12b",
+    "mixtral_8x22b", "phi3_5_moe_42b", "musicgen_medium",
+    "phi3_vision_4_2b"])
+def test_lm_configs_take_the_hopper_kernel(arch):
+    """Every full LM config the port serves prefills on K8's Hopper kernel
+    in bf16."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    assert cfg.compute_dtype == "bfloat16"
+    assert k8.kernel_for(torch.bfloat16, cfg.resolved_head_dim) == "hopper"
 
 
 def test_k2_split_rule():
