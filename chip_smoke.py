@@ -262,7 +262,10 @@ imports only ``repro_torch`` (never ``jax`` or the JAX package) and runs:
    in a temporary directory) and once with ``--faults --ckpt-dir <tmp>
    --ckpt-every 1``: finite loss lines for steps 0 and 2, the layout
    line, the participation in the faulted lines, the full state of step
-   2 and the final ω of step 3 restored from its checkpoints;
+   2 and the final ω of step 3 restored from its checkpoints; then
+   ``--arch zamba2-1.2b --steps 2 --mesh 2,2,1`` (the hybrid's smoke
+   config: Mamba2 layers and the shared block in the distributed LM
+   step): finite loss lines for steps 0 and 1;
 32. phase 9's Fig. 4 bank as a ``ShardedScenarioBank`` on 4 and on 2
    scenario ranks sharing ``cuda:0`` (the first 4 and 2 ranks of phase
    33's world of processes over gloo: one start for both
@@ -320,7 +323,29 @@ imports only ``repro_torch`` (never ``jax`` or the JAX package) and runs:
    ``PREFILL_DECODE_LIMIT``); (e) the four
    new smoke configs (Mixtral, Phi-3.5-MoE, MusicGen, Phi-3-vision) with
    seeded weights through ``convert``, B=2 prefill of 40 and 4 decode
-   steps, card against CPU within ``CUT_F32_LIMIT``.
+   steps, card against CPU within ``CUT_F32_LIMIT``;
+35. the Mamba2, xLSTM and Zamba2-hybrid families: (a) K8 at Zamba2-1.2B's
+   shared attention (B=1, S=8192, 32 heads over 32, D=64, window 4096) on
+   the Hopper kernel, as phase 34's layers; (b) ``serve`` on Zamba2-1.2B
+   at full depth and width (38 Mamba2 layers, the shared block applied 6
+   times; bf16, B=1 x 8192 + 16 decode steps: exactly 6 K8 launches, 0
+   plain draws, finite logits; init s and peak, prefill and decode ms,
+   peak memory, a traced prefill and decode step), prefill(2047) +
+   decode(1) against prefill(2048) within ``PREFILL_DECODE_LIMIT``, and a
+   full-width 6-layer cut (one segment, one shared application) card
+   against CPU in float32 at S = 4352, past the window, + 4 decode steps;
+   (c) ``serve`` on xLSTM-1.3B at full depth and width (48 blocks; bf16,
+   B=1 x 2048 + 8 decode steps, no K8 launch, the same timings, the
+   traced prefill on the prompt's first 256 positions) with the sLSTM's
+   share of the prefill, and a full-width 8-layer cut (one super-block)
+   card against CPU at S = 512 (two mLSTM chunks) + 4 decode steps; (d)
+   the zamba2 and xlstm smoke configs and the pure Mamba2 stack of
+   ``tests/test_models.py``, card against CPU in serve (B=2, 40 tokens, 4
+   decode steps) and in a train-mode forward and backward (loss, whole
+   gradient). The card-vs-CPU decode steps of (b), (c) and (d) after the
+   first (which reads the card's own prefill cache) each start from the
+   CPU's cache: the state is rounded to bf16 in the cache, and the two
+   devices' rounding flips would otherwise compound.
 
 Every counted run also counts the stream draws: the card's two draw
 kernels and the plain draw, which must stay at 0 on the card.
@@ -331,9 +356,10 @@ tracker and fails if a process it started still runs.
 Any failure exits non-zero. The line before last is the card's name and
 power limit, the one before it the kernels' JSON (K1, K2, K5, K3, K4, K8,
 K6, K7 and the two stream draws, K5 and K6 also with one rank's step of
-``lm-100m``, ``lm100m_step_ms``, K8 also at phase 34's five layer shapes;
+``lm-100m``, ``lm100m_step_ms``, K8 also at phase 34's five layer shapes
+and phase 35's;
 each kernel's ``launches`` sums its counts over the main-path runs of
-phases 5, 9, 11, 12, 13, 16, 19, 20, 21, 22, 24-28, 30, 32, 33 and 34,
+phases 5, 9, 11, 12, 13, 16, 19, 20, 21, 22, 24-28, 30, 32, 33, 34 and 35,
 over all ranks, and a kernel never launched there fails the run; K1, K2,
 K5 and K6 also carry their fault-mode error); the last line is
 ``{"ok": true, "device": {...}}``. An earlier ``[record]`` line holds every
@@ -438,6 +464,7 @@ LM_STEPS = 3                  # counted steps per count mode
 LM_LEAVES = 11                # K6 (or K5) launches per rank per step
 LM_CUT = 2                    # layers of the cut held against CPU ranks
 LAUNCH_STEPS = 3              # launch.train steps (the smoke config)
+HYBRID_LAUNCH_STEPS = 2       # launch.train steps of zamba2's smoke config
 
 # phases 32-33: the scenario banks spread over ranks sharing the card
 SHARDED_RANKS = (4, 2)        # phase 32's placements (the world first)
@@ -465,6 +492,20 @@ K8_NEW_SHAPES = {"mixtral_layer": (1, 8192, 48, 8, 128, 4096),
 # phase 34f: Gemma-3-12B at full width, one 5:1 local:global group
 GEMMA_LAYERS = 6
 GEMMA_DECODE_STEPS = 8
+# phase 35: the Mamba2, xLSTM and Zamba2-hybrid families
+ZAMBA_K8_SHAPE = (1, 8192, 32, 32, 64, 4096)   # the shared attention block
+ZAMBA_DECODE_STEPS = 16
+ZAMBA_CUT_LAYERS = 6          # one segment of 6 Mamba2 layers, one shared
+ZAMBA_CUT_SEQ = 4352          # past the 4096 window, 17 SSD chunks of 256
+ZAMBA_CHECK_SEQ = 2047        # prefill(S) + decode(1) vs prefill(S + 1):
+                              # S + 1 a multiple of 256, S one whole chunk
+XLSTM_SEQ = 2048
+XLSTM_DECODE_STEPS = 8
+XLSTM_TRACE_SEQ = 256         # the traced prefill: one mLSTM chunk
+XLSTM_CUT_LAYERS = 8          # one super-block: 7 mLSTM + 1 sLSTM
+XLSTM_CUT_SEQ = 512           # two mLSTM chunks of 256
+STATE_CUT_STEPS = 4           # decode steps of the card-vs-CPU cuts
+FAMILY_SMOKE = ("zamba2_1_2b", "xlstm_1_3b", "mamba2")
 
 # the stream draws (phase 10): the card's kernel and the plain draw
 DRAW_NAMES = ("threefry_chunked", "threefry_flat", "stream_draw_plain")
@@ -1678,17 +1719,28 @@ def lm_logit_check(name, got, want, limit, record):
     return rel
 
 
-def serve_logits(model, wts, d, prompt, steps, cache_len, forced=None):
+def serve_logits(model, wts, d, prompt, steps, cache_len, forced=None,
+                 caches=None):
     """Logits (B, V) of a prefill of ``prompt`` and of each of ``steps``
-    decode steps on device ``d``, greedy or fed ``forced`` tokens."""
+    decode steps on device ``d``, greedy or fed ``forced`` tokens; with
+    ``caches`` (a list to fill, or one filled by an earlier call), the
+    cache each decode step after the first starts from is recorded, or
+    taken from the list in place of this run's own."""
     import torch
+    from repro_torch.common.tree import state_map
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     s = prompt.shape[1]
     lg, cache = make_prefill_step(model, cache_len=cache_len)(
         *wts, prompt.to(d))
     out = [lg]
     decode = make_decode_step(model)
+    feed = caches is not None and len(caches) == steps - 1
     for i in range(steps):
+        if i and caches is not None:
+            if feed:
+                cache = state_map(lambda t: t.to(d), caches[i - 1])
+            else:
+                caches.append(state_map(lambda t: t.clone(), cache))
         tok = (lg.argmax(-1) if forced is None else forced[i]).to(d)
         pos = torch.full((prompt.shape[0],), s + i, dtype=torch.int32,
                          device=d)
@@ -1697,19 +1749,25 @@ def serve_logits(model, wts, d, prompt, steps, cache_len, forced=None):
     return out
 
 
-def card_vs_cpu(name, model, w_dev, w_cpu, prompt, steps, limit, rec, dev):
+def card_vs_cpu(name, model, w_dev, w_cpu, prompt, steps, limit, rec, dev,
+                feed_cache=False):
     """A prefill and ``steps`` decode steps on the card against the same
-    on the CPU, the card fed the CPU's greedy tokens: every step's logits
-    within ``limit`` relative L2 (``lm_logit_check``). Returns the
-    relative L2 per step."""
+    on the CPU, the card fed the CPU's greedy tokens (and with
+    ``feed_cache`` each decode step after the first, which reads the
+    card's own prefill cache, the CPU's cache: a model whose prefill and
+    decode round their state to bf16 in the cache would otherwise
+    compound the two devices' rounding flips from step to step): every
+    step's logits within ``limit`` relative L2 (``lm_logit_check``).
+    Returns the relative L2 per step."""
     import torch
     cache_len = prompt.shape[1] + steps + 1
+    caches = [] if feed_cache else None
     t0 = time.perf_counter()
     cpu = serve_logits(model, w_cpu, torch.device("cpu"), prompt, steps,
-                       cache_len)
+                       cache_len, caches=caches)
     rec[f"{name}_cpu_s"] = time.perf_counter() - t0
     card = serve_logits(model, w_dev, dev, prompt, steps, cache_len,
-                        forced=[lg.argmax(-1) for lg in cpu])
+                        forced=[lg.argmax(-1) for lg in cpu], caches=caches)
     torch.cuda.synchronize()
     rels = [lm_logit_check(f"{name}_step{i}", g, c, limit, rec)
             for i, (g, c) in enumerate(zip(card, cpu))]
@@ -1746,14 +1804,17 @@ def cut_phase(dev, record):
 
 
 def serve_cell(dev, label, model, weights, b, s, n_dec, counters, rec,
-               prompt=None):
+               prompt=None, k8_launches=None, trace_len=None):
     """``serve`` of (b, s) + ``n_dec`` decode steps, counted (one K8
-    launch per layer in the prefill, none in decode, no other kernel, 0
-    plain draws; finite logits); a second run for the prefill time (time
-    to first token), the decode time per step (host clock ending in a
-    synchronize) and the peak device memory; one traced prefill and one
-    traced decode step. ``prompt`` defaults to ``serve``'s draw from seed
-    0. Returns the counted run's launches."""
+    launch per attention layer in the prefill, ``k8_launches`` when given
+    else one per layer, none in decode, no other kernel, 0 plain draws;
+    finite logits); a second run for the prefill time (time to first
+    token), the decode time per step (host clock ending in a synchronize)
+    and the peak device memory; one traced prefill (of the prompt's first
+    ``trace_len`` positions when given: a trace of many thousand host
+    steps takes minutes to read back) and one traced decode step.
+    ``prompt`` defaults to ``serve``'s draw from seed 0. Returns the
+    counted run's launches."""
     import torch
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
@@ -1770,7 +1831,8 @@ def serve_cell(dev, label, model, weights, b, s, n_dec, counters, rec,
     launches = {ctr.name: ctr.count for ctr in counters}
     take_draws(label, launches, draws_words=False)
     want = {ctr.name: 0 for ctr in counters if ctr.name not in DRAW_NAMES}
-    want["flash_attention"] = cfg.n_layers
+    want["flash_attention"] = (cfg.n_layers if k8_launches is None
+                               else k8_launches)
     if launches != want:
         fail(f"{label}: launches {launches}, expected {want} (one prefill, "
              f"{n_dec} decode steps)")
@@ -1801,7 +1863,9 @@ def serve_cell(dev, label, model, weights, b, s, n_dec, counters, rec,
     decode = make_decode_step(model)
     if prompt is None:
         prompt = serve_mod.draw_prompt(cfg, b, s, 0)
-    prompt = prompt.to(dev)
+    prompt = prompt.to(dev)[:, :trace_len]
+    s = prompt.shape[1]
+    rec["trace_prefill_len"] = s
     for what in ("prefill", "decode"):
         torch.cuda.synchronize()
         with device_trace() as prof:
@@ -1821,7 +1885,8 @@ def serve_cell(dev, label, model, weights, b, s, n_dec, counters, rec,
             "k8_ms": sum(t for t, k_, _ in rows if "flash_" in k_),
             "top": [{"kernel": k_[:90], "ms": t, "count": n}
                     for t, k_, n in rows[:10]]}
-        log(f"[trace] {label}, one {what}: {wall:.2f} ms wall, device busy "
+        log(f"[trace] {label}, one {what} (S={s}): {wall:.2f} ms wall, "
+            f"device busy "
             f"{busy:.2f} ms ({100 * busy / wall:.1f} %), K8 "
             f"{rec[f'trace_{what}']['k8_ms']:.2f} ms")
         for t, k_, n in rows[:8]:
@@ -1831,10 +1896,12 @@ def serve_cell(dev, label, model, weights, b, s, n_dec, counters, rec,
     return launches
 
 
-def prefill_decode_check(dev, label, model, weights, s, rec):
+def prefill_decode_check(dev, label, model, weights, s, rec,
+                         k8_launches=None):
     """At B=1, prefill(s) + decode(1) against prefill(s + 1): relative L2
     of the logits within ``PREFILL_DECODE_LIMIT`` and the argmax rule of
-    ``lm_logit_check``, K8 once per layer in each prefill."""
+    ``lm_logit_check``, K8 once per attention layer in each prefill
+    (``k8_launches`` when given, else once per layer)."""
     import torch
     from repro_torch.kernels.flash_attention import ops as k8
     from repro_torch.launch import serve as serve_mod
@@ -1847,9 +1914,10 @@ def prefill_decode_check(dev, label, model, weights, s, rec):
     _, dec, _ = make_decode_step(model)(*weights, cache, prompt[:, s:], pos)
     full, _ = make_prefill_step(model)(*weights, prompt)
     torch.cuda.synchronize()
-    if k8.counter.count - before != 2 * model.cfg.n_layers:
+    per = model.cfg.n_layers if k8_launches is None else k8_launches
+    if k8.counter.count - before != 2 * per:
         fail(f"{label}: prefill(S) and prefill(S + 1) did not run K8 once "
-             f"per layer")
+             f"per attention layer")
     rel = lm_logit_check("prefill_decode_vs_prefill", dec, full,
                          PREFILL_DECODE_LIMIT, rec)
     log(f"[{label}] B=1: prefill({s}) + decode(1) vs prefill({s + 1}): "
@@ -4016,7 +4084,9 @@ def launcher_phase(dev, record):
     --steps 3 --mesh 2,2,1`` in a subprocess, once with the layout tuner
     (its cache in a temporary directory) and once with ``--faults
     --ckpt-dir <tmp> --ckpt-every 1``; the printed lines, and the
-    checkpoints restored (the full state and the final ω)."""
+    checkpoints restored (the full state and the final ω); then ``--arch
+    zamba2-1.2b --steps 2 --mesh 2,2,1`` (the hybrid's smoke config) and
+    its step lines."""
     import re
     import tempfile
     import torch
@@ -4080,12 +4150,23 @@ def launcher_phase(dev, record):
                  f"metadata {meta}")
         rec["faults"] = {"losses": losses, "metadata": list(meta),
                          "restored_full_step": int(full.step)}
+        # the hybrid family's smoke config: Mamba2 layers and the shared
+        # block through the distributed LM step
+        t0 = time.perf_counter()
+        out = _launcher(["--arch", "zamba2-1.2b", "--steps",
+                         str(HYBRID_LAUNCH_STEPS), "--mesh", "2,2,1",
+                         "--layout-cache", cache], env)
+        rec["zamba2_s"] = time.perf_counter() - t0
+        rec["zamba2"] = {"losses": _check_step_lines(
+            out, HYBRID_LAUNCH_STEPS, "zamba2-1.2b")}
     log(f"[launcher] launch.train --arch starcoder2-3b --steps "
         f"{LAUNCH_STEPS} --mesh 2,2,1: tuned layout {rec['tuned']['layout']}"
         f", losses {rec['tuned']['losses']} ({rec['tuned_s']:.1f} s); with "
         f"--faults --ckpt-every 1: losses {losses} ({rec['faults_s']:.1f} "
         f"s), full state of step {LAUNCH_STEPS - 1} and ω of step "
-        f"{LAUNCH_STEPS} restored, metadata {list(meta)}")
+        f"{LAUNCH_STEPS} restored, metadata {list(meta)}; --arch zamba2-1.2b "
+        f"--steps {HYBRID_LAUNCH_STEPS}: losses {rec['zamba2']['losses']} "
+        f"({rec['zamba2_s']:.1f} s)")
     record["launcher"] = rec
 
 
@@ -4764,27 +4845,11 @@ def moe_serve_phase(dev, record, counters):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as serve_mod
-    from repro_torch.models.params import param_count
     cfg = get_config("mixtral_8x22b").replace(n_layers=MOE_LAYERS)
     model = serve_mod.serving_model(cfg)
-    n_params = (param_count(model.backbone_specs())
-                + param_count(model.head_specs()))
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    before = torch.cuda.memory_allocated(dev)   # earlier phases' tensors
-    t0 = time.perf_counter()
-    weights = serve_mod.init_weights(model, 0, dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    rec = {"params": n_params, "init_s": init_s,
-           "allocated_before_init_bytes": before,
-           "init_peak_bytes": torch.cuda.max_memory_allocated(dev) - before,
-           "weights_bytes": torch.cuda.memory_allocated(dev) - before}
-    log(f"[moe serve] Mixtral-8x22B at full width, {MOE_LAYERS} layers: "
-        f"{n_params:,} parameters, float32 weights "
-        f"({rec['weights_bytes'] / 1e9:.2f} GB) drawn on the card in "
-        f"{init_s:.2f} s, init peak {rec['init_peak_bytes'] / 1e9:.2f} GB "
-        f"above the {before / 1e9:.2f} GB the card held before")
+    rec = {}
+    weights = init_on_card(dev, model, "moe serve", f"Mixtral-8x22B at full "
+                           f"width, {MOE_LAYERS} layers", rec)
     launches = serve_cell(dev, "moe serve", model, weights, MOE_BATCH,
                           K8_SEQ, MOE_DECODE_STEPS, counters, rec)
     del rec["prefill_logits"]
@@ -4866,32 +4931,17 @@ def gemma_serve_phase(dev, record, counters):
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as k8
     from repro_torch.launch import serve as serve_mod
-    from repro_torch.models.params import param_count
     cfg = get_config("gemma3_12b").replace(n_layers=GEMMA_LAYERS)
     route = k8.kernel_for(torch.bfloat16, cfg.resolved_head_dim)
     if route != "hopper":
         fail(f"Gemma-3's D={cfg.resolved_head_dim} takes K8's {route} "
              f"kernel, not the Hopper one")
     model = serve_mod.serving_model(cfg)
-    n_params = (param_count(model.backbone_specs())
-                + param_count(model.head_specs()))
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    before = torch.cuda.memory_allocated(dev)   # earlier phases' tensors
-    t0 = time.perf_counter()
-    weights = serve_mod.init_weights(model, 0, dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    rec = {"params": n_params, "init_s": init_s, "k8_kernel": route,
-           "allocated_before_init_bytes": before,
-           "init_peak_bytes": torch.cuda.max_memory_allocated(dev) - before,
-           "weights_bytes": torch.cuda.memory_allocated(dev) - before}
-    log(f"[gemma serve] Gemma-3-12B at full width, {GEMMA_LAYERS} layers "
-        f"(5 local with window {cfg.local_window}, 1 global): {n_params:,} "
-        f"parameters, float32 weights ({rec['weights_bytes'] / 1e9:.2f} GB) "
-        f"drawn on the card in {init_s:.2f} s, init peak "
-        f"{rec['init_peak_bytes'] / 1e9:.2f} GB above the "
-        f"{before / 1e9:.2f} GB the card held before; K8 on {route}")
+    rec = {"k8_kernel": route}
+    weights = init_on_card(
+        dev, model, "gemma serve", f"Gemma-3-12B at full width, "
+        f"{GEMMA_LAYERS} layers (5 local with window {cfg.local_window}, 1 "
+        f"global; K8 on {route})", rec)
     launches = serve_cell(dev, "gemma serve", model, weights, 1, K8_SEQ,
                           GEMMA_DECODE_STEPS, counters, rec)
     del rec["prefill_logits"]
@@ -4950,6 +5000,249 @@ def moe_phase(dev, record, counters):
     new_smoke_phase(dev, record)
     return total, k8_new
 
+
+# --------------------------------------------------------------------------
+# phase 35: the Mamba2, xLSTM and Zamba2-hybrid families
+# --------------------------------------------------------------------------
+
+def family_smoke_config(name):
+    """A phase-35d config: an arch's smoke config, or ``mamba2``, the pure
+    Mamba2 stack of ``tests/test_models.py``'s ``FAMILY_CONFIGS``."""
+    from repro_torch.common.config import ModelConfig, SSMConfig
+    from repro_torch.configs import get_smoke_config
+    if name != "mamba2":
+        return get_smoke_config(name)
+    return ModelConfig(family="ssm", ssm=SSMConfig(d_state=16, head_dim=16,
+                                                   chunk_size=8),
+                       n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                       d_ff=128, vocab_size=128, attn_block_q=16,
+                       attn_block_kv=16, remat_policy="none",
+                       compute_dtype="float32")
+
+
+def init_on_card(dev, model, label, what, rec):
+    """``serve``'s seeded weights of ``model`` drawn on the card: the init
+    seconds, the init peak and the weights' bytes into ``rec``, logged
+    under ``label`` with ``what`` naming the model."""
+    import torch
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models.params import param_count
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)   # earlier phases' tensors
+    t0 = time.perf_counter()
+    weights = serve_mod.init_weights(model, 0, dev)
+    torch.cuda.synchronize()
+    rec.update(params=(param_count(model.backbone_specs())
+                       + param_count(model.head_specs())),
+               init_s=time.perf_counter() - t0,
+               allocated_before_init_bytes=before,
+               init_peak_bytes=torch.cuda.max_memory_allocated(dev) - before,
+               weights_bytes=torch.cuda.memory_allocated(dev) - before)
+    log(f"[{label}] {what}: {rec['params']:,} parameters, float32 weights "
+        f"({rec['weights_bytes'] / 1e9:.2f} GB) drawn on the card in "
+        f"{rec['init_s']:.2f} s, init peak "
+        f"{rec['init_peak_bytes'] / 1e9:.2f} GB above the "
+        f"{before / 1e9:.2f} GB the card held before")
+    return weights
+
+
+def state_cut(dev, name, cfg, n_layers, seq, rec):
+    """A depth cut of ``cfg`` at full width, float32 compute, drawn on the
+    card and copied to the host: B=1 prefill of ``seq`` and
+    ``STATE_CUT_STEPS`` decode steps on the card against the CPU (the
+    card fed the CPU's tokens and, from the second decode step on, the
+    CPU's cache: the state is rounded to bf16 in the cache) within
+    ``CUT_F32_LIMIT``."""
+    import torch
+    from repro_torch.common.tree import tree_map
+    from repro_torch.launch import serve as serve_mod
+    cfg = cfg.replace(n_layers=n_layers, compute_dtype="float32")
+    model = serve_mod.serving_model(cfg)
+    w_dev = serve_mod.init_weights(model, 0, dev)
+    w_cpu = tuple(tree_map(lambda t: t.cpu(), w) for w in w_dev)
+    prompt = serve_mod.draw_prompt(cfg, 1, seq, 0)
+    rels = card_vs_cpu(name, model, w_dev, w_cpu, prompt, STATE_CUT_STEPS,
+                       CUT_F32_LIMIT, rec, dev, feed_cache=True)
+    log(f"[{name}] {cfg.name} cut to {n_layers} layers at full width, B=1, "
+        f"S={seq}, float32: card vs CPU relative L2 of the logits "
+        f"(prefill, then {STATE_CUT_STEPS} decode steps) "
+        f"{['%.3e' % r for r in rels]} (limit {CUT_F32_LIMIT:g}); CPU "
+        f"{rec[f'{name}_cpu_s']:.1f} s")
+    del w_dev, w_cpu
+    torch.cuda.empty_cache()
+
+
+def zamba_phase(dev, record, counters):
+    """Phase 35b: ``serve`` on Zamba2-1.2B at full depth and width (38
+    Mamba2 layers, the shared block applied 6 times), bf16, B=1 x 8192 +
+    ``ZAMBA_DECODE_STEPS`` decode steps, counted (``serve_cell``: exactly
+    6 K8 launches, all on the Hopper route at D=64), init s and peak,
+    prefill and decode ms, peak memory, a traced prefill and decode step;
+    prefill(2047) + decode(1) against prefill(2048) at B=1 (2047 is one
+    whole-sequence SSD chunk); then the full-width 6-layer cut (one
+    segment, one shared application) against the CPU at S = 4352, past
+    the 4096 window, its 4 decode steps through the ring."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as k8
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models.hybrid import n_shared_applications
+    cfg = get_config("zamba2_1_2b")
+    route = k8.kernel_for(torch.bfloat16, cfg.resolved_head_dim)
+    if route != "hopper":
+        fail(f"Zamba2's D={cfg.resolved_head_dim} takes K8's {route} "
+             f"kernel, not the Hopper one")
+    model = serve_mod.serving_model(cfg)
+    apps = n_shared_applications(cfg)
+    rec = {"k8_kernel": route, "shared_applications": apps}
+    weights = init_on_card(dev, model, "zamba2 serve",
+                           "Zamba2-1.2B at full depth and width", rec)
+    launches = serve_cell(dev, "zamba2 serve", model, weights, 1, K8_SEQ,
+                          ZAMBA_DECODE_STEPS, counters, rec,
+                          k8_launches=apps)
+    del rec["prefill_logits"]
+    prefill_decode_check(dev, "zamba2 serve", model, weights,
+                         ZAMBA_CHECK_SEQ, rec, k8_launches=apps)
+    del weights
+    torch.cuda.empty_cache()
+    state_cut(dev, "zamba2_cut", cfg, ZAMBA_CUT_LAYERS, ZAMBA_CUT_SEQ, rec)
+    record["zamba2_serve"] = rec
+    return launches
+
+
+def xlstm_phase(dev, record, counters):
+    """Phase 35c: ``serve`` on xLSTM-1.3B at full depth and width (48
+    blocks: 6 super-blocks of 7 mLSTM + 1 sLSTM), bf16, B=1 x 2048 +
+    ``XLSTM_DECODE_STEPS`` decode steps, counted (``serve_cell``: no K8
+    launch), init s and peak, prefill and decode ms, peak memory, a traced
+    prefill of the prompt's first 256 positions and a traced decode step;
+    the sLSTM's share of one more prefill (each of its 6 sLSTM blocks
+    timed on the host clock between two synchronizes); then the
+    full-width 8-layer cut (one super-block) against the CPU at S = 512,
+    two mLSTM chunks."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import xlstm as XL
+    cfg = get_config("xlstm_1_3b")
+    model = serve_mod.serving_model(cfg)
+    rec = {}
+    weights = init_on_card(dev, model, "xlstm serve",
+                           "xLSTM-1.3B at full depth and width", rec)
+    launches = serve_cell(dev, "xlstm serve", model, weights, 1, XLSTM_SEQ,
+                          XLSTM_DECODE_STEPS, counters, rec, k8_launches=0,
+                          trace_len=XLSTM_TRACE_SEQ)
+    del rec["prefill_logits"]
+    # the sLSTM's share of one prefill: each sLSTM block's host time
+    # (synchronized before and after) inside a prefill timed whole
+    spans = []
+    plain_slstm = XL.slstm_apply
+
+    def timed_slstm(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain_slstm(*args, **kw)
+        torch.cuda.synchronize()
+        spans.append(1e3 * (time.perf_counter() - t0))
+        return out
+    prefill = make_prefill_step(model, cache_len=XLSTM_SEQ + 1)
+    prompt = serve_mod.draw_prompt(cfg, 1, XLSTM_SEQ, 0).to(dev)
+    XL.slstm_apply = timed_slstm
+    try:
+        wall = host_ms(lambda: prefill(*weights, prompt))
+    finally:
+        XL.slstm_apply = plain_slstm
+    rec.update(slstm_block_ms=spans, slstm_prefill_ms=wall,
+               slstm_share_of_prefill=sum(spans) / wall)
+    log(f"[xlstm serve] inside one prefill of {XLSTM_SEQ} ({wall:.1f} ms, "
+        f"each sLSTM block synchronized): the {len(spans)} sLSTM blocks "
+        f"{sum(spans):.1f} ms ({100 * sum(spans) / wall:.1f} %; "
+        f"{sum(spans) * 1e3 / (len(spans) * XLSTM_SEQ):.1f} us per block "
+        f"per token)")
+    del weights, prompt
+    torch.cuda.empty_cache()
+    state_cut(dev, "xlstm_cut", cfg, XLSTM_CUT_LAYERS, XLSTM_CUT_SEQ, rec)
+    record["xlstm_serve"] = rec
+    return launches
+
+
+def family_smoke_phase(dev, record):
+    """Phase 35d: the zamba2 and xlstm smoke configs and the pure Mamba2
+    stack (``family_smoke_config``), seeded weights through ``convert``:
+    B=2 prefill of 40 tokens (past the zamba2 smoke window of 32) and 4
+    decode steps card against CPU within ``CUT_F32_LIMIT``, each decode
+    step after the first from the CPU's cache (``card_vs_cpu``); then a
+    train-mode forward and backward of ``lm_loss`` at B=4 S=128 on the
+    card against the CPU (loss rtol ``LM_RTOL``, the whole gradient
+    relative L2 1e-4), float32."""
+    import torch
+    from repro_torch import rng
+    from repro_torch.common.tree import tree_map
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.data.lm import synthetic_lm_batches
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import init_params
+    rec = {}
+    for name in FAMILY_SMOKE:
+        cfg = family_smoke_config(name)
+        model = serve_mod.serving_model(cfg)
+        as_np = [tree_map(lambda t: t.numpy(), w)
+                 for w in serve_mod.init_weights(model, 0, "cpu")]
+        w_cpu = tuple(lm_params_from_numpy(w) for w in as_np)
+        w_dev = tuple(lm_params_from_numpy(w, dev) for w in as_np)
+        prompt = serve_mod.draw_prompt(cfg, NEW_SMOKE_BATCH, NEW_SMOKE_SEQ, 0)
+        rels = card_vs_cpu(name, model, w_dev, w_cpu, prompt,
+                           NEW_SMOKE_STEPS, CUT_F32_LIMIT, rec, dev,
+                           feed_cache=True)
+
+        model = build_model(cfg)
+        keys = rng.split(rng.PRNGKey(35), 3)
+        backbone = {"trunk": init_params(model.trunk_specs(), keys[0]),
+                    "final": init_params(model.final_specs(), keys[1])}
+        head = init_params(model.head_specs(), keys[2])
+        toks, labs = next(synthetic_lm_batches(cfg.vocab_size, LM_BATCH,
+                                               LM_SEQ, seed=35))
+        loss_g, _, grads_g = train_fwd_bwd(model, backbone, head, toks,
+                                           labs, dev)
+        loss_c, _, grads_c = train_fwd_bwd(model, backbone, head, toks,
+                                           labs, "cpu")
+        g_g = torch.cat([g.reshape(-1).cpu() for g in grads_g])
+        g_c = torch.cat([g.reshape(-1) for g in grads_c])
+        err = rel_l2(g_g, g_c)
+        if (abs(loss_g - loss_c) > LM_RTOL * abs(loss_c) or err > 1e-4
+                or not bool(torch.isfinite(g_g).all())):
+            fail(f"{name} train: loss card {loss_g} vs CPU {loss_c}, "
+                 f"gradient relative L2 {err:.3e}")
+        rec[f"{name}_train"] = {"loss": loss_g, "loss_cpu": loss_c,
+                                "grad_rel_l2": err}
+        log(f"[smoke] {name} ({cfg.family}), B={NEW_SMOKE_BATCH}, "
+            f"S={NEW_SMOKE_SEQ}, float32: card vs CPU relative L2 "
+            f"{['%.3e' % r for r in rels]} (limit {CUT_F32_LIMIT:g}); train "
+            f"B={LM_BATCH} S={LM_SEQ}: loss card {loss_g:.6f} vs CPU "
+            f"{loss_c:.6f}, gradient relative L2 {err:.3e} over "
+            f"{g_g.numel()} entries")
+    record["family_smoke"] = rec
+
+
+def state_families_phase(dev, record, counters):
+    """Phase 35: K8 at Zamba2's layer (a), Zamba2-1.2B served at full
+    depth and width and its cut against the CPU (b), xLSTM-1.3B the same
+    (c), the three smoke configs card vs CPU in serve and training (d).
+    Returns the counted runs' launches and (a)'s record."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(35)
+    k8_zamba = k8_layer_case(dev, "zamba2_layer", ZAMBA_K8_SHAPE, gen,
+                             record)
+    total = {}
+    for got in (zamba_phase(dev, record, counters),
+                xlstm_phase(dev, record, counters)):
+        for k_name, v in got.items():
+            total[k_name] = total.get(k_name, 0) + v
+    family_smoke_phase(dev, record)
+    return total, k8_zamba
 
 def _stop_children() -> None:
     """Stop the ranks' fork server and its resource tracker (they would
@@ -5537,6 +5830,14 @@ def main() -> None:
     for k_name, v in got.items():
         total[k_name] = total.get(k_name, 0) + v
     lap("34")
+
+    # --- 35. the Mamba2, xLSTM and Zamba2-hybrid families ------------------
+    got, k8_zamba = state_families_phase(dev, record,
+                                         counters + (k8.counter,))
+    for k_name, v in got.items():
+        total[k_name] = total.get(k_name, 0) + v
+    k8_new["zamba2_layer"] = k8_zamba
+    lap("35")
     if "jax" in sys.modules or "repro" in sys.modules:
         fail("the JAX package was imported")
 

@@ -252,6 +252,21 @@ class TreePacker:
         footprint of the sectioned engine."""
         return max(sec.length for sec in self.sections) // LANE
 
+    def chunk_leaf_map(self, chunk: int
+                       ) -> Dict[int, List[Tuple[int, List[LeafRun]]]]:
+        """section index -> [(chunk j, the leaf runs intersecting
+        [j·chunk, (j+1)·chunk)), ...] in chunk order: the inverse view of
+        ``leaf_runs`` that a chunk-driven kernel walks. A zero-size run
+        belongs to the chunk at its offset."""
+        out: Dict[int, Dict[int, List[LeafRun]]] = {}
+        for run in self.leaf_runs():
+            per = out.setdefault(run.section, {})
+            j0 = run.offset // chunk
+            j1 = (run.offset + run.size - 1) // chunk if run.size else j0
+            for j in range(j0, j1 + 1):
+                per.setdefault(j, []).append(run)
+        return {s: sorted(d.items()) for s, d in out.items()}
+
     def pack(self, tree) -> torch.Tensor:
         """Tree -> (*batch, P) float32 slab; section padding stays zero.
         Leaves may carry identical leading batch axes (the (C,) cluster
@@ -276,13 +291,39 @@ class TreePacker:
         for i, slot in self.slots.items():
             piece = slab[..., slot.offset:slot.offset + slot.size]
             leaves[i] = piece.reshape(batch + slot.shape).to(slot.dtype)
-        template: Dict[str, Any] = {}
-        for path in self.paths:
-            node = template
-            for k in path[:-1]:
-                node = node.setdefault(k, {})
-            node[path[-1]] = None
-        return tree_unflatten(template, leaves)
+        return _tree_of(self.paths, leaves)
+
+    def tail_slice(self, slab: torch.Tensor) -> torch.Tensor:
+        """The contiguous last-shared-layer tail of a (..., P) slab (a
+        view)."""
+        return slab[..., self.head_len:self.size]
+
+    def unpack_tail(self, tail_slab: torch.Tensor):
+        """(..., tail_len) tail slice -> the ``tail`` subtree, leaves
+        (..., *shape) in the slice's dtype (no cast: masks stay bool)."""
+        if self.tail_name is None:
+            raise ValueError("this packer was built with tail=None: it has "
+                             "no tail section to unpack")
+        batch = tuple(tail_slab.shape[:-1])
+        leaves = []
+        for i in self.tail_indices:
+            slot = self.slots[i]
+            off = slot.offset - self.head_len
+            leaves.append(tail_slab[..., off:off + slot.size].reshape(
+                batch + slot.shape))
+        return _tree_of([self.paths[i][1:] for i in self.tail_indices],
+                        leaves)
+
+
+def _tree_of(paths, leaves):
+    """The nested dicts holding ``leaves`` at ``paths`` (flatten order)."""
+    template: Dict[str, Any] = {}
+    for path in paths:
+        node = template
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = None
+    return tree_unflatten(template, leaves)
 
 
 def check_tree_matches_packer(packer: TreePacker, tree, what: str,
@@ -322,14 +363,11 @@ def packer_for(tree, tail: Optional[str] = "final", sections: str = "tail",
            sections, int(min_section_rows), int(max_section_rows))
     packer = _PACKER_CACHE.get(key)
     if packer is None:
-        template: Dict[str, Any] = {}
-        for path, leaf in paths_leaves:
-            node = template
-            for k in path[:-1]:
-                node = node.setdefault(k, {})
-            # a storage-free stand-in keeps shape and dtype, not the data
-            node[path[-1]] = torch.empty(_shape(leaf), dtype=_dtype(leaf),
-                                         device="meta")
+        # storage-free stand-ins keep shape and dtype, not the data
+        template = _tree_of(
+            [p for p, _ in paths_leaves],
+            [torch.empty(_shape(l), dtype=_dtype(l), device="meta")
+             for _, l in paths_leaves])
         packer = TreePacker(template, tail, sections=sections,
                             min_section_rows=min_section_rows,
                             max_section_rows=max_section_rows)

@@ -5,7 +5,11 @@ The port keeps parameters, gradients and optimizer moments as nested
 dicts of tensors. Leaf order matters: the leaf index and the packer
 offsets key every channel stream, so it must equal ``jax.tree.flatten``,
 which visits dict keys in sorted order (``final`` before ``trunk``,
-``b`` before ``w``). Anything that is not a dict is a leaf.
+``b`` before ``w``) and list elements in index order (the hybrid
+model's cache holds a list of per-application KV dicts). Anything that
+is neither a dict nor a list is a leaf: tuples too (shape tuples stand
+for leaves in layout templates). No parameter tree holds a list, so the
+leaf order that keys the channel streams is that of its dicts alone.
 """
 from __future__ import annotations
 
@@ -16,12 +20,17 @@ import torch
 
 def tree_flatten_with_path(tree, prefix: Tuple[str, ...] = ()
                            ) -> List[Tuple[Tuple[str, ...], Any]]:
-    """(path, leaf) pairs in ``jax.tree.flatten`` order."""
-    if not isinstance(tree, dict):
+    """(path, leaf) pairs in ``jax.tree.flatten`` order; a list element's
+    path entry is its index."""
+    if isinstance(tree, list):
+        items = enumerate(tree)
+    elif isinstance(tree, dict):
+        items = ((k, tree[k]) for k in sorted(tree))
+    else:
         return [(prefix, tree)]
     out = []
-    for k in sorted(tree):
-        out.extend(tree_flatten_with_path(tree[k], prefix + (k,)))
+    for k, sub in items:
+        out.extend(tree_flatten_with_path(sub, prefix + (k,)))
     return out
 
 
@@ -34,6 +43,8 @@ def tree_unflatten(like, leaves):
     it = iter(leaves)
 
     def build(node):
+        if isinstance(node, list):
+            return [build(n) for n in node]
         if not isinstance(node, dict):
             return next(it)
         return {k: build(node[k]) for k in sorted(node)}
@@ -45,6 +56,9 @@ def tree_unflatten(like, leaves):
 
 def tree_map(fn: Callable, tree, *rest):
     """Apply ``fn`` leafwise over trees of one structure."""
+    if isinstance(tree, list):
+        return [tree_map(fn, *nodes)
+                for nodes in zip(tree, *rest, strict=True)]
     if not isinstance(tree, dict):
         return fn(tree, *rest)
     return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
@@ -52,14 +66,16 @@ def tree_map(fn: Callable, tree, *rest):
 
 
 def state_map(fn: Callable, state, *rest):
-    """Apply ``fn`` leafwise over states of one structure: dicts, named
-    tuples (``SimState`` and its optimizer states) and tensors; a None
+    """Apply ``fn`` leafwise over states of one structure: dicts, lists,
+    named tuples (``SimState`` and its optimizer states) and tensors; a None
     field (an absent fault copy) stays None."""
     if state is None:
         return None
     if isinstance(state, dict):
         return {k: state_map(fn, state[k], *(r[k] for r in rest))
                 for k in state}
+    if isinstance(state, list):
+        return [state_map(fn, *items) for items in zip(state, *rest)]
     if isinstance(state, tuple):
         out = [state_map(fn, *fields) for fields in zip(state, *rest)]
         return type(state)(*out) if hasattr(state, "_fields") else tuple(out)

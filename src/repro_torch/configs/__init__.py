@@ -1,12 +1,13 @@
-"""Architecture configs the port builds: the dense family (text, the MoE
-layer, the audio and vision stub frontends) and the paper's MLP.
+"""Architecture configs: every model the reference builds (the dense
+family with its MoE layer and audio and vision stub frontends, the
+Zamba2 hybrid, xLSTM) and the paper's MLP.
 
 Copied from the JAX package's ``repro.configs`` so the port depends on
-nothing there: ids, aliases, full-size ``CONFIG`` and reduced
-``SMOKE_CONFIG`` are the reference's. ``get_config(name)`` returns the
-full-size ``ModelConfig``, ``get_smoke_config(name)`` the reduced one.
-The reference's other architectures are listed with the ROADMAP item
-(Queue 1) that ports their family; asking for one raises.
+nothing there: ids (in the reference's order), aliases, full-size
+``CONFIG`` and reduced ``SMOKE_CONFIG`` are the reference's.
+``get_config(name)`` returns the full-size ``ModelConfig``,
+``get_smoke_config(name)`` the reduced one, ``all_configs()`` every
+full-size config by id.
 """
 from __future__ import annotations
 
@@ -21,17 +22,13 @@ ARCH_IDS: List[str] = [
     "musicgen_medium",
     "phi3_vision_4_2b",
     "gemma3_12b",
+    "zamba2_1_2b",
     "phi3_5_moe_42b",
+    "xlstm_1_3b",
     "mixtral_8x22b",
     "qwen2_5_14b",
     "paper_mlp",
 ]
-
-# the reference's architectures whose family the port does not build yet
-NOT_PORTED: Dict[str, str] = {
-    "zamba2_1_2b": "item 14 (mamba2, xlstm and hybrid)",
-    "xlstm_1_3b": "item 14 (mamba2, xlstm and hybrid)",
-}
 
 # CLI-friendly aliases, as in the reference
 ALIASES: Dict[str, str] = {
@@ -51,13 +48,9 @@ ALIASES: Dict[str, str] = {
 
 def _module(name: str):
     name = ALIASES.get(name, name)
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported yet: ROADMAP Queue 1 "
-            f"{NOT_PORTED[name]}")
     if name not in ARCH_IDS:
         raise ValueError(f"unknown architecture {name!r}; known: "
-                         f"{ARCH_IDS + sorted(NOT_PORTED)}")
+                         f"{ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 
@@ -68,3 +61,6 @@ def get_config(name: str) -> ModelConfig:
 def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).SMOKE_CONFIG
 
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {n: get_config(n) for n in ARCH_IDS}

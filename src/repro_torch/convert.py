@@ -27,9 +27,12 @@ An LM's parameters (``init_params`` of the reference's ``trunk_specs``,
 dims (``layers``, or gemma3's ``local`` (n_super, r, ...) and ``global``
 (n_super, ...)); an MoE layer's ``mlp`` holds ``norm`` (d,), ``router``
 (d, E) and the stacked experts ``w_gate``/``w_up`` (E, d, d_ff) and
-``w_down`` (E, d_ff, d), each behind the layer dim. The port's dense
-model reads the same trees, so ``lm_params_from_numpy`` only turns each
-leaf into a tensor.
+``w_down`` (E, d_ff, d), each behind the layer dim. The port's models
+read the same trees (the hybrid's ``mamba`` stack and shared blocks,
+xLSTM's (n_super, per_super, ...) ``mlstm`` and (n_super, ...) ``slstm``
+stacks too), so ``lm_params_from_numpy`` only turns each leaf into a
+tensor; ``lm_cache_from_numpy`` does the same for a cache, keeping each
+leaf's dtype.
 """
 from __future__ import annotations
 
@@ -63,6 +66,22 @@ def lm_params_from_numpy(params, device="cpu"):
     if isinstance(params, dict):
         return {k: lm_params_from_numpy(v, device) for k, v in params.items()}
     return _tensor(np.asarray(params, np.float32), device, torch.float32)
+
+
+def lm_cache_from_numpy(cache, device="cpu"):
+    """The port's copy of a reference LM cache (numpy leaves, from a
+    prefill or ``init_cache``): the same nesting, dicts and lists alike
+    (the hybrid's per-application KV list), each leaf a tensor of the
+    leaf's dtype. A bfloat16 leaf (``ml_dtypes``, which numpy cannot
+    hand to torch) crosses through float32, exactly."""
+    if isinstance(cache, dict):
+        return {k: lm_cache_from_numpy(v, device) for k, v in cache.items()}
+    if isinstance(cache, list):
+        return [lm_cache_from_numpy(v, device) for v in cache]
+    arr = np.asarray(cache)
+    if arr.dtype.name == "bfloat16":
+        return _tensor(arr.astype(np.float32), device, torch.bfloat16)
+    return _tensor(arr, device)
 
 
 def _stale_fields(fields, n: int, device):

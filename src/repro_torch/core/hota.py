@@ -287,18 +287,29 @@ def make_ota_gather(mesh: Mesh, data_axes: Tuple[str, ...],
 
 def build_axes_registry(model) -> Dict[str, List[tuple]]:
     """klass -> the logical-axes tuple of each leaf the hook sees for it,
-    in flatten order: the ``mlp`` trunk as one "layers" call, the dense
-    LM's "embed" and one layer's "layers" (gemma3's local and global
-    layers hold the same leaves), and "final". The "layer" stacking dims
-    stay in the tuples; ``_fsdp_axis`` strips them."""
+    in flatten order: the ``mlp`` trunk as one "layers" call; an LM's
+    "embed" and its blocks: one dense layer's "layers" (gemma3's local
+    and global layers hold the same leaves), one Mamba2 layer's "layers"
+    (``ssm``) or "mamba" and the shared block's "shared_attn" and
+    "shared_mlp" (``hybrid``), one mLSTM's "mlstm" and one sLSTM's
+    "slstm" (``xlstm``); and "final". The "layer" stacking dims stay in
+    the tuples; ``_fsdp_axis`` strips them."""
+    family = model.cfg.family
     ax = logical_axes(model.trunk_specs())
     reg: Dict[str, List[tuple]] = {}
-    if model.cfg.family == "mlp":
+    if family == "mlp":
         reg["layers"] = tree_leaves(ax)
     else:
         reg["embed"] = [ax["embed"]]
-        reg["layers"] = tree_leaves(ax["layers"] if "layers" in ax
-                                    else ax["global"])
+        if family == "hybrid":
+            for klass in ("mamba", "shared_attn", "shared_mlp"):
+                reg[klass] = tree_leaves(ax[klass])
+        elif family == "xlstm":
+            reg["mlstm"] = tree_leaves(ax["mlstm"])
+            reg["slstm"] = tree_leaves(ax["slstm"])
+        else:
+            reg["layers"] = tree_leaves(ax["layers"] if "layers" in ax
+                                        else ax["global"])
     reg["final"] = tree_leaves(logical_axes(model.final_specs()))
     return reg
 

@@ -1,14 +1,18 @@
-"""Serving entry point: prefill + batched greedy decode for any ported
+"""Serving entry point: prefill + batched greedy decode for any LM
 --arch: the dense text models, the MoE pair (mixtral-8x22b,
 phi3.5-moe-42b-a6.6b: dropless inference, every expert weighted by the
-top-k gates) and the audio and vision stub frontends (musicgen-medium,
-phi-3-vision-4.2b).
+top-k gates), the audio and vision stub frontends (musicgen-medium,
+phi-3-vision-4.2b), zamba2-1.2b (Mamba2 layers and one shared attention
+block) and xlstm-1.3b (mLSTM and sLSTM blocks).
 
 Port of ``repro.launch.serve``: the same flags and output lines, on the
 card unless ``--device cpu``. It serves with ``attn_impl="pallas"``, the
 reference's serving attention, so every prefill runs the flash attention
-kernel K8 once per layer (decode attends to the cache in plain PyTorch,
-as the reference does)::
+kernel K8 once per attention layer (once per application of zamba2's
+shared block, never for xlstm; decode attends to the cache in plain
+PyTorch, as the reference does). A decode step returns the new cache:
+the attention rings are written in place, the Mamba2 and xLSTM states
+are new tensors::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \\
         --batch 4 --prefill-len 32 --decode-steps 16

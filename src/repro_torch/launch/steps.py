@@ -61,7 +61,9 @@ def make_prefill_step(model: Model, cache_len: Optional[int] = None):
 def make_decode_step(model: Model):
     def decode_step(backbone, head, cache, tokens, positions):
         """tokens (B, 1) at absolute ``positions`` (B,) -> (next tokens
-        (B,) int32, logits (B, V), cache). The cache is updated in place."""
+        (B,) int32, logits (B, V), cache). Use the returned cache: the
+        attention caches are updated in place, the Mamba2 and xLSTM
+        states come back as new tensors."""
         with torch.no_grad():
             logits, _, new_cache = model.forward_logits(
                 backbone, head, tokens, positions=positions, mode="decode",

@@ -1,8 +1,9 @@
 """The training launcher, and divergence recovery (``RoundGuard``).
 
 Port of ``repro.launch.train``: HOTA-FedGradNorm training of any
-``--arch``'s reduced (smoke) config on a (clusters, clients, model) mesh,
-with the LM loss, checkpointing and metric logging; the same flags,
+``--arch``'s reduced (smoke) config (the dense family, the MoE pair,
+the stub frontends, zamba2-1.2b's Mamba2 hybrid and xlstm-1.3b) on a
+(clusters, clients, model) mesh, with the LM loss, checkpointing and metric logging; the same flags,
 defaults and printed lines as the reference, on the card unless
 ``--device cpu``::
 

@@ -1,5 +1,4 @@
-"""Model facade over the families the port builds: ``mlp`` and ``dense``
-(with ``moe``, its alias in the reference).
+"""Model facade: one interface over every backbone family.
 
 Port of ``repro.models.model``. The personalized-FL split of eq. (2) is
 structural: trunk (shared) -> ``final``, the last shared layer ω̃ that
@@ -11,17 +10,24 @@ FedGradNorm differentiates -> a per-client head.
   matching the input's (the simulator's (C, N) clients each hold their
   own copy) or without them (one shared copy broadcast over the batch),
   so the reference's (C, N) ``vmap`` is a batched matmul here.
-* ``dense`` (and ``moe``): the decoder LM of ``models/transformer.py``
-  (embedding and stacked layers) -> final RMSNorm -> a vocab head with
-  float32 logits, for training, prefill and decode. ``cfg.moe`` puts the
-  MoE block of ``models/moe.py`` in every layer (Mixtral, Phi-3.5-MoE);
-  ``cfg.modality`` "audio" (EnCodec token ids) or "vision" (projected
-  patch embeddings, (B, S, d_model) floats) selects the stub frontend's
-  inputs (``launch.steps.input_specs``): the trunk takes token ids or
-  float embeddings alike. SSM, xLSTM and hybrid families wait for
-  ROADMAP Queue 1, item 14.4.
+* the language models: a trunk -> final RMSNorm -> a vocab head with
+  float32 logits, for training, prefill and decode:
 
-``trunk_apply`` returns (hidden, aux_loss, new_cache) for both families,
+  - ``dense`` (and ``moe``, its alias in the reference): the decoder of
+    ``models/transformer.py``; ``cfg.moe`` puts the MoE block of
+    ``models/moe.py`` in every layer (Mixtral, Phi-3.5-MoE);
+    ``cfg.modality`` "audio" (EnCodec token ids) or "vision" (projected
+    patch embeddings, (B, S, d_model) floats) selects the stub
+    frontend's inputs (``launch.steps.input_specs``);
+  - ``hybrid``: Zamba2's Mamba2 backbone with one shared attention
+    block (``models/hybrid.py``);
+  - ``xlstm``: super-blocks of mLSTM and sLSTM (``models/xlstm.py``);
+  - ``ssm``: a pure stack of Mamba2 layers (``models/mamba2.py``),
+    hooked as ("layers", i).
+
+  Every trunk takes token ids or float embeddings alike.
+
+``trunk_apply`` returns (hidden, aux_loss, new_cache) for every family,
 as the reference's does; ``lm_loss`` and ``cls_loss`` are the
 reference's cross-entropies.
 """
@@ -33,9 +39,14 @@ from typing import Tuple
 import torch
 
 from repro_torch.common.config import ModelConfig
+from repro_torch.models import hybrid as HY
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
 from repro_torch.models import transformer as T
+from repro_torch.models import xlstm as XL
 from repro_torch.models.params import ParamSpec
+
+FAMILIES = ("mlp", "dense", "moe", "hybrid", "xlstm", "ssm")
 
 # paper Table I: shared network FC dims (input 256 -> ... -> 256 out)
 PAPER_MLP_DIMS = (256, 512, 1024, 2048, 512, 256)
@@ -52,19 +63,27 @@ class Model:
     dims: Tuple[int, ...] = field(default=PAPER_MLP_DIMS)
 
     def __post_init__(self):
-        if self.cfg.family not in ("mlp", "dense", "moe"):
-            raise NotImplementedError(
-                f"the port builds the 'mlp', 'dense' and 'moe' families, got "
-                f"{self.cfg.family!r} (ROADMAP Queue 1, item 14)")
+        if self.cfg.family not in FAMILIES:
+            raise ValueError(f"unknown model family {self.cfg.family!r}; "
+                             f"known: {FAMILIES}")
 
     @property
     def is_lm(self) -> bool:
-        return self.cfg.family in ("dense", "moe")
+        return self.cfg.family != "mlp"
 
     # ---------------- specs ----------------
     def trunk_specs(self):
-        if self.is_lm:
-            return T.dense_trunk_specs(self.cfg)
+        cfg = self.cfg
+        if cfg.family in ("dense", "moe"):
+            return T.dense_trunk_specs(cfg)
+        if cfg.family == "hybrid":
+            return HY.hybrid_trunk_specs(cfg)
+        if cfg.family == "xlstm":
+            return XL.xlstm_trunk_specs(cfg)
+        if cfg.family == "ssm":
+            return {"embed": ParamSpec((cfg.vocab_size, cfg.d_model),
+                                       "embed", axes=("vocab", "embed")),
+                    "layers": T._stack(M2.mamba2_specs(cfg), cfg.n_layers)}
         d = self.dims
         return {f"fc{i}": {"w": ParamSpec((d[i], d[i + 1]),
                                           axes=("embed", "mlp")),
@@ -99,9 +118,10 @@ class Model:
         trunk's features, a zero aux and no cache). ``param_hook(params,
         klass, *tags)`` (the distributed per-leaf oracle,
         ``core.hota.make_param_hook``) sees the ``mlp`` trunk's parameters
-        as one "layers" call, the dense trunk's embedding as "embed" and
-        each layer's parameters as "layers" with the layer index as the
-        last tag, right before they are used."""
+        as one "layers" call; an LM's embedding as "embed" and its blocks
+        right before they are used: the dense and ``ssm`` trunks' layers
+        as "layers" with the layer index as the last tag, the hybrid's
+        and xLSTM's as their modules say."""
         if not self.is_lm:
             if param_hook is not None:
                 params = param_hook(params, "layers")
@@ -110,12 +130,23 @@ class Model:
                 h = torch.relu(_dense(h, params[f"fc{i}"]))
             return h, torch.zeros((), dtype=torch.float32,
                                   device=h.device), None
+        cfg = self.cfg
         if positions is None:
             positions = torch.arange(inputs.shape[1], device=inputs.device)
-        return T.dense_trunk_apply(params, inputs, self.cfg,
-                                   positions=positions, mode=mode,
-                                   cache=cache, cache_len=cache_len,
-                                   param_hook=param_hook)
+        kw = dict(positions=positions, mode=mode, cache=cache,
+                  cache_len=cache_len, param_hook=param_hook)
+        if cfg.family == "hybrid":
+            return HY.hybrid_trunk_apply(params, inputs, cfg, **kw)
+        if cfg.family == "xlstm":
+            return XL.xlstm_trunk_apply(params, inputs, cfg, **kw)
+        if cfg.family == "ssm":
+            x, new_cache = M2.mamba_stack_apply(
+                params["layers"], T.embed_inputs(params, inputs, cfg,
+                                                 param_hook),
+                cfg, mode=mode, cache=cache, param_hook=param_hook)
+            return x, torch.zeros((), dtype=torch.float32,
+                                  device=x.device), new_cache
+        return T.dense_trunk_apply(params, inputs, cfg, **kw)
 
     def final_apply(self, params, hidden: torch.Tensor) -> torch.Tensor:
         if self.is_lm:
@@ -135,9 +166,35 @@ class Model:
     # ---------------- LM caches and logits ----------------
     def init_cache(self, batch: int, cache_len: int, dtype=torch.bfloat16,
                    device="cuda"):
+        """An empty cache for decode from scratch, every layer's state in
+        its own storage, on the card unless the caller asks for the
+        CPU."""
+        cfg = self.cfg
         if not self.is_lm:
             raise ValueError("the mlp family has no cache")
-        return T.init_dense_cache(self.cfg, batch, cache_len, dtype, device)
+        if cfg.family == "hybrid":
+            return HY.init_hybrid_cache(cfg, batch, cache_len, dtype, device)
+        if cfg.family == "xlstm":
+            return XL.init_xlstm_cache(cfg, batch, dtype, device)
+        if cfg.family == "ssm":
+            return M2.init_mamba_cache(cfg, batch, dtype, device,
+                                       (cfg.n_layers,))
+        return T.init_dense_cache(cfg, batch, cache_len, dtype, device)
+
+    def cache_axes(self):
+        """The cache's logical axes, leaf for leaf (the reference's
+        sharding names)."""
+        cfg = self.cfg
+        if not self.is_lm:
+            raise ValueError("the mlp family has no cache")
+        if cfg.family == "hybrid":
+            return HY.hybrid_cache_axes(cfg)
+        if cfg.family == "xlstm":
+            return XL.xlstm_cache_axes()
+        if cfg.family == "ssm":
+            return {k: ("layer",) + v
+                    for k, v in M2.mamba_cache_axes().items()}
+        return T.dense_cache_axes(cfg)
 
     def forward_logits(self, backbone_params, head_params, inputs, *,
                        positions=None, mode="train", cache=None,

@@ -315,6 +315,22 @@ def _cdt(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
+def embed_inputs(params, tokens_or_embeds, cfg: ModelConfig,
+                 param_hook=None) -> torch.Tensor:
+    """An LM trunk's input in the compute dtype: token ids (B, S) looked
+    up in ``params["embed"]`` (hooked as "embed"), or float embeddings
+    (B, S, d_model) as they are."""
+    embed = params["embed"]
+    if param_hook is not None:
+        embed = param_hook(embed, "embed")
+    if torch.is_floating_point(tokens_or_embeds):
+        return tokens_or_embeds.to(_cdt(cfg))
+    # gather, then cast: the same numbers as casting the table
+    # (``F.embedding``: its backward sums each row's gradients in a fixed
+    # order on every device, unlike an indexed gather's)
+    return F.embedding(tokens_or_embeds, embed).to(_cdt(cfg))
+
+
 def dense_trunk_apply(params, tokens_or_embeds, cfg: ModelConfig, *,
                       positions, mode: str = "train", cache=None,
                       cache_len=None, param_hook=None):
@@ -324,15 +340,7 @@ def dense_trunk_apply(params, tokens_or_embeds, cfg: ModelConfig, *,
     embedding table as "embed" and each layer's parameters as "layers"
     with tags (layer,), or gemma3's (super-block, layer in it), the
     global layer of a super-block being layer r."""
-    embed = params["embed"]
-    if param_hook is not None:
-        embed = param_hook(embed, "embed")
-    if torch.is_floating_point(tokens_or_embeds):
-        x = tokens_or_embeds.to(_cdt(cfg))
-    else:   # gather, then cast: the same numbers as casting the table
-        # (``F.embedding``: its backward sums each row's gradients in a
-        # fixed order on every device, unlike an indexed gather's)
-        x = F.embedding(tokens_or_embeds, embed).to(_cdt(cfg))
+    x = embed_inputs(params, tokens_or_embeds, cfg, param_hook)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     if cfg.local_global_ratio:
@@ -408,3 +416,18 @@ def init_dense_cache(cfg: ModelConfig, batch: int, cache_len: int,
         return {"local": one((n_super, r), cfg.local_window),
                 "global": one((n_super,), None)}
     return one((cfg.n_layers,), cfg.sliding_window)
+
+
+def dense_cache_axes(cfg: ModelConfig):
+    """Logical axes of the cache's leaves (the reference's sharding
+    names)."""
+    def one(n_lead):
+        lead = ("layer",) * n_lead
+        return {
+            "k": lead + ("batch", "cache_seq", "kv_heads", "head_dim"),
+            "v": lead + ("batch", "cache_seq", "kv_heads", "head_dim"),
+            "pos": lead + ("batch", "cache_seq"),
+        }
+    if cfg.local_global_ratio:
+        return {"local": one(2), "global": one(1)}
+    return one(1)

@@ -41,6 +41,9 @@ ENTRIES = [f"import repro_torch.{p}" for p in FACADES + [
     "from repro_torch.kernels.flash_attention import ops",
     "from repro_torch.kernels.masked_gradnorm import ops",
     "from repro_torch.models import moe",
+    "from repro_torch.models import mamba2",
+    "from repro_torch.models import xlstm",
+    "from repro_torch.models import hybrid",
     "from repro_torch.models.params import init_params",
     "from repro_torch.core.hota_step import make_hota_train_step",
     "from repro_torch.core import ota",

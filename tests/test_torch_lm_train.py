@@ -11,7 +11,9 @@
 - ``forward_logits(mode="train")``, the summed aux loss, ``lm_loss +
   aux`` and the gradient of the whole backbone and head for the eight
   dense-family smoke configs (the MoE pair drops by capacity in
-  training; mixtral also at capacity factor 0.1, so tokens drop), with the
+  training; mixtral also at capacity factor 0.1, so tokens drop) and the
+  zamba2 and xlstm ones (the shared block's gradient summed over its
+  applications; the sLSTM's recurrence through time), with the
   reference's weights carried across (``convert.lm_params_from_numpy``):
   rtol 1e-4 (atol 1e-4 of a leaf's largest entry); the three remat
   policies give the same gradient;
@@ -45,7 +47,7 @@ from repro_torch.models.model import build_model, cls_loss, lm_loss
 
 ARCHS = ["starcoder2_3b", "stablelm_3b", "qwen2_5_14b", "gemma3_12b",
          "mixtral_8x22b", "phi3_5_moe_42b", "musicgen_medium",
-         "phi3_vision_4_2b"]
+         "phi3_vision_4_2b", "zamba2_1_2b", "xlstm_1_3b"]
 # the smoke config's overrides of each case: mixtral at capacity factor
 # 0.1 drops tokens in every group
 TRAIN_CASES = {a: {} for a in ARCHS}
@@ -153,8 +155,11 @@ def _jax_train(arch):
     its gradient in the backbone and head (numpy)."""
     cfg = _smoke(jax_smoke_config, arch)
     m = jax_build_model(cfg)
-    backbone = jax_init_params(m.backbone_specs(), jax.random.PRNGKey(0))
-    head = jax_init_params(m.head_specs(), jax.random.PRNGKey(1))
+    # compiled once: the eager draws and gradient compile a program per op
+    backbone = jax.jit(lambda k: jax_init_params(m.backbone_specs(), k))(
+        jax.random.PRNGKey(0))
+    head = jax.jit(lambda k: jax_init_params(m.head_specs(), k))(
+        jax.random.PRNGKey(1))
     tokens, labels = _tokens(cfg, len(arch))
 
     def loss(bb, hd):
@@ -162,8 +167,8 @@ def _jax_train(arch):
                                           mode="train")
         return (jax_model.lm_loss(logits, jnp.asarray(labels)) + aux,
                 (logits, aux))
-    (val, (logits, aux)), grads = jax.value_and_grad(
-        loss, argnums=(0, 1), has_aux=True)(backbone, head)
+    (val, (logits, aux)), grads = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True))(backbone, head)
     np_ = lambda t: jax.tree.map(np.asarray, t)   # noqa: E731
     return {"backbone": np_(backbone), "head": np_(head), "tokens": tokens,
             "labels": labels, "logits": np.asarray(logits),

@@ -328,12 +328,17 @@ def test_k8_launch_refusals(d, kernel, match):
 @pytest.mark.parametrize("arch", [
     "starcoder2_3b", "stablelm_3b", "qwen2_5_14b", "gemma3_12b",
     "mixtral_8x22b", "phi3_5_moe_42b", "musicgen_medium",
-    "phi3_vision_4_2b"])
+    "phi3_vision_4_2b", "zamba2_1_2b"])
 def test_lm_configs_take_the_hopper_kernel(arch):
     """Every full LM config the port serves prefills on K8's Hopper kernel
-    in bf16."""
+    in bf16 (Zamba2's attention is its shared block's: 32 heads of 64)."""
     from repro_torch.configs import get_config
+    from repro_torch.models.hybrid import _shared_attn_cfg
     cfg = get_config(arch)
+    if cfg.family == "hybrid":
+        cfg = _shared_attn_cfg(cfg)
+        assert (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim) == (
+            32, 32, 64)
     assert cfg.compute_dtype == "bfloat16"
     assert k8.kernel_for(torch.bfloat16, cfg.resolved_head_dim) == "hopper"
 
