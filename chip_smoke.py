@@ -127,7 +127,7 @@ imports only ``repro_torch`` (never ``jax`` or the JAX package) and runs:
    the row's largest difference;
 16. ``launch.serve.serve`` at StarCoder2-3B's full depth and width
    (3,180,518,400 float32 parameters drawn on the card, bfloat16
-   compute), B=4, a prefill of 8192 tokens and 32 decode steps, counters
+   compute), B=4, a prefill of 8192 tokens and 16 decode steps, counters
    set to 0 just before and read just after (30 K8 launches: one per layer
    in the prefill, none in decode, no other kernel), finite logits; a
    second run for the prefill time (time to first token) and the decode
@@ -345,7 +345,37 @@ imports only ``repro_torch`` (never ``jax`` or the JAX package) and runs:
    gradient). The card-vs-CPU decode steps of (b), (c) and (d) after the
    first (which reads the card's own prefill cache) each start from the
    CPU's cache: the state is rounded to bf16 in the cache, and the two
-   devices' rounding flips would otherwise compound.
+   devices' rounding flips would otherwise compound;
+36. the examples on the card: ``experiments.serve_batched`` for each of
+   the ten ``--arch`` smoke configs at its defaults (batch 4, 32-token
+   prompt, 24 new tokens), counted (one K8 launch per attention layer per
+   prefill, per application of zamba2's shared block, none for xlstm; no
+   other kernel; 0 plain draws), the prefill logits against the same run
+   on the CPU within ``CUT_F32_LIMIT`` (relative L2); then
+   ``experiments.quickstart.main`` for ``QS_ROUNDS`` rounds at the
+   example's full width (counted: 10 K1 and 1 K2 per round), each task's
+   loss falling from the first round to the last, and the same run's
+   first ``QS_CHECK_ROUNDS`` rounds against the CPU's (loss and p rtol
+   1e-4, ω after them, copied to the host in the run, relative L2 1e-3);
+   then ``quickstart.sweep``'s 3-scenario bank for
+   ``QS_SWEEP_ROUNDS`` rounds (counted, finite);
+37. the dry run's cost model against the card: on a one-rank mesh the dry
+   run's own serve step (``launch.dryrun.serve_setup``) on StarCoder2-3B
+   at full width with bf16 weights, prefill at B=1 x 8192 and one decode
+   step against a cache of 8192, traced by ``launch.op_cost`` twice: on
+   ``meta`` (the dry run) and for real on the card. The ``meta`` trace's
+   argument bytes must equal the real inputs' exactly, its FLOPs the
+   card trace's exactly, and its argument + temp bytes be within
+   ``COST_PEAK_TOL`` of ``torch.cuda.max_memory_allocated`` over the step
+   (the step's own peak above what was resident, plus its arguments); the
+   step's measured ms is printed beside the compute and memory terms, as
+   shares (not gated). Then the dry run's train step (``count_mode``
+   "local") on a one-rank mesh at ``COST_TRAIN_ARCH``'s smoke config,
+   traced on ``meta`` and run on the card under the same mode: the FLOPs
+   equal, and each kernel's launches equal on both and to its wrapper's
+   count on the card (every wrapper reports its launches to a running
+   trace, and on ``meta`` runs its card path's torch ops around the
+   kernel it records).
 
 Every counted run also counts the stream draws: the card's two draw
 kernels and the plain draw, which must stay at 0 on the card.
@@ -359,7 +389,7 @@ K6, K7 and the two stream draws, K5 and K6 also with one rank's step of
 ``lm-100m``, ``lm100m_step_ms``, K8 also at phase 34's five layer shapes
 and phase 35's;
 each kernel's ``launches`` sums its counts over the main-path runs of
-phases 5, 9, 11, 12, 13, 16, 19, 20, 21, 22, 24-28, 30, 32, 33, 34 and 35,
+phases 5, 9, 11, 12, 13, 16, 19, 20, 21, 22, 24-28, 30, 32-36,
 over all ranks, and a kernel never launched there fails the run; K1, K2,
 K5 and K6 also carry their fault-mode error); the last line is
 ``{"ok": true, "device": {...}}``. An earlier ``[record]`` line holds every
@@ -412,7 +442,7 @@ SWEEP_ROUNDS = 2          # run_sweep rounds with the tuner on
 BF16_FLOPS_PER_S = 989e12     # H100 SXM, dense bf16 tensor cores
 K8_SEQ = 8192                 # prefill length: crosses the 4096 window
 SERVE_BATCH = 4
-SERVE_DECODE_STEPS = 32       # decode-step calls after the prefill
+SERVE_DECODE_STEPS = 16       # decode-step calls after the prefill
 CUT_LAYERS = 2                # phase 15's depth cut (widths unchanged)
 CUT_SEQ, CUT_STEPS = 1024, 4
 CUT_F32_LIMIT = 1e-4          # card vs CPU logits, relative L2
@@ -460,7 +490,7 @@ LM_BATCH = 4                  # sequences per client
 LM_SEQ = 128                  # tokens per sequence
 LM_RTOL = 1e-4                # card against CPU, float32, TF32 off
 LM_WARMUP = 1                 # warm-up steps per count mode
-LM_STEPS = 3                  # counted steps per count mode
+LM_STEPS = 2                  # counted steps per count mode
 LM_LEAVES = 11                # K6 (or K5) launches per rank per step
 LM_CUT = 2                    # layers of the cut held against CPU ranks
 LAUNCH_STEPS = 3              # launch.train steps (the smoke config)
@@ -504,6 +534,22 @@ XLSTM_DECODE_STEPS = 8
 XLSTM_TRACE_SEQ = 256         # the traced prefill: one mLSTM chunk
 XLSTM_CUT_LAYERS = 8          # one super-block: 7 mLSTM + 1 sLSTM
 XLSTM_CUT_SEQ = 512           # two mLSTM chunks of 256
+
+# phases 36-37: the examples and the dry run's cost model
+EXAMPLE_ARCHS = ("starcoder2-3b", "stablelm-3b", "musicgen-medium",
+                 "phi-3-vision-4.2b", "gemma3-12b", "zamba2-1.2b",
+                 "phi3.5-moe-42b-a6.6b", "xlstm-1.3b", "mixtral-8x22b",
+                 "qwen2.5-14b")
+QS_ROUNDS = 60                # quickstart.main's rounds (the example's)
+QS_CHECK_ROUNDS = 3           # its first rounds held against the CPU
+QS_SWEEP_ROUNDS = 20          # quickstart.sweep's rounds (the example's)
+# meta argument + temp against the card's peak: measured within 0.03 %
+# on an H100 80GB HBM3
+COST_PEAK_TOL = 0.01
+COST_TRAIN_ARCH = "stablelm_3b"   # phase 37's train step: its smoke config
+COST_TRAIN_SHAPE = (2, 64, 2)     # (batch, sequence, microbatches)
+COST_PREFILL_ITERS = 2        # timed prefills (median)
+COST_DECODE_ITERS = 5         # timed decode steps (median)
 STATE_CUT_STEPS = 4           # decode steps of the card-vs-CPU cuts
 FAMILY_SMOKE = ("zamba2_1_2b", "xlstm_1_3b", "mamba2")
 
@@ -1929,8 +1975,8 @@ def prefill_decode_check(dev, label, model, weights, s, rec,
 
 
 def serve_phase(dev, record, counters):
-    """Phase 16: ``serve`` at full depth and width, B=4 x 8192 + 32 decode
-    steps, counted; timings, a traced prefill and decode step, peak memory;
+    """Phase 16: ``serve`` at full depth and width, B=4 x 8192 +
+    ``SERVE_DECODE_STEPS`` decode steps, counted; timings, a traced prefill and decode step, peak memory;
     prefill(8192) + decode(1) against prefill(8193) at B=1."""
     import torch
     from repro_torch.launch import serve as serve_mod
@@ -5117,8 +5163,9 @@ def xlstm_phase(dev, record, counters):
     ``XLSTM_DECODE_STEPS`` decode steps, counted (``serve_cell``: no K8
     launch), init s and peak, prefill and decode ms, peak memory, a traced
     prefill of the prompt's first 256 positions and a traced decode step;
-    the sLSTM's share of one more prefill (each of its 6 sLSTM blocks
-    timed on the host clock between two synchronizes); then the
+    the sLSTM's share of one more prefill, of the traced prefill's
+    ``XLSTM_TRACE_SEQ`` positions (each of its 6 sLSTM blocks timed on the
+    host clock between two synchronizes); then the
     full-width 8-layer cut (one super-block) against the CPU at S = 512,
     two mLSTM chunks."""
     import torch
@@ -5147,8 +5194,9 @@ def xlstm_phase(dev, record, counters):
         torch.cuda.synchronize()
         spans.append(1e3 * (time.perf_counter() - t0))
         return out
-    prefill = make_prefill_step(model, cache_len=XLSTM_SEQ + 1)
-    prompt = serve_mod.draw_prompt(cfg, 1, XLSTM_SEQ, 0).to(dev)
+    prefill = make_prefill_step(model, cache_len=XLSTM_TRACE_SEQ + 1)
+    prompt = serve_mod.draw_prompt(cfg, 1, XLSTM_SEQ, 0)[
+        :, :XLSTM_TRACE_SEQ].to(dev)
     XL.slstm_apply = timed_slstm
     try:
         wall = host_ms(lambda: prefill(*weights, prompt))
@@ -5156,10 +5204,12 @@ def xlstm_phase(dev, record, counters):
         XL.slstm_apply = plain_slstm
     rec.update(slstm_block_ms=spans, slstm_prefill_ms=wall,
                slstm_share_of_prefill=sum(spans) / wall)
-    log(f"[xlstm serve] inside one prefill of {XLSTM_SEQ} ({wall:.1f} ms, "
+    log(f"[xlstm serve] inside one prefill of {XLSTM_TRACE_SEQ} ({wall:.1f} "
+        f"ms, "
         f"each sLSTM block synchronized): the {len(spans)} sLSTM blocks "
         f"{sum(spans):.1f} ms ({100 * sum(spans) / wall:.1f} %; "
-        f"{sum(spans) * 1e3 / (len(spans) * XLSTM_SEQ):.1f} us per block "
+        f"{sum(spans) * 1e3 / (len(spans) * XLSTM_TRACE_SEQ):.1f} us per "
+        f"block "
         f"per token)")
     del weights, prompt
     torch.cuda.empty_cache()
@@ -5243,6 +5293,325 @@ def state_families_phase(dev, record, counters):
             total[k_name] = total.get(k_name, 0) + v
     family_smoke_phase(dev, record)
     return total, k8_zamba
+
+def _quiet(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with its standard output kept back."""
+    import io
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kwargs)
+
+
+def _counted(counters, where, fn, draws_words):
+    """``fn()`` with every counter set to 0 just before and read just
+    after: (result, launches without the draws)."""
+    import torch
+    for ctr in counters:
+        ctr.reset()
+    res = fn()
+    torch.cuda.synchronize()
+    launches = {ctr.name: ctr.count for ctr in counters}
+    take_draws(where, launches, draws_words=draws_words)
+    return res, launches
+
+
+def examples_phase(dev, record, counters):
+    """Phase 36: ``serve_batched`` for every smoke config and the
+    quickstart's training run and sweep, counted, against the CPU.
+    Returns the counted runs' launches."""
+    import torch
+    from repro_torch.configs import ALIASES, get_smoke_config
+    from repro_torch.experiments import quickstart, serve_batched
+    from repro_torch.models.hybrid import n_shared_applications
+    rec, total = {"serve_batched": {}}, {}
+
+    def add(launches):
+        for k_name, v in launches.items():
+            total[k_name] = total.get(k_name, 0) + v
+
+    for arch in EXAMPLE_ARCHS:
+        cfg = get_smoke_config(ALIASES[arch])
+        k8_want = (0 if cfg.family == "xlstm" else n_shared_applications(cfg)
+                   if cfg.family == "hybrid" else cfg.n_layers)
+        argv = ["--arch", arch]
+        t0 = time.perf_counter()
+        res, launches = _counted(counters, f"serve_batched {arch}", lambda:
+                                 _quiet(serve_batched.main,
+                                        argv + ["--device", "cuda"]), False)
+        card_s = time.perf_counter() - t0
+        want = {ctr.name: 0 for ctr in counters if ctr.name not in DRAW_NAMES}
+        want["flash_attention"] = k8_want
+        if launches != want:
+            fail(f"serve_batched {arch}: launches {launches}, expected {want}")
+        cpu = _quiet(serve_batched.main, argv + ["--device", "cpu"])
+        err = rel_l2(res.prefill_logits.cpu(), cpu.prefill_logits)
+        finite = bool(torch.isfinite(res.last_logits).all())
+        if not (err <= CUT_F32_LIMIT and finite):
+            fail(f"serve_batched {arch}: prefill logits card vs CPU relative "
+                 f"L2 {err:.3g} > {CUT_F32_LIMIT}, or non-finite logits")
+        add(launches)
+        rec["serve_batched"][arch] = {
+            "k8_launches": launches["flash_attention"], "rel_l2": err,
+            "wall_s": card_s, "prefill_ms": 1e3 * res.prefill_s,
+            "decode_ms_median": 1e3 * statistics.median(res.decode_s),
+            "tokens_equal_cpu": bool(torch.equal(res.tokens, cpu.tokens))}
+        log(f"[serve_batched] {arch}: {launches['flash_attention']} K8 "
+            f"launches, prefill logits card vs CPU relative L2 {err:.2e}, "
+            f"tokens {'equal' if rec['serve_batched'][arch]['tokens_equal_cpu'] else 'differ'}; "
+            f"prefill {1e3 * res.prefill_s:.1f} ms, decode "
+            f"{rec['serve_batched'][arch]['decode_ms_median']:.2f} ms a step")
+
+    # the quickstart's training run, counted; ω kept after its first
+    # QS_CHECK_ROUNDS rounds (a copy to the host, no launch)
+    from repro_torch.common.tree import tree_leaves
+    make_sim, snap = quickstart.quickstart_sim, {"rounds": 0}
+
+    def snapshot_sim(*args):
+        sim, batcher = make_sim(*args)
+        step = sim.step
+
+        def snapshot_step(state, *step_args):
+            state, m = step(state, *step_args)
+            snap["rounds"] += 1
+            if snap["rounds"] == QS_CHECK_ROUNDS:
+                snap["omega"] = [t.detach().cpu().clone()
+                                 for t in tree_leaves(state.omega)]
+            return state, m
+        sim.step = snapshot_step
+        return sim, batcher
+    quickstart.quickstart_sim = snapshot_sim
+    try:
+        t0 = time.perf_counter()
+        hist, launches = _counted(counters, "quickstart", lambda: _quiet(
+            quickstart.main, QS_ROUNDS, "cuda"), True)
+        qs_s = time.perf_counter() - t0
+    finally:
+        quickstart.quickstart_sim = make_sim
+    want = {ctr.name: 0 for ctr in counters if ctr.name not in DRAW_NAMES}
+    want.update(ota_client_fold=10 * QS_ROUNDS, masked_gradnorm=QS_ROUNDS)
+    if launches != want:
+        fail(f"quickstart: launches {launches}, expected {want}")
+    add(launches)
+    first = hist[0]["loss"].mean(axis=0)
+    last = hist[-1]["loss"].mean(axis=0)
+    if not (np_all_finite([h["loss"] for h in hist]) and (last < first).all()):
+        fail(f"quickstart: per-task loss {first} -> {last} does not fall")
+    # the counted run's first rounds against the CPU's, ω after them
+    t0 = time.perf_counter()
+    cpu = _quiet(quickstart.main, QS_CHECK_ROUNDS, "cpu")
+    cpu_s = time.perf_counter() - t0
+    worst = 0.0
+    for r, (a, b) in enumerate(zip(hist[:QS_CHECK_ROUNDS], cpu)):
+        for k_name in ("loss", "p"):
+            e = float(abs(a[k_name] - b[k_name]).max()
+                      / max(abs(b[k_name]).max(), 1e-30))
+            worst = max(worst, e)
+            if not all_close(a[k_name], b[k_name], 1e-4):
+                fail(f"quickstart round {r} {k_name}: card vs CPU beyond "
+                     f"rtol 1e-4")
+    om = rel_l2(torch.cat([t.reshape(-1) for t in snap["omega"]]),
+                torch.cat([t.reshape(-1) for t in tree_leaves(
+                    cpu[-1]["state"].omega)]))
+    if om > 1e-3:
+        fail(f"quickstart: ω card vs CPU relative L2 {om:.3g} > 1e-3")
+    # the sweep, counted
+    t0 = time.perf_counter()
+    sweep, launches = _counted(counters, "quickstart sweep", lambda: _quiet(
+        quickstart.sweep, QS_SWEEP_ROUNDS, "cuda"), True)
+    sweep_s = time.perf_counter() - t0
+    if not (launches["ota_client_fold"] and torch.isfinite(
+            sweep["loss"]).all()):
+        fail(f"quickstart sweep: launches {launches} or non-finite losses")
+    add(launches)
+    rec.update(quickstart={
+        "rounds": QS_ROUNDS, "launches": dict(want), "wall_s": qs_s,
+        "loss_first": first.tolist(), "loss_last": last.tolist(),
+        "check_rounds": QS_CHECK_ROUNDS, "max_rel_err": worst,
+        "omega_rel_l2": om, "cpu_s": cpu_s},
+        sweep={"rounds": QS_SWEEP_ROUNDS, "launches": launches,
+               "wall_s": sweep_s,
+               "loss_last": sweep["loss"][-1].mean(dim=(1, 2)).tolist()})
+    log(f"[quickstart] {QS_ROUNDS} rounds in {qs_s:.1f} s (counted: "
+        f"{want['ota_client_fold']} K1, {want['masked_gradnorm']} K2); loss "
+        f"per task {[round(float(v), 3) for v in first]} -> "
+        f"{[round(float(v), 3) for v in last]}; first {QS_CHECK_ROUNDS} "
+        f"rounds card vs CPU within {worst:.2e} (loss, p), ω relative L2 "
+        f"{om:.2e}; sweep {QS_SWEEP_ROUNDS} rounds x 3 scenarios in "
+        f"{sweep_s:.1f} s, last mean losses "
+        f"{[round(v, 3) for v in rec['sweep']['loss_last']]}")
+    record["examples"] = rec
+    return total
+
+
+def np_all_finite(arrays) -> bool:
+    import numpy as np
+    return all(bool(np.isfinite(a).all()) for a in arrays)
+
+
+def all_close(a, b, rtol) -> bool:
+    import numpy as np
+    return bool(np.allclose(a, b, rtol=rtol, atol=0.0))
+
+
+def cost_model_phase(dev, record):
+    """Phase 37: the dry run's serve step on a one-rank mesh, traced on
+    ``meta`` and run for real on the card, StarCoder2-3B at full width in
+    bf16: prefill B=1 x ``K8_SEQ`` and one decode step against a cache of
+    ``K8_SEQ``; then its train step (``cost_model_train``)."""
+    import torch
+    from repro_torch import rng
+    from repro_torch.common.config import InputShape
+    from repro_torch.common.tree import tree_cast
+    from repro_torch.launch import cost_analysis, dryrun, op_cost
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import init_params
+    from repro_torch.sharding.mesh_utils import Mesh
+    cfg = sc2_config()
+    mesh = Mesh((1, 1), ("data", "model"), device=dev)
+    model = build_model(cfg.replace(**dryrun.SERVE_ARCH_OVERRIDES))
+    key = rng.PRNGKey(37)
+    weights = tree_cast({"trunk": init_params(model.trunk_specs(), key,
+                                              device=dev),
+                         "final": init_params(model.final_specs(), key,
+                                              device=dev),
+                         "head": init_params(model.head_specs(), key,
+                                             device=dev)}, torch.bfloat16)
+    torch.cuda.empty_cache()
+    backbone = {"trunk": weights["trunk"], "final": weights["final"]}
+    out = {}
+    for shape in (InputShape("prefill_8k", K8_SEQ, 1, "prefill"),
+                  InputShape("decode_8k", K8_SEQ, 1, "decode")):
+        step, meta_args, _ = dryrun.serve_setup(cfg, mesh, shape)
+        _, want = op_cost.trace(step, *meta_args, device="meta")
+        if shape.kind == "prefill":
+            args = (backbone, weights["head"], rng.randint(
+                key, (1, K8_SEQ), 0, cfg.vocab_size).to(dev))
+        else:
+            args = (backbone, weights["head"],
+                    model.init_cache(1, K8_SEQ, torch.bfloat16, device=dev),
+                    torch.ones((1, 1), dtype=torch.int32, device=dev),
+                    torch.full((1,), K8_SEQ - 1, dtype=torch.int32,
+                               device=dev))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        _, got = op_cost.trace(step, *args, device="cuda")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        measured = got.argument_bytes + peak
+        iters = (COST_PREFILL_ITERS if shape.kind == "prefill"
+                 else COST_DECODE_ITERS)
+        times = []
+        for _ in range(iters):
+            times.append(host_ms(lambda: step(*args)))
+        ms = statistics.median(times)
+        roof = cost_analysis.extract_roofline(want)
+        rec = {"argument_bytes": want.argument_bytes,
+               "argument_bytes_card": got.argument_bytes,
+               "flops": want.flops, "flops_card": got.flops,
+               "temp_bytes": want.temp_bytes,
+               "temp_bytes_card_trace": got.temp_bytes,
+               "predicted_bytes": want.total_bytes,
+               "measured_bytes": measured, "peak_above_resident": peak,
+               "bytes_major": want.bytes_major, "bytes_all": want.bytes,
+               "n_ops": want.n_ops, "n_ops_card": got.n_ops,
+               "ms": ms, "ms_all": times,
+               "compute_s": roof.compute_s, "memory_s": roof.memory_s,
+               "compute_share": roof.compute_s / (ms / 1e3),
+               "memory_share": roof.memory_s / (ms / 1e3)}
+        rec["peak_rel_err"] = (want.total_bytes - measured) / measured
+        out[shape.name] = rec
+        log(f"[cost model] {shape.name}: argument bytes meta "
+            f"{want.argument_bytes} card {got.argument_bytes}; FLOPs meta "
+            f"{want.flops:.6e} card {got.flops:.6e}; argument + temp "
+            f"{want.total_bytes / 1e9:.4f} GB against the card's "
+            f"{measured / 1e9:.4f} GB ({100 * rec['peak_rel_err']:+.2f} %); "
+            f"{ms:.3f} ms, compute term {1e3 * roof.compute_s:.3f} ms "
+            f"({100 * rec['compute_share']:.1f} %), memory term "
+            f"{1e3 * roof.memory_s:.3f} ms ({100 * rec['memory_share']:.1f} "
+            f"%)")
+        if got.argument_bytes != want.argument_bytes:
+            fail(f"cost model {shape.name}: argument bytes meta "
+                 f"{want.argument_bytes} != card {got.argument_bytes}")
+        if got.flops != want.flops:
+            fail(f"cost model {shape.name}: FLOPs meta {want.flops} != card "
+                 f"{got.flops}")
+        if abs(rec["peak_rel_err"]) > COST_PEAK_TOL:
+            fail(f"cost model {shape.name}: argument + temp "
+                 f"{want.total_bytes} vs the card's {measured}, beyond "
+                 f"{COST_PEAK_TOL:.0%}")
+        del args
+    del weights, backbone
+    torch.cuda.empty_cache()
+    out["train_step"] = cost_model_train(dev)
+    record["cost_model"] = out
+
+
+def cost_model_train(dev):
+    """Phase 37's train step: the dry run's train step (``count_mode``
+    "local", bf16 compute) on a one-rank mesh at ``COST_TRAIN_ARCH``'s
+    smoke config, traced on ``meta`` and run on the card under the same
+    mode. The two must count the same FLOPs and the same launches of
+    every kernel, and the card's launches must be its wrappers' counts."""
+    import torch
+    from repro_torch import rng
+    from repro_torch.common.config import FLConfig, TrainConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.hota_step import make_hota_step_parts
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as k8
+    from repro_torch.kernels.masked_gradnorm import ops as k2
+    from repro_torch.kernels.ota_channel import ops as k1
+    from repro_torch.kernels.ota_channel import ref as k1_ref
+    from repro_torch.launch import dryrun, op_cost
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding.mesh_utils import Mesh
+    ctrs = [v for mod in (k1, k2, k8, k1_ref) for v in vars(mod).values()
+            if isinstance(v, _build.LaunchCounter)]
+    cfg = get_smoke_config(COST_TRAIN_ARCH).replace(
+        **dryrun.TRAIN_ARCH_OVERRIDES)
+    model = build_model(cfg)
+    b, s, n_mb = COST_TRAIN_SHAPE
+    fl = FLConfig(n_clients=1, ota_mode="scatter", microbatches=n_mb)
+    tcfg = TrainConfig(lr=3e-4, global_batch=b, seq_len=s, fl=fl)
+    got = {}
+    for d in ("meta", dev):
+        mesh = Mesh((1, 1, 1), ("cluster", "client", "model"), device=d)
+        parts = make_hota_step_parts(model, mesh, fl, tcfg, loss_kind="lm",
+                                     count_mode="local")
+        if d == "meta":
+            state = parts.abstract_fn()._replace(
+                step=torch.zeros((), dtype=torch.int32))
+            tokens = torch.empty(b, s, dtype=torch.int32, device="meta")
+        else:
+            state = parts.init_fn(rng.PRNGKey(37))
+            tokens = rng.randint(rng.PRNGKey(38), (b, s), 0,
+                                 cfg.vocab_size).to(dev)
+            torch.cuda.synchronize()
+        for ctr in ctrs:
+            ctr.reset()
+        _, tot = op_cost.trace(
+            lambda st, x, y, k: parts.step(st, x, y, k, parts.chan_all, None),
+            state, tokens, tokens, rng.PRNGKey(0), device=d)
+        counted = {c.name: c.count for c in ctrs if c.count}
+        got["meta" if d == "meta" else "card"] = (tot, counted)
+    (want, _), (card, counted) = got["meta"], got["card"]
+    rec = {"arch": COST_TRAIN_ARCH, "shape": list(COST_TRAIN_SHAPE),
+           "flops": want.flops, "flops_card": card.flops,
+           "dot_flops": want.dot_flops, "kernel_flops": want.kernel_flops,
+           "launches": want.kernels, "launches_card": card.kernels,
+           "counted_card": counted}
+    log(f"[cost model] train step ({COST_TRAIN_ARCH} smoke, B, S, "
+        f"microbatches = {COST_TRAIN_SHAPE}): FLOPs meta {want.flops:.6e} "
+        f"card {card.flops:.6e}; launches meta {want.kernels}, card "
+        f"{card.kernels}, counted {counted}")
+    if card.flops != want.flops:
+        fail(f"cost model train step: FLOPs meta {want.flops} != card "
+             f"{card.flops}")
+    if not (want.kernels == card.kernels == counted and counted):
+        fail(f"cost model train step: launches meta {want.kernels}, card "
+             f"{card.kernels}, counted {counted}")
+    return rec
+
 
 def _stop_children() -> None:
     """Stop the ranks' fork server and its resource tracker (they would
@@ -5838,6 +6207,16 @@ def main() -> None:
         total[k_name] = total.get(k_name, 0) + v
     k8_new["zamba2_layer"] = k8_zamba
     lap("35")
+
+    # --- 36. the examples on the card ---------------------------------------
+    got = examples_phase(dev, record, counters + (k8.counter,))
+    for k_name, v in got.items():
+        total[k_name] = total.get(k_name, 0) + v
+    lap("36")
+
+    # --- 37. the dry run's cost model against the card ----------------------
+    cost_model_phase(dev, record)
+    lap("37")
     if "jax" in sys.modules or "repro" in sys.modules:
         fail("the JAX package was imported")
 

@@ -4,8 +4,9 @@
 ``FLConfig`` describes the HOTA-FedGradNorm topology and channel,
 ``ModelConfig`` a backbone (the port builds the ``mlp`` family and the
 dense LM family with its MoE layer), ``TrainConfig`` the step-level
-knobs, ``InputShape`` and ``INPUT_SHAPES`` the assigned input shapes
-(``launch.steps.input_specs``). Field names, defaults and
+knobs, ``ServeConfig`` and ``MeshConfig`` a serving run and a production
+mesh, ``InputShape`` and ``INPUT_SHAPES`` the assigned input shapes
+(``launch.steps.input_specs``, the dry run). Field names, defaults and
 meanings are the reference's, so a config written for one package means
 the same thing to the other.
 """
@@ -199,6 +200,21 @@ class TrainConfig:
     steps: int = 100
     seed: int = 0
     fl: FLConfig = field(default_factory=FLConfig)
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    batch: int = 8
+    prefill_len: int = 128
+    cache_len: int = 256
+    param_dtype: str = "bfloat16"
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+    multi_pod: bool = False
 
 
 # --- input shapes assigned to this paper ------------------------------------

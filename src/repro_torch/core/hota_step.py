@@ -308,8 +308,9 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
         final_fsdp = [_fsdp_axis_full(ax) for ax in registry["final"]]
 
     loss_fn = chunked_lm_loss if loss_kind == "lm" else cls_head_loss
-    # the LM's inputs are token ids (the embedding gathers long ids), the
-    # MLP's features
+    # the LM's inputs are token ids (the embedding gathers long ids), or
+    # the vision stub frontend's float embeddings, kept as they come (the
+    # reference's step takes either); the MLP's features float32
     input_dtype = torch.int64 if model.is_lm else torch.float32
 
     # ---------------- layouts ----------------
@@ -398,7 +399,9 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
         chan = ChannelParams(*[torch.as_tensor(f, dtype=torch.float32,
                                                device=dev) for f in chan])
         chan_c = cluster_channel(chan, cidx)
-        tokens = torch.as_tensor(tokens).to(device=dev, dtype=input_dtype)
+        tokens = torch.as_tensor(tokens)
+        tokens = tokens.to(device=dev, dtype=tokens.dtype if (
+            model.is_lm and tokens.is_floating_point()) else input_dtype)
         labels = torch.as_tensor(labels).to(device=dev, dtype=torch.int64)
         head = tree_map(lambda a: a[0], state.heads)
         head_opt = AdamState(step=state.head_opt.step,
@@ -560,7 +563,9 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
             raise ValueError(f"a local batch of {b_loc} does not split into "
                              f"{n_mb} microbatches")
         om = _requires_grad(state.omega)
-        hd = _requires_grad(head)
+        # the head's phase-C gradient is read only when τ_h = 0 (the
+        # reference's is dead code that XLA drops otherwise)
+        hd = _requires_grad(head) if fl.tau_h == 0 else head
         n_om = len(tree_leaves(om))
         g_sum, loss_sum = None, None
         for tok_mb, lab_mb in zip(tokens.chunk(n_mb), labels.chunk(n_mb)):
@@ -577,8 +582,8 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
                     ff = leaf_hook(om["final"], "final")
                 loss = loss_fn(hd, model.head_apply,
                                model.final_apply(ff, h), lab_mb) + aux
-                g = torch.autograd.grad(loss, tree_leaves(om)
-                                        + tree_leaves(hd))
+                g = torch.autograd.grad(loss, tree_leaves(om) + (
+                    tree_leaves(hd) if fl.tau_h == 0 else []))
             g_sum = list(g) if g_sum is None else [
                 a + b for a, b in zip(g_sum, g)]
             loss_sum = loss.detach() if loss_sum is None else (
@@ -587,7 +592,6 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
             g_sum = [x / n_mb for x in g_sum]
             loss_sum = loss_sum / n_mb
         g_omega = tree_unflatten(om, g_sum[:n_om])
-        g_head = tree_unflatten(hd, g_sum[n_om:])
 
         # the PS update on this rank's shards: the slab view, or the tree
         # Adam of the per-leaf oracle
@@ -598,7 +602,8 @@ def make_hota_step_parts(model: Model, mesh: Mesh, fl: FLConfig,
         # Alg. 1 trains heads in the τ_h phase only; with τ_h = 0 they
         # train on the phase-C gradient instead, for every scenario
         if fl.tau_h == 0:
-            head, head_opt = adam_update(g_head, head_opt, head, tcfg.lr)
+            head, head_opt = adam_update(tree_unflatten(hd, g_sum[n_om:]),
+                                         head_opt, head, tcfg.lr)
         if partc is not None:
             # a non-participant keeps its head and moments (the head Adam
             # step counter stays uniform across the ranks)

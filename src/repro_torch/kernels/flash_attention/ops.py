@@ -8,7 +8,10 @@ self-attention with an optional sliding window, q (B, S, H, D) and k, v
 scratch; the reference's wrapper takes ``pos_q``/``pos_kv`` and does not
 read them, this one does not take them). For CPU tensors it
 runs the plain version (``ref.py``); for CUDA tensors it launches
-``csrc/flash_attention.cu`` once for the whole (B, H, S) or raises.
+``csrc/flash_attention.cu`` once for the whole (B, H, S) or raises. A
+running cost trace records each launch (``common.cost_trace``); on
+``meta`` tensors inside one (the dry run) the kernel is recorded and not
+run, and outside one they raise.
 
 Which kernel runs is a rule of the shape (``kernel_for``), not a
 fallback: bfloat16 at a head dim that is a multiple of 16 from 64 to 256
@@ -25,6 +28,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.common.cost_trace import kernel_launch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -79,6 +83,10 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"tensor of shape {shape}")
     if out.numel() == 0:
         return out
+    if not kernel_launch("flash_attention",
+                         4 * d * attention_pairs(s, window) * b * h,
+                         (q, k, v), (out,)):
+        return out
     if kernel == "hopper" and (any(t.data_ptr() % 16 for t in (q, k, v))
                                or out.data_ptr() % 4):
         raise ValueError("the Hopper kernel reads q, k, v by TMA from "
@@ -94,6 +102,15 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def attention_pairs(s: int, window: Optional[int]) -> int:
+    """(query, key) pairs a causal attention over ``s`` positions scores,
+    with an optional sliding window: K8's bound counts 4·D FLOPs per pair
+    and query head (QKᵀ and PV)."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None) -> torch.Tensor:
     """Causal self-attention, q (B, S, H, D), k, v (B, S, KV, D)."""
@@ -106,7 +123,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"window must be >= 1, got {window}")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     return launch(q, k, v, torch.empty_like(q), window)

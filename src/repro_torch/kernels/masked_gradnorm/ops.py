@@ -5,7 +5,9 @@
 g (C, T, P) and one mask row per cluster (C, P) give (C, T) norms in one
 launch. The reference's 2-D form, g (T, P) with mask (P,), is accepted too.
 For CPU tensors it runs the plain version; for CUDA tensors it launches
-``csrc/masked_gradnorm.cu`` or raises. The kernel splits each row over
+``csrc/masked_gradnorm.cu`` or raises; a running cost trace records
+each launch (on ``meta`` tensors, the dry run's, without running it:
+``common.cost_trace``). The kernel splits each row over
 ``splits(...)`` blocks and adds their partials in a fixed order, so its
 result is the same from launch to launch.
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.common.cost_trace import kernel_launch
 from repro_torch.kernels import _build
 from repro_torch.kernels.masked_gradnorm.ref import masked_gradnorm_ref
 
@@ -57,7 +60,8 @@ def launch(g: torch.Tensor, mask: torch.Tensor,
     n_clusters, n_tasks, p = g.shape
     _check(g, mask, out)
     rows = n_clusters * n_tasks
-    if rows == 0:
+    if rows == 0 or not kernel_launch("masked_gradnorm", 0.0, (g, mask),
+                                      (out,)):
         return out
     n_split = splits(rows, p, _build.sm_count(g.device))
     partial = torch.empty(rows * n_split, dtype=torch.float32,
@@ -97,7 +101,7 @@ def masked_gradnorm(g: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
                          f"expected (C, T, P) and (C, P)")
     if g.device.type == "cpu":
         return masked_gradnorm_ref(g, mask)
-    if g.device.type != "cuda":
+    if g.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {g.device}")
     out = torch.empty(g.shape[:2], dtype=torch.float32, device=g.device)
     return launch(g, mask, out)

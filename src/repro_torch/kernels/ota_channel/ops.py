@@ -32,13 +32,20 @@ Ports of ``repro.kernels.ota_channel.ops``:
   engine draws its words through these.
 
 For CPU tensors (or a draw on the host) each runs its plain version
-(``ref``); for CUDA tensors it launches its kernel or raises.
+(``ref``); for CUDA tensors it launches its kernel or raises. A running
+cost trace records each launch (``common.cost_trace``; K1 and K5 with
+the float operations their bounds count, the byte-bound others with
+none); on ``meta`` tensors inside one (the dry run) a wrapper runs its
+card path's torch ops and records its kernel without running it, and
+outside one they raise. The packed engine's ``_ota_aggregate_fused_impl``
+takes the card or the CPU only.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import rng
+from repro_torch.common.cost_trace import kernel_launch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ota_channel.ref import (
     CHUNK, ota_aggregate_client_ref, ota_aggregate_fused_ref,
@@ -120,7 +127,10 @@ def launch(flat: torch.Tensor, bits: torch.Tensor, nbits: torch.Tensor,
     if smem > _SMEM_LIMIT:
         raise ValueError(f"C={n_clusters}, N={n_clients} needs {smem} bytes "
                          f"of shared memory for the params row")
-    if n == 0:
+    if n == 0 or not kernel_launch(
+            "ota_client_fold", n * (2 * n_clusters * n_clients
+                                    + 4 * n_clusters + 30),
+            (flat, bits, nbits, params, p_pass), (out,)):
         return out
     grid = max(1, min(-(-n // BLOCK), BLOCKS_PER_SM * _build.sm_count(dev)))
     err = _build.library().ota_client_fold_f32(
@@ -158,7 +168,7 @@ def ota_client_fold_apply(g: torch.Tensor, p: torch.Tensor,
                                        noise_std, ota_on, n_clients,
                                        live=live, n_eff=n_eff)
         return out.reshape(shape)
-    if g.device.type != "cuda":
+    if g.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {g.device}")
     dev = g.device
     params = client_params(p, sigma2, h_th, noise_std, ota_on, n_clusters,
@@ -201,7 +211,8 @@ def launch_mask_weight(x: torch.Tensor, bits: torch.Tensor,
                              f"tensor of {size} elements")
     if not 0 < rows <= 65535:
         raise ValueError(f"{rows} rows: the kernel takes 1 to 65535")
-    if n == 0:
+    if n == 0 or not kernel_launch("ota_mask_weight", 3 * rows * n,
+                                   (x, bits, params, p_pass), (out, mask)):
         return out, mask
     grid = max(1, min(-(-n // BLOCK),
                       -(-BLOCKS_PER_SM * _build.sm_count(dev) // rows)))
@@ -230,7 +241,7 @@ def ota_mask_weight_apply(x: torch.Tensor, bits: torch.Tensor, sigma2, h_th,
     if x.device.type == "cpu":
         return ota_mask_weight_ref(x, b.reshape(x.shape), sigma2, h_th,
                                    ota_on, weight)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {x.device}")
     dev = x.device
     params = mask_weight_params(sigma2, h_th, ota_on, weight, device=dev)
@@ -263,7 +274,7 @@ def ota_stream_fold_apply(g: torch.Tensor, p_c: torch.Tensor,
         y, cnt = ota_stream_fold_ref(flat, p_c, bits, sigma2_c, h_th,
                                      ota_on, live_c=live_c)
         return y.reshape(shape), cnt.reshape(shape)
-    if g.device.type != "cuda":
+    if g.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {g.device}")
     wg = torch.matmul(p_c.to(torch.float32).reshape(n_cl),
                       flat.to(torch.float32))
@@ -325,7 +336,8 @@ def launch_aggregate(wg: torch.Tensor, bits: torch.Tensor,
     _check_aggregate_operands(wg, params, p_pass, out)
     _check_rows("bits", bits, (n_clusters, n), torch.int32, dev)
     _check_rows("nbits", nbits, (n,), torch.int32, dev)
-    if n == 0:
+    if n == 0 or not kernel_launch("ota_aggregate", 0.0,
+                                   (wg, bits, nbits, params, p_pass), (out,)):
         return out
     grid = max(1, min(-(-n // BLOCK), BLOCKS_PER_SM * _build.sm_count(dev)))
     err = _build.library().ota_aggregate_f32(
@@ -349,7 +361,8 @@ def launch_aggregate_fused(wg: torch.Tensor, keys, params: torch.Tensor,
     n_clusters, n = wg.shape
     _check_aggregate_operands(wg, params, p_pass, out)
     k = [int(v) for v in rng.as_key(keys).reshape(4).tolist()]
-    if n == 0:
+    if n == 0 or not kernel_launch("ota_aggregate_fused", 0.0,
+                                   (wg, params, p_pass), (out,)):
         return out
     err = _build.library().ota_aggregate_fused_f32(
         wg.data_ptr(), wg.stride(0), k[0], k[1], k[2], k[3],
@@ -366,14 +379,14 @@ def launch_aggregate_fused(wg: torch.Tensor, keys, params: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def _draw_device(device):
-    """None for the host (the plain draw), else the CUDA device to draw on;
-    raises on any other device."""
+    """None for the host (the plain draw), else the CUDA device to draw on
+    (or ``meta`` inside a cost trace); raises on any other device."""
     if device is None:
         return None
     dev = torch.device(device)
     if dev.type == "cpu":
         return None
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 
@@ -394,7 +407,8 @@ def launch_chunked(keys: torch.Tensor, start: int, out: torch.Tensor):
     _check_draw(keys, out, n_keys)
     if start < 0:
         raise ValueError(f"range [{start}, {start} + {length}) of a stream")
-    if n_keys and length:
+    if n_keys and length and kernel_launch("threefry_chunked", 0.0, (keys,),
+                                           (out,)):
         err = _build.library().threefry_chunked_u32(
             keys.data_ptr(), n_keys, int(start), int(length), out.stride(0),
             int(rng.threefry_partitionable()), out.data_ptr(),
@@ -415,7 +429,8 @@ def launch_flat(keys: torch.Tensor, out: torch.Tensor):
     _check_draw(keys, out, n_keys)
     if n >= rng.MASK32:
         raise ValueError(f"bits: n={n} needs the blocked draw of 2**32 words")
-    if n_keys and n:
+    if n_keys and n and kernel_launch("threefry_flat", 0.0, (keys,),
+                                      (out,)):
         err = _build.library().threefry_flat_u32(
             keys.data_ptr(), n_keys, int(n), out.stride(0),
             int(rng.threefry_partitionable()), out.data_ptr(),
@@ -509,7 +524,7 @@ def ota_aggregate(wg: torch.Tensor, bits: torch.Tensor, nbits: torch.Tensor,
     if wg.device.type == "cpu":
         return ota_aggregate_slab_ref(wg, bits, nbits, sigma2, h_th,
                                       noise_std, ota_on, n_clients)
-    if wg.device.type != "cuda":
+    if wg.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {wg.device}")
     dev = wg.device
     params = aggregate_params(sigma2, h_th, noise_std, ota_on, n_clusters,
@@ -615,7 +630,8 @@ def launch_mask_count(x: torch.Tensor, bits: torch.Tensor,
     if 8 * n_clusters > _SMEM_LIMIT:
         raise ValueError(f"C={n_clusters} clusters do not fit the shared "
                          f"memory of one block")
-    if n == 0:
+    if n == 0 or not kernel_launch("ota_mask_count", 0.0,
+                                   (x, bits, params, p_pass), (out, cnt)):
         return out, cnt
     grid = max(1, min(-(-n // BLOCK), BLOCKS_PER_SM * _build.sm_count(dev)))
     err = _build.library().ota_mask_count_f32(
@@ -649,7 +665,7 @@ def ota_mask_count_apply(x: torch.Tensor, bits_all: torch.Tensor, me: int,
         out, cnt = ota_mask_count_ref(flat, bits_all, me, sigma2_all, h_th,
                                       ota_on, weight, live_all=live_all)
         return out.reshape(x.shape), cnt.reshape(x.shape)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {x.device}")
     dev = x.device
     params = mask_count_params(sigma2_all, h_th, ota_on, weight, me,
@@ -691,7 +707,8 @@ def launch_channel(x: torch.Tensor, bits: torch.Tensor,
                 or t.numel() != size):
             raise ValueError(f"{name} must be a contiguous {dtype} CUDA "
                              f"tensor of {size} elements")
-    if n == 0:
+    if n == 0 or not kernel_launch("ota_channel", 0.0, (x, bits, params),
+                                   (out, mask)):
         return out, mask
     grid = max(1, min(-(-n // BLOCK), BLOCKS_PER_SM * _build.sm_count(dev)))
     err = _build.library().ota_channel_f32(
@@ -713,7 +730,7 @@ def _ota_channel_impl(x: torch.Tensor, bits: torch.Tensor, sigma2, h_th,
     if x.device.type == "cpu":
         out, mask, _ = ota_channel_ref(x, bits, sigma2, h_th, ota_on)
         return out, mask
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype != torch.float32:
         raise ValueError(f"K7 takes float32, got {x.dtype}")

@@ -13,6 +13,10 @@ context. A mesh may carry axes besides the FL ones (the training
 launcher's "model" axis): every axis subset gets its groups, so a
 collective over the FL axes stays inside one slice of the others.
 
+``make_production_mesh`` is the reference's (16, 16) or (2, 16, 16)
+mesh of 256 or 512 cards as an abstract mesh on the ``meta`` device,
+which the dry run (``launch.dryrun``) traces one rank's step on.
+
 The scenario meshes: ``make_scenario_mesh`` lays a 1-D ("scenario",) mesh
 over the world (``ShardedScenarioBank``), ``make_dist_scenario_mesh`` a
 ("scenario", "cluster", "client") one (``DistScenarioBank``), both on the
@@ -45,6 +49,20 @@ DEFAULT_TIMEOUT_S = 300
 # what every rank imports, loaded once in the fork server that starts
 # the ranks
 _PRELOAD = ("torch", "repro_torch.core.sweep", "repro_torch.core.paper_setup")
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production meshes as an abstract ``Mesh`` (rank 0's
+    view, no process groups): (16, 16) ("data", "model") = 256 H100s, or
+    with ``multi_pod`` (2, 16, 16) ("pod", "data", "model") = 512. Its
+    device is ``meta``: the dry run traces one rank's step on it without
+    storage, its collectives recorded and not run
+    (``sharding.collectives``). ``sharding.fl_view`` refines its "data"
+    axis into ("cluster", "client") over the same ranks in the same
+    order."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(shape, axes, rank=0, device="meta")
 
 
 def pick_backend(device, world_size: int) -> str:

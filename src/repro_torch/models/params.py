@@ -133,8 +133,9 @@ def logical_axes(specs):
     return tree_unflatten(specs, [axes(s) for s in tree_leaves(specs)])
 
 
-def abstract_params(specs):
-    """Storage-free float32 stand-ins (``meta`` tensors) of the leaves."""
+def abstract_params(specs, dtype=torch.float32):
+    """Storage-free stand-ins (``meta`` tensors) of the leaves, float32
+    unless ``dtype`` says otherwise."""
     return tree_unflatten(specs, [
-        torch.empty(s.shape, dtype=torch.float32, device="meta")
+        torch.empty(s.shape, dtype=dtype, device="meta")
         for s in tree_leaves(specs)])

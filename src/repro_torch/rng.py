@@ -27,6 +27,8 @@ chunk keys draws its streams in one batched call.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -158,7 +160,28 @@ def bits(key, n: int, device=None) -> torch.Tensor:
     if device is not None:
         key = key.to(device)
     k0, k1 = key[..., 0, None], key[..., 1, None]
-    idx = torch.arange(n, dtype=torch.int64, device=key.device)
+    if key.device.type != "cpu":
+        return _bits_range(k0, k1, 0, n, n)
+    # on the host, a block of counters at a time, _HOST_BLOCK words (over
+    # all keys) per intra-op thread: the hash's ~100 elementwise passes
+    # then stay in each core's cache instead of streaming the whole
+    # (..., n) words through memory, and each pass is still large enough
+    # to be worth splitting over the threads
+    lead = tuple(key.shape[:-1])
+    out = torch.empty(lead + (n,), dtype=torch.int32)
+    step = max(_HOST_BLOCK * torch.get_num_threads()
+               // max(math.prod(lead), 1), 1024)
+    for j in range(0, n, step):
+        out[..., j:j + step] = _bits_range(k0, k1, j, min(j + step, n), n)
+    return out
+
+
+_HOST_BLOCK = 1 << 16     # host draw: words per pass and thread (all keys)
+
+
+def _bits_range(k0, k1, start: int, stop: int, n: int) -> torch.Tensor:
+    """Words [start, stop) of ``bits(key, n)`` (see ``bits``)."""
+    idx = torch.arange(start, stop, dtype=torch.int64, device=k0.device)
     if threefry_partitionable():
         y0, y1 = threefry2x32(k0, k1, torch.zeros_like(idx), idx)
         y0 ^= y1

@@ -15,6 +15,13 @@ gloo through its own host buffers (``chip_smoke.py`` checks that gloo
 does). ``gather_to_host`` stages through the host under gloo, whose
 gather takes host tensors only.
 
+On a mesh without process groups whose device is ``meta`` (the dry
+run's ``launch.mesh.make_production_mesh``), a collective runs nothing:
+it records its kind, calls and result bytes in ``mesh.stats`` (when set)
+and in the running cost trace (``common.cost_trace``), and returns a
+``meta`` tensor of its result's shape, so one rank's step traces without
+its peers.
+
 The sweep banks' collectives over the "scenario" axis:
 ``all_gather_rows`` gathers a rank's (S/n, ...) metric rows of any
 dtypes into the global (S, ...) ones in one call, ``broadcast`` hands one
@@ -29,13 +36,16 @@ from typing import Dict, List, Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch.common import cost_trace
 from repro_torch.sharding.mesh_utils import Mesh, _names
 
 
 class MeshStats:
     """Wall seconds, calls and bytes of a rank's timed work, by kind:
     "collective" (every collective here) and "draw" (the stream draws of
-    the slab backward, ``core.hota_slab``)."""
+    the slab backward, ``core.hota_slab``); on a dry mesh the calls and
+    result bytes of each collective by its kind ("all-reduce",
+    "all-gather", "reduce-scatter", "broadcast", "gather")."""
 
     def __init__(self):
         self.seconds: Dict[str, float] = {}
@@ -62,6 +72,23 @@ def timed(mesh: Mesh, kind: str, nbytes: int, fn):
     return out
 
 
+def _dry(mesh: Mesh) -> bool:
+    """Whether collectives on ``mesh`` are recorded, not run (see the
+    module docstring)."""
+    return mesh.groups is None and mesh.device.type == "meta"
+
+
+def _dry_run(mesh: Mesh, kind: str, src: torch.Tensor, shape=None,
+             dtype=None) -> torch.Tensor:
+    out = cost_trace.collective_on_meta(kind, src, shape, dtype)
+    st = mesh.stats
+    if st is not None:
+        st.calls[kind] = st.calls.get(kind, 0) + 1
+        st.bytes[kind] = st.bytes.get(kind, 0) + out.numel() * \
+            out.element_size()
+    return out
+
+
 def psum(x: torch.Tensor, mesh: Mesh, axes, op=None) -> torch.Tensor:
     """Sum of ``x`` over the ranks along ``axes``: reduces the contiguous
     tensor ``x`` in place and returns it."""
@@ -69,6 +96,8 @@ def psum(x: torch.Tensor, mesh: Mesh, axes, op=None) -> torch.Tensor:
         return x
     if not x.is_contiguous():
         raise ValueError("psum reduces in place: pass a contiguous tensor")
+    if _dry(mesh):
+        return _dry_run(mesh, "all-reduce", x)
     group, _ = mesh.group(axes)
     op = dist.ReduceOp.SUM if op is None else op
     timed(mesh, "collective", x.numel() * x.element_size(),
@@ -99,6 +128,10 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:
     order."""
     if not _names(axes) or mesh.axis_size(axes) == 1:
         return x
+    if _dry(mesh):
+        shape = list(x.shape)
+        shape[dim] *= mesh.axis_size(axes)
+        return _dry_run(mesh, "all-gather", x, shape)
     group, members = mesh.group(axes)
     k = len(members)
     src = x.contiguous().reshape(-1)
@@ -118,13 +151,15 @@ def reduce_scatter(x: torch.Tensor, mesh: Mesh, axes,
     piece along ``dim`` at its index along ``axes``."""
     if not _names(axes) or mesh.axis_size(axes) == 1:
         return x
-    group, members = mesh.group(axes)
-    k = len(members)
+    k = mesh.axis_size(axes)
     shape = list(x.shape)
     if shape[dim] % k:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
                          f"into {k} pieces")
     shape[dim] //= k
+    if _dry(mesh):
+        return _dry_run(mesh, "reduce-scatter", x, shape)
+    group, members = mesh.group(axes)
     pieces = x.movedim(dim, 0).reshape((k, shape[dim]) + tuple(
         s for d, s in enumerate(x.shape) if d != dim))
     # group position p receives the piece at its member's axes index
@@ -163,6 +198,8 @@ def broadcast(x: torch.Tensor, mesh: Mesh, axes, index: int) -> torch.Tensor:
     and dtype on every rank), on every rank of the slice."""
     if not _names(axes) or mesh.axis_size(axes) == 1:
         return x
+    if _dry(mesh):
+        return _dry_run(mesh, "broadcast", x, x.shape)
     group, members = mesh.group(axes)
     src = next(r for r in members if mesh.axis_index(axes, r) == index)
     buf = x.contiguous().clone() if mesh.rank == src else torch.empty_like(
@@ -179,6 +216,10 @@ def gather_to_host(x: torch.Tensor, mesh: Mesh, axes, dim: int,
     (None on the others): a banked state collected for a checkpoint."""
     if not _names(axes) or mesh.axis_size(axes) == 1:
         return x.detach().cpu()
+    if _dry(mesh):
+        shape = list(x.shape)
+        shape[dim] *= mesh.axis_size(axes)
+        return _dry_run(mesh, "gather", x, shape)
     group, members = mesh.group(axes)
     dst = next(r for r in members if mesh.axis_index(axes, r) == root)
     src = x.detach().contiguous()

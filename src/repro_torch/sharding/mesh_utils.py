@@ -16,6 +16,10 @@ tuple with one entry per leading dim, each None (not split) or an axis
 name or tuple of names (split over those axes, major to minor);
 ``shard_slices`` cuts a rank's piece of a global array by it.
 
+``fl_view`` refines a production mesh's "data" axis into ("cluster",
+"client") over the same ranks in the same order, as the reference's does
+over the same devices (``launch.mesh.make_production_mesh``).
+
 The scenario axis (DESIGN.md §3.8) is orthogonal to the FL axes: a sweep
 bank's (S,) leading dim lies on a ("scenario",) axis
 (``launch.mesh.make_scenario_mesh``, or ahead of the FL axes in
@@ -93,6 +97,32 @@ class Mesh:
 
 def _names(axes) -> Tuple[str, ...]:
     return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def fl_view(mesh: Mesh, n_clients: int) -> Mesh:
+    """A production mesh's 'data' axis refined into ('cluster', 'client'):
+    the same ranks in the same order (a rank keeps its place in the
+    row-major order, so a global layout is unchanged; only the scope of a
+    collective differs). The view knows the layout and carries no
+    process groups: a world that runs the refined mesh builds its own
+    (``launch.mesh.make_debug_mesh`` with the refined shape)."""
+    names = list(mesh.axis_names)
+    if "data" not in names or "model" not in names:
+        raise ValueError(f"fl_view needs 'data' and 'model' axes, got "
+                         f"{mesh.axis_names}")
+    if mesh.groups is not None:
+        raise ValueError("fl_view refines a mesh without process groups")
+    i = names.index("data")
+    data = mesh.sizes[i]
+    if data % n_clients:
+        raise ValueError(f"a data axis of {data} does not split into "
+                         f"clusters of {n_clients} clients")
+    shape = list(mesh.sizes)
+    view = Mesh(shape[:i] + [data // n_clients, n_clients] + shape[i + 1:],
+                names[:i] + ["cluster", "client"] + names[i + 1:],
+                rank=mesh.rank, device=mesh.device, backend=mesh.backend)
+    view.stats = mesh.stats
+    return view
 
 
 def data_axes_of(mesh: Mesh) -> Tuple[str, ...]:

@@ -22,15 +22,7 @@ from repro.models import layers as JL
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.models import layers as L
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several worker processes."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def _qkv(b, s, h, kv, d, seed, s_kv=None):

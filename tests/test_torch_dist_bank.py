@@ -55,6 +55,8 @@ from repro_torch.core.sweep import DistScenarioBank
 from repro_torch.launch.mesh import make_dist_scenario_mesh, run_ranks
 from repro_torch.models.model import build_model
 from repro_torch.sharding.mesh_utils import Mesh
+# one_torch_thread: an autouse fixture
+from torch_threads import JAX_XLA_FLAGS, one_torch_thread  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.abspath(os.path.join(HERE, "..", "src"))
@@ -122,7 +124,7 @@ def _mark_if_failed(proc, ckpt_dir):
 # --------------------------------------------------------------------------
 
 def _jax_main(out_path, ref_ckpt, port_ckpt):
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    os.environ["XLA_FLAGS"] = JAX_XLA_FLAGS
     from functools import partial
 
     import jax

@@ -46,6 +46,8 @@ from repro_torch.launch.mesh import run_ranks
 from repro_torch.models.model import build_model
 from repro_torch.models.params import logical_axes
 from repro_torch.sharding.mesh_utils import Mesh
+# one_torch_thread: an autouse fixture
+from torch_threads import JAX_XLA_FLAGS, one_torch_thread  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.abspath(os.path.join(HERE, "..", "src"))
@@ -175,7 +177,7 @@ def _rank(mesh, inp, state0):
 def _env():
     return dict(os.environ, PYTHONPATH=SRC + os.pathsep
                 + os.environ.get("PYTHONPATH", ""), JAX_PLATFORMS="cpu",
-                XLA_FLAGS="--xla_force_host_platform_device_count=4")
+                XLA_FLAGS=JAX_XLA_FLAGS)
 
 
 @pytest.fixture(scope="module")

@@ -57,6 +57,7 @@ from repro_torch.launch.mesh import run_ranks
 from repro_torch.models.model import build_model
 from repro_torch.models.params import abstract_params, logical_axes
 from repro_torch.sharding.mesh_utils import Mesh, shard_slices
+from torch_threads import JAX_XLA_FLAGS
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.abspath(os.path.join(HERE, "..", "src"))
@@ -302,7 +303,7 @@ def _final_inputs():
 
 
 def _jax_main(out_path):
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    os.environ["XLA_FLAGS"] = JAX_XLA_FLAGS
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh as JMesh, PartitionSpec as P

@@ -61,6 +61,8 @@ from repro_torch.launch.mesh import run_ranks
 from repro_torch.models.model import build_model
 from repro_torch.models.params import logical_axes
 from repro_torch.sharding.mesh_utils import Mesh
+# one_torch_thread: an autouse fixture
+from torch_threads import JAX_XLA_FLAGS, one_torch_thread  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.abspath(os.path.join(HERE, "..", "src"))
@@ -368,7 +370,7 @@ def launched(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("launch")
     ref_dir, port_dir = str(tmp / "ref"), str(tmp / "port")
     done, out = str(tmp / "port_done"), str(tmp / "ref.pkl")
-    env = dict(_env(), XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    env = dict(_env(), XLA_FLAGS=JAX_XLA_FLAGS)
     proc = subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "launcher", out, ref_dir,
          port_dir, done], env=env, stdout=subprocess.PIPE,
@@ -431,6 +433,70 @@ def test_launcher_checkpoints_restore_both_ways(launched):
                                                      train_mod.MESH_AXES))
         for x, y in zip(tree_leaves(res["state"].omega), tree_leaves(want)):
             assert torch.equal(x, y)
+
+
+def test_vision_embeddings_step_matches_jax():
+    """Phi-3-vision's smoke config (float32): the vision stub's (B, S,
+    d_model) float embeddings through one step of the port's step on one
+    rank, against the reference's ``make_hota_train_step`` on one device
+    from the same state, embeddings, labels and keys. Tolerances as in
+    ``test_lm_step_matches_jax``; the heads (trained in the τ_h phase) within
+    relative L2 1e-3 as ω."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh as JMesh
+
+    import repro.core.hota_step as hs
+    from repro.common.config import FLConfig as JFL
+    from repro.common.config import TrainConfig as JTC
+    from repro.configs import get_smoke_config as jget_smoke
+    from repro.models.model import build_model as jbuild
+    from repro_torch.configs import get_smoke_config
+
+    arch, fl = "phi3_vision_4_2b", dict(n_clusters=1, n_clients=1,
+                                        sigma2=(0.5,), noise_std=0.1)
+    jm = jbuild(jget_smoke(arch))
+    cfg = get_smoke_config(arch)
+    assert cfg.modality == "vision" and cfg.compute_dtype == "float32"
+    r = np.random.default_rng(5)
+    emb = r.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    labels = r.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    keys = [np.asarray([0, 21], np.uint32)]
+
+    init_fn, step_fn, _, _ = hs.make_hota_train_step(
+        jm, JMesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                  ("cluster", "client")), JFL(**fl), JTC(lr=LR),
+        loss_kind="lm")
+    st = init_fn(jax.random.PRNGKey(7))
+    state0 = _plain(jax.tree.map(np.asarray, st))
+    step = jax.jit(step_fn)
+    want_m = []
+    for k in keys:
+        st, m = step(st, jnp.asarray(emb), jnp.asarray(labels),
+                     jnp.asarray(k))
+        want_m.append({n: float(v) for n, v in m.items()})
+    want = _plain(jax.tree.map(np.asarray, st))
+
+    mesh = Mesh((1, 1), ("cluster", "client"))
+    _, pstep, specs, _ = make_hota_train_step(
+        build_model(cfg), mesh, FLConfig(**fl), TrainConfig(lr=LR),
+        loss_kind="lm")
+    got = hota_state_from_numpy(state0, mesh, 0, "cpu", specs)
+    for k, wm in zip(keys, want_m):
+        got, m = pstep(got, torch.from_numpy(emb), labels, k)
+        assert m.keys() == wm.keys()
+        for n in wm:
+            np.testing.assert_allclose(float(m[n]), wm[n], rtol=1e-4,
+                                       atol=1e-7, err_msg=n)
+    want = hota_state_from_numpy(want, mesh, 0, "cpu", specs)
+    for f in ("p", "fgn_mu", "fgn_nu", "f0"):
+        np.testing.assert_allclose(getattr(got, f).numpy(),
+                                   getattr(want, f).numpy(), rtol=1e-4,
+                                   atol=1e-7, err_msg=f)
+    for f in ("omega", "heads"):
+        assert _rel_l2([t.numpy() for t in tree_leaves(getattr(got, f))],
+                       [t.numpy() for t in tree_leaves(getattr(want, f))]
+                       ) < 1e-3, f
 
 
 def _np_leaves(tree):
@@ -515,7 +581,7 @@ def test_federated_example_runs_and_checkpoints(tmp_path, capfd):
 
 if __name__ == "__main__":
     if sys.argv[1] == "steps":
-        os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+        os.environ["XLA_FLAGS"] = JAX_XLA_FLAGS
         _jax_steps(sys.argv[2])
     else:
         _jax_launcher(*sys.argv[2:])

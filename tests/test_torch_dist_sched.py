@@ -62,6 +62,8 @@ from repro_torch.launch.mesh import run_ranks
 from repro_torch.models.model import build_model
 from repro_torch.models.params import abstract_params, logical_axes
 from repro_torch.sharding.mesh_utils import Mesh
+# one_torch_thread: an autouse fixture
+from torch_threads import JAX_XLA_FLAGS, one_torch_thread  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.abspath(os.path.join(HERE, "..", "src"))
@@ -144,7 +146,7 @@ def _plain(x):
 # --------------------------------------------------------------------------
 
 def _jax_main(out_path):
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    os.environ["XLA_FLAGS"] = JAX_XLA_FLAGS
     from functools import partial
 
     import jax

@@ -55,6 +55,7 @@ from tests.test_torch_ssm import (
     BASE, JMAMBA2, MAMBA2, _np, check_family, jax_init,
 )
 from tests.test_torch_xlstm import JXLSTM, XLSTM
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 HYBRID = ModelConfig(
     family="hybrid", ssm=SSMConfig(d_state=16, head_dim=16, chunk_size=8),
@@ -71,15 +72,6 @@ FAMILIES = [("zamba2-hybrid", HYBRID, JHYBRID), ("xlstm", XLSTM, JXLSTM),
             ("mamba2", MAMBA2, JMAMBA2)]
 ALL = [(a, configs.get_smoke_config(a), jax_smoke_config(a))
        for a in LM_ARCHS] + FAMILIES
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several worker processes."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def test_family_config_is_the_references():

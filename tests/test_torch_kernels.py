@@ -22,16 +22,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.masked_gradnorm.ops import masked_gradnorm
 from repro_torch.kernels.ota_channel import ref
 from repro_torch.kernels.ota_channel.ops import ota_client_fold_apply
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several worker processes at
-    once, and torch's default of one thread per core oversubscribes them."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 C, N = 3, 2

@@ -23,6 +23,7 @@
   ``LM_100M`` against the reference example's model.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -44,6 +45,7 @@ from repro_torch.core.hota_step import LOSS_CHUNK, chunked_lm_loss
 from repro_torch.data.lm import synthetic_lm_batches
 from repro_torch.models import layers as L
 from repro_torch.models.model import build_model, cls_loss, lm_loss
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ARCHS = ["starcoder2_3b", "stablelm_3b", "qwen2_5_14b", "gemma3_12b",
          "mixtral_8x22b", "phi3_5_moe_42b", "musicgen_medium",
@@ -53,15 +55,6 @@ ARCHS = ["starcoder2_3b", "stablelm_3b", "qwen2_5_14b", "gemma3_12b",
 TRAIN_CASES = {a: {} for a in ARCHS}
 TRAIN_CASES["mixtral_8x22b_cf0.1"] = {"capacity_factor": 0.1}
 B, S = 2, 64            # S = 64 crosses the smoke windows of 32
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several worker processes."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _close(got, want, rtol, what=""):
@@ -108,12 +101,15 @@ def test_training_attention_matches_jax(case):
     pos = np.arange(s)
     kw = dict(impl=impl, window=w, block_q=bq, block_kv=bkv)
 
+    def jattn(q_, k_, v_):
+        return JL.attention(q_, k_, v_, pos_q=pos, pos_kv=pos, **kw)
+
     def jloss(q_, k_, v_):
-        return jnp.sum(JL.attention(q_, k_, v_, pos_q=pos, pos_kv=pos, **kw)
-                       * ct)
+        return jnp.sum(jattn(q_, k_, v_) * ct)
+    # compiled once: run eagerly, every op of the block loops compiles alone
     jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
-    want = np.asarray(JL.attention(jq, jk, jv, pos_q=pos, pos_kv=pos, **kw))
-    want_g = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    want = np.asarray(jax.jit(jattn)(jq, jk, jv))
+    want_g = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(jq, jk, jv)
     tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
     got = L.attention(tq, tk, tv, pos_q=torch.arange(s),
                       pos_kv=torch.arange(s), **kw)
@@ -150,9 +146,11 @@ def _smoke(get, case):
     return cfg
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_train(arch):
     """The reference's weights, batch, train-mode logits, aux, loss and
-    its gradient in the backbone and head (numpy)."""
+    its gradient in the backbone and head (numpy; computed once per arch
+    for the module, and read only)."""
     cfg = _smoke(jax_smoke_config, arch)
     m = jax_build_model(cfg)
     # compiled once: the eager draws and gradient compile a program per op

@@ -43,17 +43,9 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.launch.steps import input_specs
 from repro_torch.models import moe as M
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 RTOL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several worker processes."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _cfgs(e=4, k=2, cf=1.25, d=32, f=48):
@@ -87,8 +79,10 @@ def _x(b, s, d, seed):
 
 
 def _both(jcfg, cfg, p, x, train):
-    want_y, want_aux = JM.moe_apply(jax.tree.map(jnp.asarray, p),
-                                    jnp.asarray(x), jcfg, train=train)
+    # compiled once: run eagerly, every op of the expert loop compiles alone
+    want_y, want_aux = jax.jit(lambda pp, xx: JM.moe_apply(
+        pp, xx, jcfg, train=train))(jax.tree.map(jnp.asarray, p),
+                                    jnp.asarray(x))
     got_y, got_aux = M.moe_apply(lm_params_from_numpy(p), torch.from_numpy(x),
                                  cfg, train=train)
     return (got_y.numpy(), float(got_aux)), (np.asarray(want_y),
@@ -185,8 +179,8 @@ def test_moe_gradient_matches_jax(case):
     def jloss(pp, xx):
         y, aux = JM.moe_apply(pp, xx, jcfg, train=True)
         return jnp.sum(y * ct) + aux
-    want = jax.grad(jloss, argnums=(0, 1))(jax.tree.map(jnp.asarray, p),
-                                           jnp.asarray(x))
+    want = jax.jit(jax.grad(jloss, argnums=(0, 1)))(
+        jax.tree.map(jnp.asarray, p), jnp.asarray(x))
     pt = lm_params_from_numpy(p)
     for t in tree_leaves(pt):
         t.requires_grad_(True)

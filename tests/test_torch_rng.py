@@ -23,16 +23,7 @@ from repro.common.config import ModelConfig as JaxModelConfig
 from repro_torch import rng
 from repro_torch.common.flatpack import packer_for
 from repro_torch.core import ota
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several worker processes at
-    once, and torch's default of one thread per core oversubscribes them."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 @pytest.fixture(params=[True, False], ids=["partitionable", "original"])
@@ -65,14 +56,18 @@ def test_prngkey_fold_in_bits_exact(threefry_mode, seed):
 
 
 def test_batched_key_table_matches_per_key_draws(threefry_mode):
+    """40,003 words of 4 keys span three of the host draw's blocks (on
+    the module's one thread it hashes 2**16 words of all keys at a time),
+    the last one ragged."""
     base = jax.random.PRNGKey(3)
     keys = np.stack([np.asarray(jax.random.fold_in(base, i))
                      for i in range(4)])
-    got = rng.bits(keys, 300).numpy().view(np.uint32)
-    for i in range(4):
-        want = np.asarray(jax.random.bits(jnp.asarray(keys[i]), (300,),
-                                          jnp.uint32))
-        assert np.array_equal(got[i], want)
+    for n in (300, 40_003):
+        got = rng.bits(keys, n).numpy().view(np.uint32)
+        for i in range(4):
+            want = np.asarray(jax.random.bits(jnp.asarray(keys[i]), (n,),
+                                              jnp.uint32))
+            assert np.array_equal(got[i], want), n
 
 
 @pytest.mark.parametrize("start,length", [

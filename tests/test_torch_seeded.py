@@ -51,22 +51,13 @@ from repro_torch.kernels.ota_channel import ops, ref
 from repro_torch.launch import serve
 from repro_torch.models.model import build_model
 from repro_torch.models.params import ParamSpec, init_params
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 DIMS = (32, 64, 128, 64, 32, 16)
 C, N = 2, 2
 N_CLS = [jradcom.N_CLASSES[jradcom.TASKS[i]] for i in range(N)]
 NORMAL_RTOL = 1e-5
 SWEEP_RTOL = 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several worker processes at
-    once, and torch's default of one thread per core oversubscribes them."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 @pytest.fixture(params=[True, False], ids=["partitionable", "original"])

@@ -41,6 +41,7 @@ from repro_torch.kernels.flash_attention import ops as k8
 from repro_torch.launch import serve as serve_mod
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models.model import build_model
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ARCHS = ["starcoder2_3b", "stablelm_3b", "qwen2_5_14b", "gemma3_12b",
          "mixtral_8x22b", "phi3_5_moe_42b", "musicgen_medium",
@@ -52,15 +53,6 @@ CACHE_LEN = S + STEPS + 1
 RTOL, ATOL = 1e-4, 1e-5
 BF16_STEP = 2.0 ** -8           # one bfloat16 rounding step, relative
 DECODE_BOUND = 0.02             # tests/test_models.py's, for the state
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several worker processes."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _np(tree):

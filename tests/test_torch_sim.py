@@ -39,21 +39,12 @@ from repro_torch.core.paper_setup import paper_mlp_setup
 from repro_torch.core.sim import HotaSim
 from repro_torch.models.model import build_model
 from repro_torch.optim.adam import SlabAdamState, slab_adam_update
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 DIMS = (32, 64, 128, 64, 32, 16)
 C, N, B = 3, 2, 8
 SIGMA2 = (1.0, 0.5, 2.0)
 N_CLS = [jradcom.N_CLASSES[jradcom.TASKS[i]] for i in range(N)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several worker processes at
-    once, and torch's default of one thread per core oversubscribes them."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _np_leaves(tree):

@@ -43,6 +43,7 @@ from repro_torch.common.tree import (
 from repro_torch.convert import lm_cache_from_numpy, lm_params_from_numpy
 from repro_torch.models import mamba2 as M
 from repro_torch.models.model import build_model, lm_loss
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 RTOL = 1e-4
 BF16_STEP = 2.0 ** -8    # one bfloat16 rounding step, relative
@@ -56,15 +57,6 @@ MAMBA2 = ModelConfig(family="ssm",
                      **BASE)
 JMAMBA2 = JMC(family="ssm", ssm=JSSM(d_state=16, head_dim=16, chunk_size=8),
               **BASE)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several worker processes."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def close(got, want, rtol=RTOL, what=""):

@@ -59,6 +59,8 @@ from repro_torch.sharding.mesh_utils import (
     Mesh, bank_rows, bank_sharding, prepend_axis, replicated_sharding,
     scenario_axis_size, scenario_banked_spec, scenario_banked_tree,
 )
+# one_torch_thread: an autouse fixture
+from torch_threads import JAX_XLA_FLAGS, one_torch_thread  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.abspath(os.path.join(HERE, "..", "src"))
@@ -101,7 +103,7 @@ def _plain(x):
 # --------------------------------------------------------------------------
 
 def _jax_main(out_path, ckpt_dir):
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    os.environ["XLA_FLAGS"] = JAX_XLA_FLAGS
     import jax
     import jax.numpy as jnp
 

@@ -39,20 +39,12 @@ from repro_torch.models import xlstm as X
 from tests.test_torch_ssm import (
     BASE, _np, check_family, close, close_tree, jax_init,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 XLSTM = ModelConfig(family="xlstm", xlstm=XLSTMConfig(slstm_every=4),
                     **{**BASE, "n_layers": 8})
 JXLSTM = JMC(family="xlstm", xlstm=JXL(slstm_every=4),
              **{**BASE, "n_layers": 8})
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several worker processes."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def test_family_config_is_the_references():
