@@ -1,0 +1,7 @@
+"""Published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, dense
+rates without sparsity, at the full 700 W power limit). A share of a
+peak is stated against these, with the card's power limit beside it."""
+
+BF16_FLOPS = 989e12        # tensor cores, bfloat16 and float16
+FP32_FLOPS = 67e12         # float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12  # HBM3
