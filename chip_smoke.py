@@ -622,11 +622,11 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 def device_events(prof):
     """The profiler's device-side events (kernels and copies), by name,
-    without ``device_trace``'s spacers."""
-    import torch
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and SPACER_KERNEL not in e.key]
+    without ``device_trace``'s spacers and without the device-side copies
+    of the program's spans (``common.spans.device_work``)."""
+    from repro_torch.common.spans import device_work
+    return [e for e in device_work(prof.key_averages())
+            if SPACER_KERNEL not in e.key]
 
 
 def device_ms(fn, iters: int) -> float:

@@ -44,6 +44,7 @@ from repro_torch import rng
 from repro_torch.common.config import FLConfig, TrainConfig
 from repro_torch.common.device import resolve_device
 from repro_torch.common.flatpack import TreePacker, packer_for
+from repro_torch.common.spans import span
 from repro_torch.common.tree import (
     state_map, tree_leaves, tree_map, tree_unflatten,
 )
@@ -344,115 +345,129 @@ class HotaSim:
         the bank draws them once per round for all scenarios; "fused"
         draws them here. The other engines draw inside the aggregation in
         either mode and take no ``streams``. The values are the same."""
-        fl, tcfg, dev = self.fl, self.tcfg, self.device
-        if ota_bits_mode not in ("fused", "supplied"):
-            raise ValueError(f"ota_bits_mode must be 'fused' or 'supplied', "
-                             f"got {ota_bits_mode!r}")
-        if streams is not None and (ota_bits_mode != "supplied"
-                                    or not self.draws_streams_at_once):
-            raise ValueError("streams are read only by the client-folded "
-                             "engine with ota_bits_mode='supplied'")
-        x = torch.as_tensor(xb, dtype=torch.float32).to(dev)
-        y = torch.as_tensor(yb).to(device=dev, dtype=torch.int64)
-        partc = fp = None
-        if fl.faults:       # the static gate; the rates are tensors
-            fp = self.faults if faults is None else faults
-            partc = ota.draw_participation(key, fp, fl.n_clusters,
-                                           fl.n_clients, dev)
-        heads, head_opt, g, F = self._client_update(
-            state.omega, state.heads, state.head_opt, x, y,
-            omega_stale=state.omega_stale,
-            stale=None if partc is None else partc.stale)
-        if partc is not None:
-            # a client that sat the round out keeps its head and Adam
-            # state (its per-slot step counter included)
-            keep = partc.part > 0.5
+        with span("sim.round"):
+            fl, tcfg, dev = self.fl, self.tcfg, self.device
+            if ota_bits_mode not in ("fused", "supplied"):
+                raise ValueError(f"ota_bits_mode must be 'fused' or "
+                                 f"'supplied', got {ota_bits_mode!r}")
+            if streams is not None and (ota_bits_mode != "supplied"
+                                        or not self.draws_streams_at_once):
+                raise ValueError("streams are read only by the client-folded "
+                                 "engine with ota_bits_mode='supplied'")
+            x = torch.as_tensor(xb, dtype=torch.float32).to(dev)
+            y = torch.as_tensor(yb).to(device=dev, dtype=torch.int64)
+            partc = fp = None
+            if fl.faults:       # the static gate; the rates are tensors
+                fp = self.faults if faults is None else faults
+                partc = ota.draw_participation(key, fp, fl.n_clusters,
+                                               fl.n_clients, dev)
+            with span("sim.client_update"):
+                heads, head_opt, g, F = self._client_update(
+                    state.omega, state.heads, state.head_opt, x, y,
+                    omega_stale=state.omega_stale,
+                    stale=None if partc is None else partc.stale)
+            if partc is not None:
+                # a client that sat the round out keeps its head and Adam
+                # state (its per-slot step counter included)
+                keep = partc.part > 0.5
 
-            def slot(new, old):
-                return torch.where(
-                    keep.reshape(keep.shape + (1,) * (new.dim() - 2)),
-                    new, old)
-            heads = tree_map(slot, heads, state.heads)
-            head_opt = state_map(slot, head_opt, state.head_opt)
+                def slot(new, old):
+                    return torch.where(
+                        keep.reshape(keep.shape + (1,) * (new.dim() - 2)),
+                        new, old)
+                heads = tree_map(slot, heads, state.heads)
+                head_opt = state_map(slot, head_opt, state.head_opt)
 
-        chan_key = ota.sim_channel_key(key)   # reserved fold (DESIGN.md §4)
-        packer = self.packer(state.omega)
-        if self.draws_streams_at_once and streams is None:
-            if ota_bits_mode == "supplied":
-                raise ValueError("ota_bits_mode='supplied' needs the round's "
-                                 "streams (HotaSim.round_streams)")
-            streams = ota.section_streams(chan_key, packer, fl.n_clusters,
-                                          dev)
+            # reserved fold (DESIGN.md §4)
+            chan_key = ota.sim_channel_key(key)
+            packer = self.packer(state.omega)
+            if self.draws_streams_at_once and streams is None:
+                if ota_bits_mode == "supplied":
+                    raise ValueError("ota_bits_mode='supplied' needs the "
+                                     "round's streams "
+                                     "(HotaSim.round_streams)")
+                streams = ota.section_streams(chan_key, packer, fl.n_clusters,
+                                              dev)
 
-        # --- Alg. 2: FGN_Server per cluster -------------------------------
-        # f0 latches each slot's first observed loss (the F̃ baseline); a
-        # negative f0 marks a never-seen slot
-        f0 = torch.where((state.step == 0) | (state.f0 < 0.0), F, state.f0)
-        ratios = F / torch.clamp(f0, min=1e-12)
-        if packer is None:      # the per-leaf oracle's draw for ω̃
-            final_masks = ota.final_layer_masks(chan_key, state.omega["final"],
-                                                chan)
-        else:                   # the tail section of the round's draw
-            final_masks = ota.final_layer_masks_packed(
-                chan_key, chan, packer,
-                gain=None if streams is None else streams.gain)
-        norms = self._masked_final_norms(g["final"], final_masks)   # (C, N)
-        # a dead cluster's IS heard nothing: its (p, FGN) state freezes
-        gate = chan.fgn_on if partc is None else chan.fgn_on * partc.live
-        p_new, fgn_state, fval = fgn_update_gated(
-            state.p, norms, ratios, state.fgn, fl, gate)
+            # --- Alg. 2: FGN_Server per cluster ---------------------------
+            # f0 latches each slot's first observed loss (the F̃ baseline); a
+            # negative f0 marks a never-seen slot
+            with span("sim.fgn"):
+                f0 = torch.where((state.step == 0) | (state.f0 < 0.0), F,
+                                 state.f0)
+                ratios = F / torch.clamp(f0, min=1e-12)
+                if packer is None:      # the per-leaf oracle's draw for ω̃
+                    final_masks = ota.final_layer_masks(
+                        chan_key, state.omega["final"], chan)
+                else:                   # the tail section of the round's draw
+                    final_masks = ota.final_layer_masks_packed(
+                        chan_key, chan, packer,
+                        gain=None if streams is None else streams.gain)
+                norms = self._masked_final_norms(g["final"],
+                                                 final_masks)   # (C, N)
+                # a dead cluster's IS heard nothing: its (p, FGN) state freezes
+                gate = (chan.fgn_on if partc is None
+                        else chan.fgn_on * partc.live)
+                p_new, fgn_state, fval = fgn_update_gated(
+                    state.p, norms, ratios, state.fgn, fl, gate)
 
-        # --- eqs. (3), (8)-(10): OTA aggregation, then the PS update -------
-        # under faults the transmit weights fold participation and the
-        # FedBuff 1/√(1+age) discount of stragglers; live/N_eff generalize
-        # eq. 10
-        w_tx, live, n_eff = p_new, None, None
-        if partc is not None:
-            disc = torch.where(partc.stale > 0.5,
-                               torch.rsqrt(1.0 + state.stale_age),
-                               torch.ones_like(partc.stale))
-            w_tx = p_new * partc.part * disc
-            live, n_eff = partc.live, partc.n_eff
-        ghat = self.aggregate(chan_key, g, w_tx, chan, packer,
-                              ota_bits_mode, streams, live=live, n_eff=n_eff)
-        if packer is None:
-            omega, ps_opt = adam_update(ghat, state.ps_opt, state.omega,
-                                        tcfg.lr)
-        else:       # the slab view: moments stay one flat slab
-            omega, ps_opt = slab_adam_update(ghat, state.ps_opt, state.omega,
-                                             tcfg.lr)
-        metrics = {"loss": F, "p": p_new, "fgrad": fval,
-                   "grad_norms": norms}
-        if partc is None:
-            return SimState(omega=omega, heads=heads, p=p_new,
-                            ps_opt=ps_opt, head_opt=head_opt,
-                            fgn=fgn_state, f0=f0,
-                            step=state.step + 1), metrics
+            # --- eqs. (3), (8)-(10): OTA aggregation, then the PS update ---
+            # under faults the transmit weights fold participation and the
+            # FedBuff 1/√(1+age) discount of stragglers; live/N_eff
+            # generalize eq. 10
+            w_tx, live, n_eff = p_new, None, None
+            if partc is not None:
+                disc = torch.where(partc.stale > 0.5,
+                                   torch.rsqrt(1.0 + state.stale_age),
+                                   torch.ones_like(partc.stale))
+                w_tx = p_new * partc.part * disc
+                live, n_eff = partc.live, partc.n_eff
+            with span("sim.aggregate"):
+                ghat = self.aggregate(chan_key, g, w_tx, chan, packer,
+                                      ota_bits_mode, streams, live=live,
+                                      n_eff=n_eff)
+            with span("sim.adam"):
+                if packer is None:
+                    omega, ps_opt = adam_update(ghat, state.ps_opt,
+                                                state.omega, tcfg.lr)
+                else:       # the slab view: moments stay one flat slab
+                    omega, ps_opt = slab_adam_update(ghat, state.ps_opt,
+                                                     state.omega, tcfg.lr)
+            metrics = {"loss": F, "p": p_new, "fgrad": fval,
+                       "grad_norms": norms}
+            if partc is None:
+                return SimState(omega=omega, heads=heads, p=p_new,
+                                ps_opt=ps_opt, head_opt=head_opt,
+                                fgn=fgn_state, f0=f0,
+                                step=state.step + 1), metrics
 
-        # --- the round guard (DESIGN.md §3.14) -----------------------------
-        # gn2 = ‖ĝ‖² (one dot over the leaves end to end: a round on the
-        # card is host-bound, so two launches, not two per leaf);
-        # spike_norm = inf leaves only the non-finite check
-        flat = torch.cat([l.reshape(-1).to(torch.float32)
-                          for l in tree_leaves(ghat)])
-        gn2 = torch.dot(flat, flat)
-        skip = ((partc.total < 0.5) | ~torch.isfinite(gn2)
-                | (gn2 > fp.spike_norm * fp.spike_norm))
-        # the stale copy refreshes every fp.staleness rounds (age in [0, τ))
-        refresh = (state.stale_age + 1.0) >= fp.staleness
-        omega_stale = tree_map(lambda new, old: torch.where(refresh, new, old),
-                               omega, state.omega_stale)
-        stale_age = torch.where(refresh, torch.zeros_like(state.stale_age),
-                                state.stale_age + 1.0)
-        new_state = SimState(omega=omega, heads=heads, p=p_new,
-                             ps_opt=ps_opt, head_opt=head_opt, fgn=fgn_state,
-                             f0=f0, step=state.step, omega_stale=omega_stale,
-                             stale_age=stale_age)
-        # a skipped round is the bit-exact identity: every leaf keeps its
-        # old value, only the step counter advances
-        new_state = state_map(lambda new, old: torch.where(skip, old, new),
-                              new_state, state)
-        new_state = new_state._replace(step=state.step + 1)
-        metrics.update(skipped=skip.to(torch.float32),
-                       n_participants=partc.total)
-        return new_state, metrics
+            # --- the round guard (DESIGN.md §3.14) -------------------------
+            # gn2 = ‖ĝ‖² (one dot over the leaves end to end: a round on
+            # the card is host-bound, so two launches, not two per leaf);
+            # spike_norm = inf leaves only the non-finite check
+            flat = torch.cat([l.reshape(-1).to(torch.float32)
+                              for l in tree_leaves(ghat)])
+            gn2 = torch.dot(flat, flat)
+            skip = ((partc.total < 0.5) | ~torch.isfinite(gn2)
+                    | (gn2 > fp.spike_norm * fp.spike_norm))
+            # the stale copy refreshes every fp.staleness rounds (age in
+            # [0, τ))
+            refresh = (state.stale_age + 1.0) >= fp.staleness
+            omega_stale = tree_map(
+                lambda new, old: torch.where(refresh, new, old),
+                omega, state.omega_stale)
+            stale_age = torch.where(refresh, torch.zeros_like(state.stale_age),
+                                    state.stale_age + 1.0)
+            new_state = SimState(omega=omega, heads=heads, p=p_new,
+                                 ps_opt=ps_opt, head_opt=head_opt,
+                                 fgn=fgn_state, f0=f0, step=state.step,
+                                 omega_stale=omega_stale,
+                                 stale_age=stale_age)
+            # a skipped round is the bit-exact identity: every leaf keeps its
+            # old value, only the step counter advances
+            new_state = state_map(lambda new, old: torch.where(skip, old, new),
+                                  new_state, state)
+            new_state = new_state._replace(step=state.step + 1)
+            metrics.update(skipped=skip.to(torch.float32),
+                           n_participants=partc.total)
+            return new_state, metrics

@@ -76,6 +76,7 @@ from repro_torch.checkpoint.store import (
 )
 from repro_torch.common.config import FLConfig
 from repro_torch.common.layout_tune import layout_of
+from repro_torch.common.spans import span
 from repro_torch.common.tree import state_map
 from repro_torch.core.channel import (
     ChannelParams, FaultParams, channel_params, fault_params,
@@ -308,19 +309,20 @@ class ScenarioBank:
         unbatched and shared across scenarios (common random numbers);
         states and the returned metrics carry the leading (S,) axis."""
         sim = self.sim
-        x = torch.as_tensor(xb, dtype=torch.float32).to(sim.device)
-        y = torch.as_tensor(yb).to(device=sim.device, dtype=torch.int64)
-        streams = None
-        if sim.draws_streams_at_once:
-            inner = states.sim if isinstance(states, SampledSimState) \
-                else states
-            streams = sim.round_streams(key, _row(inner.omega, 0))
-        states, metrics = _step_rows(
-            states, self.n_local, lambda st, s: sim.step_with_channel(
-                st, x, y, key, scenario_channel(self.chan_bank, s),
-                ota_bits_mode="supplied", streams=streams,
-                faults=scenario_faults(self.fault_bank, s)))
-        return states, self._metrics(metrics)
+        with span("bank.step"):
+            x = torch.as_tensor(xb, dtype=torch.float32).to(sim.device)
+            y = torch.as_tensor(yb).to(device=sim.device, dtype=torch.int64)
+            streams = None
+            if sim.draws_streams_at_once:
+                inner = states.sim if isinstance(states, SampledSimState) \
+                    else states
+                streams = sim.round_streams(key, _row(inner.omega, 0))
+            states, metrics = _step_rows(
+                states, self.n_local, lambda st, s: sim.step_with_channel(
+                    st, x, y, key, scenario_channel(self.chan_bank, s),
+                    ota_bits_mode="supplied", streams=streams,
+                    faults=scenario_faults(self.fault_bank, s)))
+            return states, self._metrics(metrics)
 
     def _metrics(self, metrics: Dict[str, torch.Tensor]):
         """The round's metrics as ``step`` returns them."""

@@ -12,6 +12,8 @@ from typing import Dict, List
 
 import numpy as np
 
+from repro_torch.common.spans import span
+
 
 class FederatedBatcher:
     def __init__(self, partitions: List[List[Dict[str, np.ndarray]]], batch: int, seed: int = 0):
@@ -23,16 +25,19 @@ class FederatedBatcher:
 
     def next_stacked(self):
         """Returns x (C,N,B,d) float32, y (C,N,B) int32."""
-        xs, ys = [], []
-        for cluster in self.partitions:
-            cx, cy = [], []
-            for client in cluster:
-                idx = self._rng.integers(0, client["x"].shape[0], size=self.batch)
-                cx.append(client["x"][idx])
-                cy.append(client["y"][idx])
-            xs.append(np.stack(cx))
-            ys.append(np.stack(cy))
-        return np.stack(xs).astype(np.float32), np.stack(ys).astype(np.int32)
+        with span("data.next_stacked"):
+            xs, ys = [], []
+            for cluster in self.partitions:
+                cx, cy = [], []
+                for client in cluster:
+                    idx = self._rng.integers(0, client["x"].shape[0],
+                                             size=self.batch)
+                    cx.append(client["x"][idx])
+                    cy.append(client["y"][idx])
+                xs.append(np.stack(cx))
+                ys.append(np.stack(cy))
+            return (np.stack(xs).astype(np.float32),
+                    np.stack(ys).astype(np.int32))
 
     def tasks(self) -> List[List[str]]:
         return [[cl["task"] for cl in cluster] for cluster in self.partitions]

@@ -39,6 +39,7 @@ import torch
 from repro_torch import rng
 from repro_torch.common.config import FLConfig, ModelConfig, TrainConfig
 from repro_torch.common.device import resolve_device
+from repro_torch.common.spans import device_work
 from repro_torch.core.sampling import SampledHotaSim
 from repro_torch.core.sim import HotaSim
 from repro_torch.models.model import build_model
@@ -72,9 +73,8 @@ def traced_round(fn: Callable[[], None]) -> Tuple[Dict[str, int], float]:
         fn()
         torch.cuda.synchronize()
         time.sleep(TRACE_MARGIN_S)
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and SPACER_KERNEL not in e.key]
+    events = [e for e in device_work(prof.key_averages())
+              if SPACER_KERNEL not in e.key]
     return ({e.key: e.count for e in events},
             sum(e.self_device_time_total for e in events) / 1e3)
 

@@ -19,6 +19,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.common.config import InputShape, ModelConfig
+from repro_torch.common.spans import span
 from repro_torch.common.tree import tree_map
 from repro_torch.models.model import Model
 from repro_torch.models.params import (
@@ -103,14 +104,14 @@ def make_prefill_step(model: Model, cache_len: Optional[int] = None):
         """tokens (B, S), or embeddings (B, S, d_model) -> (logits (B, V)
         float32, cache)."""
         s = tokens.shape[1]
-        with torch.no_grad():
+        with torch.no_grad(), span("prefill"):
             h, _, cache = model.trunk_apply(
                 backbone["trunk"], tokens,
                 positions=torch.arange(s, device=tokens.device),
                 mode="prefill", cache_len=cache_len or s + 1)
             feats = model.final_apply(backbone["final"], h[:, -1:])
             logits = model.head_apply(head, feats)
-        return logits[:, -1], cache
+            return logits[:, -1], cache
     return prefill_step
 
 

@@ -44,6 +44,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import resolve_device
+from repro_torch.common.spans import span
 from repro_torch.common.tree import tree_leaves, tree_map
 from repro_torch.models import layers as L
 from repro_torch.models.moe import moe_apply, moe_specs
@@ -180,39 +181,42 @@ def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, *, positions,
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be 'train', 'prefill' or 'decode', "
                          f"got {mode!r}")
-    h = L.rms_norm(x, p["norm"], 1e-6)
-    q, k, v = _project_qkv(p, h, cfg)
-    if mode == "decode":
-        q = L.apply_rope(q, positions[:, None], theta)
-        k = L.apply_rope(k, positions[:, None], theta)
-        cap = cache["k"].shape[1]
-        slot = positions % cap if window is not None else positions
-        slot = slot.clamp(0, cap - 1)
-        bidx = torch.arange(x.shape[0], device=x.device)
-        cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
-        cache["pos"][bidx, slot] = positions.to(cache["pos"].dtype)
-        out = L.decode_attention(q, cache["k"], cache["v"], pos_q=positions,
-                                 pos_kv=cache["pos"], window=window)
-        new_cache = cache
-    else:
-        q = L.apply_rope(q, positions[None, :], theta)
-        k = L.apply_rope(k, positions[None, :], theta)
-        out = L.attention(q, k, v, pos_q=positions, pos_kv=positions,
-                          impl=cfg.attn_impl, window=window,
-                          block_q=cfg.attn_block_q,
-                          block_kv=cfg.attn_block_kv)
-        new_cache = None if mode == "train" else _prefill_cache(
-            k, v, positions, window, cache_len, x.shape[0])
-    wo = p["wo"]
-    y = out.flatten(-2) @ wo.reshape(-1, wo.shape[-1]).to(x.dtype)
-    return x + y, new_cache
+    with span("tf.attn"):
+        h = L.rms_norm(x, p["norm"], 1e-6)
+        q, k, v = _project_qkv(p, h, cfg)
+        if mode == "decode":
+            q = L.apply_rope(q, positions[:, None], theta)
+            k = L.apply_rope(k, positions[:, None], theta)
+            cap = cache["k"].shape[1]
+            slot = positions % cap if window is not None else positions
+            slot = slot.clamp(0, cap - 1)
+            bidx = torch.arange(x.shape[0], device=x.device)
+            cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
+            cache["pos"][bidx, slot] = positions.to(cache["pos"].dtype)
+            out = L.decode_attention(q, cache["k"], cache["v"],
+                                     pos_q=positions, pos_kv=cache["pos"],
+                                     window=window)
+            new_cache = cache
+        else:
+            q = L.apply_rope(q, positions[None, :], theta)
+            k = L.apply_rope(k, positions[None, :], theta)
+            out = L.attention(q, k, v, pos_q=positions, pos_kv=positions,
+                              impl=cfg.attn_impl, window=window,
+                              block_q=cfg.attn_block_q,
+                              block_kv=cfg.attn_block_kv)
+            new_cache = None if mode == "train" else _prefill_cache(
+                k, v, positions, window, cache_len, x.shape[0])
+        wo = p["wo"]
+        y = out.flatten(-2) @ wo.reshape(-1, wo.shape[-1]).to(x.dtype)
+        return x + y, new_cache
 
 
 def mlp_block_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    h = L.rms_norm(x, p["norm"], 1e-6)
-    w = {k: v.to(x.dtype) for k, v in p.items() if k != "norm"}
-    return x + L.mlp_apply(w, h, cfg.mlp_act)
+    with span("tf.mlp"):
+        h = L.rms_norm(x, p["norm"], 1e-6)
+        w = {k: v.to(x.dtype) for k, v in p.items() if k != "norm"}
+        return x + L.mlp_apply(w, h, cfg.mlp_act)
 
 
 def dense_layer_apply(p, x, cfg: ModelConfig, *, positions, window, theta,
