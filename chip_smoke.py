@@ -323,7 +323,16 @@ imports only ``repro_torch`` (never ``jax`` or the JAX package) and runs:
    ``PREFILL_DECODE_LIMIT``); (e) the four
    new smoke configs (Mixtral, Phi-3.5-MoE, MusicGen, Phi-3-vision) with
    seeded weights through ``convert``, B=2 prefill of 40 and 4 decode
-   steps, card against CPU within ``CUT_F32_LIMIT``;
+   steps, card against CPU within ``CUT_F32_LIMIT``; (g) the MoE block's
+   dropless inference (``moe.moe_branch(train=False)``: the slots grouped
+   by expert, the grouped GEMMs, the float32 combine and the shared
+   expert) in bf16 against a per-expert loop on the same inputs and the
+   same routing, at Granite-4.0-H-Small's layer (72 experts of 4096 x
+   768, top-10, a shared expert of 1536) and Mixtral-8x22B's (8 of 6144 x
+   16384, top-2), each at prefill size (B=1, S=8192 and 4096) and at
+   decode size (B=2, S=1: most experts get no row), relative L2 within
+   ``MOE_GROUPED_LIMIT`` and every token's row within
+   ``MOE_GROUPED_ROW_LIMIT``, both paths timed;
 35. the Mamba2, xLSTM and Zamba2-hybrid families: (a) K8 at Zamba2-1.2B's
    shared attention (B=1, S=8192, 32 heads over 32, D=64, window 4096) on
    the Hopper kernel, as phase 34's layers; (b) ``serve`` on Zamba2-1.2B
@@ -513,6 +522,12 @@ VISION_DECODE_STEPS = 8
 NEW_SMOKE = ("mixtral_8x22b", "phi3_5_moe_42b", "musicgen_medium",
              "phi3_vision_4_2b")
 NEW_SMOKE_BATCH, NEW_SMOKE_SEQ, NEW_SMOKE_STEPS = 2, 40, 4
+# phase 34g: the grouped dropless MoE against a per-expert loop, bf16:
+# (d_model, experts, expert width, top-k, shared width, prefill B x S)
+MOE_GROUPED_SHAPES = {"granite_h_small": (4096, 72, 768, 10, 1536, 8192),
+                      "mixtral_8x22b": (6144, 8, 16384, 2, 0, 4096)}
+MOE_GROUPED_LIMIT = 1e-2      # bf16 products summed in other orders; one
+MOE_GROUPED_ROW_LIMIT = 3e-2  # dropped expert moves its token's row ~10 %
 # K8 at the new layers' shapes: (B, S, H, KV, D, window)
 K8_NEW_SHAPES = {"mixtral_layer": (1, 8192, 48, 8, 128, 4096),
                  "phi3_vision_layer": (1, 4096, 32, 32, 96, None),
@@ -5026,12 +5041,87 @@ def new_smoke_phase(dev, record):
     record["new_smoke"] = rec
 
 
+def moe_grouped_phase(dev, record):
+    """Phase 34g: ``moe_branch(train=False)`` in bf16 against a loop over
+    the experts, each on the rows that chose it, combined in float32 in
+    the same routing (``moe.router_logits``, ``moe._route``), at each
+    ``MOE_GROUPED_SHAPES`` layer at prefill and at decode size."""
+    import torch
+    from repro_torch.common.config import ModelConfig, MoEConfig
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    rec = {}
+    gen = torch.Generator(device=dev).manual_seed(347)
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * std).to(torch.bfloat16)
+
+    for name, (d, e, f, k, fs, s) in MOE_GROUPED_SHAPES.items():
+        cfg = ModelConfig(name=name, family="dense", n_layers=1, d_model=d,
+                          n_heads=1, n_kv_heads=1, d_ff=f, vocab_size=2,
+                          moe=MoEConfig(n_experts=e, top_k=k),
+                          compute_dtype="bfloat16")
+        p = {"norm": normal((d,), 0.05), "router": normal((d, e), d ** -0.5),
+             "w_gate": normal((e, d, f), d ** -0.5),
+             "w_up": normal((e, d, f), d ** -0.5),
+             "w_down": normal((e, f, d), f ** -0.5)}
+        if fs:
+            p["shared"] = {"w_gate": normal((d, fs), d ** -0.5),
+                           "w_up": normal((d, fs), d ** -0.5),
+                           "w_down": normal((fs, d), fs ** -0.5)}
+
+        def loop(x):
+            b_, s_, _ = x.shape
+            h = L.rms_norm(x, p["norm"], 1e-6).reshape(b_ * s_, d)
+            gates, mask, _ = M._route(M.router_logits(p, h), k)
+            gates = gates.to(h.dtype).float()
+            out = torch.zeros((b_ * s_, d), dtype=torch.float32, device=dev)
+            for j in range(e):
+                tok = mask[:, j].nonzero().squeeze(1)
+                if tok.numel():
+                    out.index_add_(0, tok, gates[tok, j, None]
+                                   * M._expert(p, j, h[tok]).float())
+            if fs:
+                out = out + L.mlp_apply(p["shared"], h).float()
+            return out.reshape(b_, s_, d), mask
+
+        for size, (b, sq) in (("prefill", (1, s)), ("decode", (2, 1))):
+            x = normal((b, sq, d), 1.0)
+            got = M.moe_branch(p, x, cfg, train=False)[0]
+            want, mask = loop(x)
+            empty = int((mask.sum(dim=0) == 0).sum())
+            err, row = rel_l2(got, want), max_row_rel_l2(got, want)
+            key = f"{name}_{size}"
+            if (err > MOE_GROUPED_LIMIT or row > MOE_GROUPED_ROW_LIMIT
+                    or not bool(torch.isfinite(got).all())):
+                fail(f"moe grouped {key}: relative L2 {err:.3e} (limit "
+                     f"{MOE_GROUPED_LIMIT:g}), worst row {row:.3e} (limit "
+                     f"{MOE_GROUPED_ROW_LIMIT:g})")
+            iters = 3 if size == "prefill" else 20
+            ms = cuda_ms(lambda: M.moe_branch(p, x, cfg, train=False), iters)
+            ms_loop = cuda_ms(lambda: loop(x), iters)
+            rec[key] = {"rel_l2": err, "max_row_rel_l2": row,
+                        "empty_experts": empty, "tokens": b * sq,
+                        "grouped_ms": ms, "loop_ms": ms_loop}
+            log(f"[moe grouped] {key}: B={b} S={sq}, {e} experts of {d} x "
+                f"{f} top-{k}{f', shared {fs}' if fs else ''}; {empty} "
+                f"experts without a row; relative L2 {err:.3e}, worst row "
+                f"{row:.3e}; block {ms:.3f} ms grouped, {ms_loop:.3f} ms "
+                f"as a loop over the experts")
+            del x, got, want
+        del p
+        torch.cuda.empty_cache()
+    record["moe_grouped"] = rec
+
+
 def moe_phase(dev, record, counters):
     """Phase 34: K8 at the new layers' shapes (d), one full-width Mixtral
     layer card vs CPU (b), Mixtral-8x22B served at full width cut in
     depth (a), Phi-3-vision-4.2B served from embeddings (c), Gemma-3-12B
-    served at full width cut in depth (f), and the new smoke configs card
-    vs CPU (e). Returns the counted runs' launches."""
+    served at full width cut in depth (f), the new smoke configs card vs
+    CPU (e) and the grouped MoE block against a loop over the experts
+    (g). Returns the counted runs' launches."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(34)
     k8_new = {name: k8_layer_case(dev, name, shape, gen, record)
@@ -5044,6 +5134,7 @@ def moe_phase(dev, record, counters):
         for k_name, v in got.items():
             total[k_name] = total.get(k_name, 0) + v
     new_smoke_phase(dev, record)
+    moe_grouped_phase(dev, record)
     return total, k8_new
 
 

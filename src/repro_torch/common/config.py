@@ -8,7 +8,8 @@ knobs, ``ServeConfig`` and ``MeshConfig`` a serving run and a production
 mesh, ``InputShape`` and ``INPUT_SHAPES`` the assigned input shapes
 (``launch.steps.input_specs``, the dry run). Field names, defaults and
 meanings are the reference's, so a config written for one package means
-the same thing to the other.
+the same thing to the other. ``HybridMoEConfig`` alone is the port's own:
+the Granite-4.0-H family, which the reference does not build.
 """
 from __future__ import annotations
 
@@ -108,6 +109,32 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class HybridMoEConfig(ModelConfig):
+    """The port's own ``hybrid_moe`` family (Granite-4.0-H): layer i's
+    mixer is ``layer_types[i]`` ("mamba": Mamba2 of ``ssm``; "attention":
+    GQA without position encoding, softmax scale
+    ``attention_multiplier``), and every layer then has an MoE block of
+    ``moe`` (experts of width ``d_ff``) with a shared SwiGLU expert of
+    width ``shared_d_ff``. The embedding is scaled by
+    ``embedding_multiplier``, each residual branch by
+    ``residual_multiplier``, and the logits divided by
+    ``logits_scaling``."""
+    layer_types: Tuple[str, ...] = ()
+    shared_d_ff: int = 0
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    attention_multiplier: Optional[float] = None
+
+    def __post_init__(self):
+        if len(self.layer_types) != self.n_layers or not set(
+                self.layer_types) <= {"mamba", "attention"}:
+            raise ValueError(f"layer_types {self.layer_types} must name "
+                             f"'mamba' or 'attention' for each of "
+                             f"{self.n_layers} layers")
 
 
 @dataclass(frozen=True)

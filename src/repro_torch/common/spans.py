@@ -24,8 +24,17 @@ The spans and what they cover:
     repro.sim.aggregate       the OTA fold on the sim's engine
     repro.sim.adam            the PS's Adam update of ω
     repro.prefill             the prefill step of launch/steps
-    repro.tf.attn             models/transformer attn_apply
+    repro.tf.attn             models/transformer attn_apply (and the
+                              hybrid_moe family's attention mixers)
     repro.tf.mlp              models/transformer mlp_block_apply
+    repro.mamba               models/mamba2 mamba2_mixer: from the norm
+                              to the out-projection, the SSD included
+    repro.moe                 models/moe moe_branch: the whole block,
+                              routed and shared experts
+    repro.moe.route           router logits, ranking, and in inference
+                              the slots' grouping by expert and offsets
+    repro.moe.experts         the routed experts (grouped GEMMs on the
+                              card) and the combine
 """
 from __future__ import annotations
 

@@ -8,6 +8,12 @@ nothing there: ids (in the reference's order), aliases, full-size
 ``get_config(name)`` returns the full-size ``ModelConfig``,
 ``get_smoke_config(name)`` the reduced one, ``all_configs()`` every
 full-size config by id.
+
+``PORT_ARCH_IDS`` and ``PORT_ALIASES`` name the architectures the port
+builds and the reference does not (Granite-4.0-H-Small, the
+``hybrid_moe`` family): ``get_config`` and ``get_smoke_config`` find
+them, and ``ARCH_IDS``, ``ALIASES`` and ``all_configs()`` stay the
+reference's.
 """
 from __future__ import annotations
 
@@ -46,11 +52,18 @@ ALIASES: Dict[str, str] = {
 }
 
 
+PORT_ARCH_IDS: List[str] = ["granite_4_0_h_small"]
+
+PORT_ALIASES: Dict[str, str] = {
+    "granite-4.0-h-small": "granite_4_0_h_small",
+}
+
+
 def _module(name: str):
-    name = ALIASES.get(name, name)
-    if name not in ARCH_IDS:
+    name = ALIASES.get(name, PORT_ALIASES.get(name, name))
+    if name not in ARCH_IDS + PORT_ARCH_IDS:
         raise ValueError(f"unknown architecture {name!r}; known: "
-                         f"{ARCH_IDS}")
+                         f"{ARCH_IDS + PORT_ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

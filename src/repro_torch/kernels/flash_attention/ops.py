@@ -4,7 +4,9 @@
 ``repro.kernels.flash_attention.ops.flash_attention``: causal GQA
 self-attention with an optional sliding window, q (B, S, H, D) and k, v
 (B, S, KV, D) in the model's own layout, output (B, S, H, D) in
-``q.dtype``. As in the reference, positions are 0..S-1 (a prefill from
+``q.dtype``. The softmax scale defaults to 1/√D, the reference's only
+one; ``scale`` sets another (Granite-4.0-H's ``attention_multiplier``).
+As in the reference, positions are 0..S-1 (a prefill from
 scratch; the reference's wrapper takes ``pos_q``/``pos_kv`` and does not
 read them, this one does not take them). For CPU tensors it
 runs the plain version (``ref.py``); for CUDA tensors it launches
@@ -58,9 +60,11 @@ def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            out: torch.Tensor, window: Optional[int],
-           kernel: Optional[str] = None) -> torch.Tensor:
+           kernel: Optional[str] = None,
+           scale: Optional[float] = None) -> torch.Tensor:
     """Launch the kernel on contiguous CUDA operands of one dtype
-    (bfloat16 or float32): q, out (B, S, H, D); k, v (B, S, KV, D).
+    (bfloat16 or float32): q, out (B, S, H, D); k, v (B, S, KV, D); the
+    scores scaled by ``scale``, 1/√D when None.
     ``kernel`` defaults to ``kernel_for``'s choice; naming "mma_sync" for
     a Hopper shape is for a run that times the two designs against each
     other, and that launch is not counted."""
@@ -95,11 +99,15 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fn = getattr(_build.library(), _ENTRIES[kernel])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              b, s, h, n_kv, d, 0 if window is None else int(window),
-             1.0 / math.sqrt(d), _build.current_stream_handle(q.device))
+             _scale(scale, d), _build.current_stream_handle(q.device))
     _build.check(err, f"flash_attention ({kernel})")
     if kernel == rule:
         counter.count += 1
     return out
+
+
+def _scale(scale: Optional[float], d: int) -> float:
+    return 1.0 / math.sqrt(d) if scale is None else float(scale)
 
 
 def attention_pairs(s: int, window: Optional[int]) -> int:
@@ -112,8 +120,10 @@ def attention_pairs(s: int, window: Optional[int]) -> int:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """Causal self-attention, q (B, S, H, D), k, v (B, S, KV, D)."""
+                    window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Causal self-attention, q (B, S, H, D), k, v (B, S, KV, D), the
+    scores scaled by ``scale`` (1/√D when None)."""
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
             or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
@@ -122,16 +132,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, window=window)
+        return flash_attention_ref(q, k, v, window=window, scale=scale)
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    return launch(q, k, v, torch.empty_like(q), window)
+    return launch(q, k, v, torch.empty_like(q), window, scale=scale)
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *,
-                              window: Optional[int] = None) -> torch.Tensor:
+                              window: Optional[int] = None,
+                              scale: Optional[float] = None) -> torch.Tensor:
     """``flash_attention`` through its plain version, on q's device (the
     reference's oracle name)."""
-    return flash_attention_ref(q, k, v, window=window)
+    return flash_attention_ref(q, k, v, window=window, scale=scale)

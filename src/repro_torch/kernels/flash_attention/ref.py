@@ -17,12 +17,15 @@ NEG_INF = -1e30
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, window: Optional[int] = None) -> torch.Tensor:
-    """q: (B, S, H, D); k, v: (B, S, KV, D) with H % KV == 0."""
+                        *, window: Optional[int] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, S, H, D); k, v: (B, S, KV, D) with H % KV == 0; scores
+    scaled by ``scale``, 1/√D when None."""
     b, sq, h, d = q.shape
     n_kv = k.shape[2]
     qg = q.reshape(b, sq, n_kv, h // n_kv, d)
-    scale = 1.0 / math.sqrt(d)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
     pos = torch.arange(sq, device=q.device)
     diff = pos[:, None] - pos[None, :]

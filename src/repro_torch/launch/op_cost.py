@@ -6,7 +6,8 @@ and it counts, over every op the step dispatches on the step's device:
 
 * FLOPs of the matmul family (mm, bmm, addmm, baddbmm, addbmm, mv, addmv,
   dot: what ``torch.matmul``, ``F.linear`` and ``torch.einsum`` lower
-  to), 2 x result elements x contracting size, as ``hlo_cost._dot_flops``
+  to; ``_grouped_mm``, the MoE's routed experts on the card), 2 x result
+  elements x contracting size, as ``hlo_cost._dot_flops``
   counts a dot; other ops' FLOPs are not counted (matmul-dominated
   models), except a port kernel's (below);
 * ``bytes``: operand plus result bytes of every op that moves data (a
@@ -53,7 +54,7 @@ from repro_torch.common import cost_trace
 
 
 DOT_OPS = {"mm", "bmm", "addmm", "baddbmm", "addbmm", "mv", "addmv", "dot",
-           "matmul"}
+           "matmul", "_grouped_mm"}
 # the op classes hlo_cost.py counts as major, by aten name
 MAJOR_OPS = DOT_OPS | {
     # convolution

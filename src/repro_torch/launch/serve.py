@@ -1,9 +1,11 @@
 """Serving entry point: prefill + batched greedy decode for any LM
 --arch: the dense text models, the MoE pair (mixtral-8x22b,
-phi3.5-moe-42b-a6.6b: dropless inference, every expert weighted by the
-top-k gates), the audio and vision stub frontends (musicgen-medium,
+phi3.5-moe-42b-a6.6b: dropless inference, each expert on the tokens
+routed to it), the audio and vision stub frontends (musicgen-medium,
 phi-3-vision-4.2b), zamba2-1.2b (Mamba2 layers and one shared attention
-block) and xlstm-1.3b (mLSTM and sLSTM blocks).
+block), xlstm-1.3b (mLSTM and sLSTM blocks) and the port's own
+granite-4.0-h-small (Mamba2 and NoPE-attention mixers, each followed by
+a routed MoE block with a shared expert).
 
 Port of ``repro.launch.serve``: the same flags and output lines, on the
 card unless ``--device cpu``. It serves with ``attn_impl="pallas"``, the

@@ -22,6 +22,9 @@ H, D); k, v (B, Skv, KV, D), query heads grouped over KV heads.
 Masked scores are the reference's finite -1e30, and a row's running
 maximum never falls below it: a key block that the window masks whole
 then gives exp(m_old − m_new) = 0 rather than NaN, in the gradient too.
+Every path scales the scores by ``scale``: 1/√D when None (the
+reference's only scale), or another softmax scale (Granite-4.0-H's
+``attention_multiplier``).
 """
 from __future__ import annotations
 
@@ -94,13 +97,17 @@ def _mask_block(pos_q: torch.Tensor, pos_kv: torch.Tensor,
     return mask
 
 
-def naive_attention(q, k, v, *, pos_q, pos_kv, window=None):
+def _scale(scale: Optional[float], d: int) -> float:
+    return 1.0 / math.sqrt(d) if scale is None else scale
+
+
+def naive_attention(q, k, v, *, pos_q, pos_kv, window=None, scale=None):
     """Full-matrix attention: float32 scores and softmax, probabilities
     cast to ``q.dtype`` before PV, as the reference does."""
     b, sq, h, d = q.shape
     n_kv = k.shape[2]
     qg = q.reshape(b, sq, n_kv, h // n_kv, d)
-    scale = 1.0 / math.sqrt(d)
+    scale = _scale(scale, d)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
     scores = scores.masked_fill(~_mask_block(pos_q, pos_kv, window),
                                 NEG_INF)
@@ -109,14 +116,15 @@ def naive_attention(q, k, v, *, pos_q, pos_kv, window=None):
     return out.reshape(b, sq, h, d)
 
 
-def decode_attention(q, k_cache, v_cache, *, pos_q, pos_kv, window=None):
+def decode_attention(q, k_cache, v_cache, *, pos_q, pos_kv, window=None,
+                     scale=None):
     """q (B, 1, H, D) against caches (B, L, KV, D); pos_kv (B, L) holds
     each slot's absolute position, -1 for an empty slot. Masking is
     positional, so ring-buffer slot order does not matter."""
     b, _, h, d = q.shape
     n_kv = k_cache.shape[2]
     qg = q.reshape(b, 1, n_kv, h // n_kv, d)
-    scale = 1.0 / math.sqrt(d)
+    scale = _scale(scale, d)
     s = torch.einsum("bqkgd,blkd->bkgql", qg.float(),
                      k_cache.float()) * scale                 # (B,KV,G,1,L)
     diff = pos_q[:, None] - pos_kv                            # (B, L)
@@ -191,7 +199,7 @@ def _scan_kv(q_blk, k_seq, v_seq, pos_blk, pos_kv_seq, window, block_kv,
 
 
 def blocked_attention(q, k, v, *, pos_q, pos_kv, window=None,
-                      block_q: int = 512, block_kv: int = 1024):
+                      block_q: int = 512, block_kv: int = 1024, scale=None):
     """Flash-style attention in plain PyTorch. With ``window`` set and
     ``window + block_q <= Skv``, each query block scans only a band of
     keys of static width ending at its last position (no rectangle
@@ -202,8 +210,8 @@ def blocked_attention(q, k, v, *, pos_q, pos_kv, window=None,
     block_kv = min(block_kv, skv)
     if sq % block_q or skv % block_kv:
         return naive_attention(q, k, v, pos_q=pos_q, pos_kv=pos_kv,
-                               window=window)
-    scale = 1.0 / math.sqrt(d)
+                               window=window, scale=scale)
+    scale = _scale(scale, d)
     g, nq = h // n_kv, sq // block_q
     qg = q.reshape(b, nq, block_q, n_kv, g, d)
     pos_qb = pos_q.reshape(nq, block_q)
@@ -220,7 +228,8 @@ def blocked_attention(q, k, v, *, pos_q, pos_kv, window=None,
     return out.reshape(b, sq, h, d).to(q.dtype)
 
 
-def blocked_attention_folded(q, k, v, *, pos_q, pos_kv, block: int = 512):
+def blocked_attention_folded(q, k, v, *, pos_q, pos_kv, block: int = 512,
+                             scale=None):
     """Causal blocked attention without the rectangle waste: query block
     p is paired with block nq-1-p, and the pair's causal keys take
     exactly nq+1 key blocks, each update computing one (bq × bkv) block
@@ -237,7 +246,7 @@ def blocked_attention_folded(q, k, v, *, pos_q, pos_kv, block: int = 512):
         raise ValueError(f"folded attention needs an even block count, "
                          f"got {nq}")
     g = h // n_kv
-    scale = 1.0 / math.sqrt(d)
+    scale = _scale(scale, d)
     qg = q.reshape(b, nq, block, n_kv, g, d)
     pos_qb = pos_q.reshape(nq, block)
     kb = k.reshape(b, nq, block, n_kv, d)
@@ -259,22 +268,23 @@ def blocked_attention_folded(q, k, v, *, pos_q, pos_kv, block: int = 512):
 
 def attention(q, k, v, *, pos_q, pos_kv, impl: str = "pallas",
               window: Optional[int] = None, block_q: int = 512,
-              block_kv: int = 1024):
+              block_kv: int = 1024, scale: Optional[float] = None):
     """Attention over a whole sequence, dispatched on ``impl``
-    (``ModelConfig.attn_impl``). The kernel, like the reference's, takes
-    positions to be 0..S-1."""
+    (``ModelConfig.attn_impl``), the scores scaled by ``scale`` (1/√D
+    when None). The kernel, like the reference's, takes positions to be
+    0..S-1."""
     if impl == "pallas":
-        return flash_ops.flash_attention(q, k, v, window=window)
+        return flash_ops.flash_attention(q, k, v, window=window, scale=scale)
     if impl == "naive":
         return naive_attention(q, k, v, pos_q=pos_q, pos_kv=pos_kv,
-                               window=window)
+                               window=window, scale=scale)
     if impl not in ("blocked", "folded"):
         raise ValueError(f"unknown attn_impl {impl!r}")
     sq, skv = q.shape[1], k.shape[1]
     if (impl == "folded" and window is None and sq == skv
             and sq % block_q == 0 and (sq // block_q) % 2 == 0):
         return blocked_attention_folded(q, k, v, pos_q=pos_q, pos_kv=pos_kv,
-                                        block=block_q)
+                                        block=block_q, scale=scale)
     return blocked_attention(q, k, v, pos_q=pos_q, pos_kv=pos_kv,
                              window=window, block_q=block_q,
-                             block_kv=block_kv)
+                             block_kv=block_kv, scale=scale)

@@ -19,6 +19,10 @@ State cache for decode:
 A prefill returns ``ssm`` in bfloat16 and ``conv`` in the compute dtype
 (the reference's casts); a decode step returns new tensors and leaves
 its input cache alone.
+
+``mamba2_mixer`` is the block's branch alone (the ``repro.mamba`` span),
+so that a caller can scale it before the residual (Granite-4.0-H's
+``residual_multiplier``); ``mamba2_apply`` adds it to x.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import resolve_device
+from repro_torch.common.spans import span
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamSpec
 from repro_torch.models.transformer import _index, _remat, _stack_caches
@@ -159,12 +164,18 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     return y, carry
 
 
-def mamba2_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
+def mamba2_mixer(p, x: torch.Tensor, cfg: ModelConfig, *,
                  mode: str = "train",
                  cache: Optional[Dict[str, torch.Tensor]] = None
                  ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """x (B, S, d). Decode: S = 1 with cache {"ssm", "conv"}. Returns
-    (x + block(x), the new cache: None in training)."""
+    """The block's branch without the residual, from the norm to the
+    out-projection: x (B, S, d). Decode: S = 1 with cache {"ssm",
+    "conv"}. Returns (block(x), the new cache: None in training)."""
+    with span("mamba"):
+        return _mixer(p, x, cfg, mode, cache)
+
+
+def _mixer(p, x, cfg: ModelConfig, mode: str, cache):
     scfg = cfg.ssm
     d_in, n_heads, _ = _dims(cfg)
     gr, n = scfg.n_groups, scfg.d_state
@@ -211,7 +222,17 @@ def mamba2_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
 
     y = y * F.silu(z)
     y = L.rms_norm(y, p["out_norm"], 1e-6)
-    return x + y @ p["w_out"].to(h.dtype), new_cache
+    return y @ p["w_out"].to(h.dtype), new_cache
+
+
+def mamba2_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
+                 mode: str = "train",
+                 cache: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """x (B, S, d). Decode: S = 1 with cache {"ssm", "conv"}. Returns
+    (x + block(x), the new cache: None in training)."""
+    y, new_cache = mamba2_mixer(p, x, cfg, mode=mode, cache=cache)
+    return x + y, new_cache
 
 
 def mamba_stack_apply(layers, x: torch.Tensor, cfg: ModelConfig, *,

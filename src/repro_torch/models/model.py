@@ -23,7 +23,11 @@ FedGradNorm differentiates -> a per-client head.
     block (``models/hybrid.py``);
   - ``xlstm``: super-blocks of mLSTM and sLSTM (``models/xlstm.py``);
   - ``ssm``: a pure stack of Mamba2 layers (``models/mamba2.py``),
-    hooked as ("layers", i).
+    hooked as ("layers", i);
+  - ``hybrid_moe``: the port's own Granite-4.0-H family, per-layer
+    Mamba2 or attention mixers each followed by an MoE block with a
+    shared expert (``models/hybrid_moe.py``); its logits are divided by
+    ``cfg.logits_scaling``.
 
   Every trunk takes token ids or float embeddings alike.
 
@@ -40,13 +44,14 @@ import torch
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.models import hybrid as HY
+from repro_torch.models import hybrid_moe as HM
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import transformer as T
 from repro_torch.models import xlstm as XL
 from repro_torch.models.params import ParamSpec
 
-FAMILIES = ("mlp", "dense", "moe", "hybrid", "xlstm", "ssm")
+FAMILIES = ("mlp", "dense", "moe", "hybrid", "xlstm", "ssm", "hybrid_moe")
 
 # paper Table I: shared network FC dims (input 256 -> ... -> 256 out)
 PAPER_MLP_DIMS = (256, 512, 1024, 2048, 512, 256)
@@ -78,6 +83,8 @@ class Model:
             return T.dense_trunk_specs(cfg)
         if cfg.family == "hybrid":
             return HY.hybrid_trunk_specs(cfg)
+        if cfg.family == "hybrid_moe":
+            return HM.hybrid_moe_trunk_specs(cfg)
         if cfg.family == "xlstm":
             return XL.xlstm_trunk_specs(cfg)
         if cfg.family == "ssm":
@@ -137,6 +144,8 @@ class Model:
                   cache_len=cache_len, param_hook=param_hook)
         if cfg.family == "hybrid":
             return HY.hybrid_trunk_apply(params, inputs, cfg, **kw)
+        if cfg.family == "hybrid_moe":
+            return HM.hybrid_moe_trunk_apply(params, inputs, cfg, **kw)
         if cfg.family == "xlstm":
             return XL.xlstm_trunk_apply(params, inputs, cfg, **kw)
         if cfg.family == "ssm":
@@ -155,7 +164,10 @@ class Model:
 
     def head_apply(self, params, features: torch.Tensor) -> torch.Tensor:
         if self.is_lm:   # logits in float32
-            return (features @ params["w"].to(features.dtype)).float()
+            logits = (features @ params["w"].to(features.dtype)).float()
+            if self.cfg.family == "hybrid_moe":
+                return logits / self.cfg.logits_scaling
+            return logits
         return _dense(features, params)
 
     def features(self, omega, inputs: torch.Tensor) -> torch.Tensor:
@@ -174,6 +186,9 @@ class Model:
             raise ValueError("the mlp family has no cache")
         if cfg.family == "hybrid":
             return HY.init_hybrid_cache(cfg, batch, cache_len, dtype, device)
+        if cfg.family == "hybrid_moe":
+            return HM.init_hybrid_moe_cache(cfg, batch, cache_len, dtype,
+                                            device)
         if cfg.family == "xlstm":
             return XL.init_xlstm_cache(cfg, batch, dtype, device)
         if cfg.family == "ssm":
@@ -189,6 +204,8 @@ class Model:
             raise ValueError("the mlp family has no cache")
         if cfg.family == "hybrid":
             return HY.hybrid_cache_axes(cfg)
+        if cfg.family == "hybrid_moe":
+            return HM.hybrid_moe_cache_axes()
         if cfg.family == "xlstm":
             return XL.xlstm_cache_axes()
         if cfg.family == "ssm":

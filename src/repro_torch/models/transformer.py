@@ -169,46 +169,63 @@ def _prefill_cache(k, v, positions, window, cache_len, batch):
             "pos": pos_tail.contiguous()}
 
 
-def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, *, positions,
-               window: Optional[int], theta: float, mode: str,
-               cache: Optional[Dict[str, torch.Tensor]] = None,
-               cache_len: Optional[int] = None):
-    """Pre-norm attention block; returns (x + attn(x), cache), the cache
-    None in training.
+def attn_branch(p, x: torch.Tensor, cfg: ModelConfig, *, positions,
+                window: Optional[int], theta: Optional[float], mode: str,
+                cache: Optional[Dict[str, torch.Tensor]] = None,
+                cache_len: Optional[int] = None,
+                scale: Optional[float] = None):
+    """The pre-norm attention block's branch, attn(norm(x)) without the
+    residual; returns (branch, cache), the cache None in training.
 
     ``positions`` is (S,) in training and prefill and the (B,) absolute
-    positions of the incoming tokens in decode."""
+    positions of the incoming tokens in decode. ``theta`` None leaves q
+    and k unrotated (no position encoding); ``scale`` is the softmax
+    scale, 1/√D when None."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be 'train', 'prefill' or 'decode', "
                          f"got {mode!r}")
-    with span("tf.attn"):
-        h = L.rms_norm(x, p["norm"], 1e-6)
-        q, k, v = _project_qkv(p, h, cfg)
-        if mode == "decode":
+    h = L.rms_norm(x, p["norm"], 1e-6)
+    q, k, v = _project_qkv(p, h, cfg)
+    if mode == "decode":
+        if theta is not None:
             q = L.apply_rope(q, positions[:, None], theta)
             k = L.apply_rope(k, positions[:, None], theta)
-            cap = cache["k"].shape[1]
-            slot = positions % cap if window is not None else positions
-            slot = slot.clamp(0, cap - 1)
-            bidx = torch.arange(x.shape[0], device=x.device)
-            cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
-            cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
-            cache["pos"][bidx, slot] = positions.to(cache["pos"].dtype)
-            out = L.decode_attention(q, cache["k"], cache["v"],
-                                     pos_q=positions, pos_kv=cache["pos"],
-                                     window=window)
-            new_cache = cache
-        else:
+        cap = cache["k"].shape[1]
+        slot = positions % cap if window is not None else positions
+        slot = slot.clamp(0, cap - 1)
+        bidx = torch.arange(x.shape[0], device=x.device)
+        cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
+        cache["pos"][bidx, slot] = positions.to(cache["pos"].dtype)
+        out = L.decode_attention(q, cache["k"], cache["v"],
+                                 pos_q=positions, pos_kv=cache["pos"],
+                                 window=window, scale=scale)
+        new_cache = cache
+    else:
+        if theta is not None:
             q = L.apply_rope(q, positions[None, :], theta)
             k = L.apply_rope(k, positions[None, :], theta)
-            out = L.attention(q, k, v, pos_q=positions, pos_kv=positions,
-                              impl=cfg.attn_impl, window=window,
-                              block_q=cfg.attn_block_q,
-                              block_kv=cfg.attn_block_kv)
-            new_cache = None if mode == "train" else _prefill_cache(
-                k, v, positions, window, cache_len, x.shape[0])
-        wo = p["wo"]
-        y = out.flatten(-2) @ wo.reshape(-1, wo.shape[-1]).to(x.dtype)
+        out = L.attention(q, k, v, pos_q=positions, pos_kv=positions,
+                          impl=cfg.attn_impl, window=window,
+                          block_q=cfg.attn_block_q,
+                          block_kv=cfg.attn_block_kv, scale=scale)
+        new_cache = None if mode == "train" else _prefill_cache(
+            k, v, positions, window, cache_len, x.shape[0])
+    wo = p["wo"]
+    return out.flatten(-2) @ wo.reshape(-1, wo.shape[-1]).to(x.dtype), \
+        new_cache
+
+
+def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, *, positions,
+               window: Optional[int], theta: Optional[float], mode: str,
+               cache: Optional[Dict[str, torch.Tensor]] = None,
+               cache_len: Optional[int] = None):
+    """Pre-norm attention block, x + ``attn_branch``; returns (x +
+    attn(x), cache), the cache None in training."""
+    with span("tf.attn"):
+        y, new_cache = attn_branch(p, x, cfg, positions=positions,
+                                   window=window, theta=theta, mode=mode,
+                                   cache=cache, cache_len=cache_len)
         return x + y, new_cache
 
 
